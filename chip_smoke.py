@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure exits nonzero):
+
+1. device: the card's name and power limit, the kernel build (nvcc, from
+   foundationdb_tpu_torch/csrc) and its seconds;
+2. probe kernel vs its plain torch version on the same CUDA tensors, bit
+   exact, at edge shapes and at the resolver's full-width shapes (W1 = 4,
+   NB = 65,536 blocks of 32, P2 = 917,504 endpoints), with CUDA-event
+   medians of both;
+3. narrow slice: ConflictSetGPU on the card against the CPU oracle
+   ConflictSetCPU, 40 batches of 256 txns at pipeline depth 4 (GC horizon,
+   tooOld txns, a 40-byte key mid-run, compaction every 4 dispatches):
+   statuses and entries() equal;
+4. full width, BASELINE config 5 (sliding MVCC window): uniform 8-byte
+   keys over 2^20, 5 point reads + 2 point writes per txn, 65,536 txns per
+   batch, version step 65,536, GC horizon version - 131,072, a 2^21-slot
+   state. 24 batches through submit/verdicts at depth 4; the first 2 also
+   through ConflictSetGPU(device="cpu"), statuses and entries() equal. The
+   probe's launch count is reset just before and read just after this run
+   and must be positive. Prints txns/s, p50/p90 batch latency and more.
+
+Then one JSON line with the kernel table, the card's name and power limit,
+and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
+exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 20261016
+PAD_WORD = 2**31 - 1
+INT32_MIN = -(2**31)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
+
+
+def log(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cuda_ms(fn, reps: int = 15) -> float:
+    """Median CUDA-event time of fn() in ms, after two warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def probe_case(rng, W1: int, NB: int, B: int, P2: int):
+    """A valid block state (sorted unique keys; 3/4 of the NB blocks hold
+    a live prefix of 1..B-1 keys, the rest are +inf pad; fences = each
+    block's first key) and P2 queries: random keys, copies of stored keys
+    and fences, keys below every stored key, +inf pads."""
+    W = W1 - 1
+    n_live = max(1, NB * 3 // 4)
+    counts = rng.integers(1, B, size=n_live)
+    need = int(counts.sum())
+
+    def keys(n):
+        k = rng.integers(-3, 4, size=(n, W1)).astype(np.int32)
+        k[:, 0] = rng.integers(-4 * need, 4 * need, size=n)
+        k[:, W] = rng.integers(0, 40, size=n)
+        return k
+
+    uniq = np.unique(keys(2 * need + 16), axis=0)  # lexicographic rows
+    live = uniq[np.sort(rng.choice(len(uniq), need, replace=False))]
+    pad = np.full(W1, PAD_WORD, dtype=np.int32)
+    hkeys = np.tile(pad[:, None], (1, NB * B))
+    fences = np.tile(pad[:, None], (1, NB))
+    at = 0
+    for b, c in enumerate(counts):
+        hkeys[:, b * B: b * B + c] = live[at: at + c].T
+        fences[:, b] = live[at]
+        at += c
+    q = keys(P2).T.copy()
+    n4 = P2 // 4
+    q[:, :n4] = live[rng.integers(0, need, size=n4)].T
+    q[:, n4: n4 + n4 // 2] = fences[:, rng.integers(0, n_live, size=n4 // 2)]
+    q[:, n4 + n4 // 2: n4 + n4 // 2 + 2] = INT32_MIN
+    q[:, -2:] = pad[:, None]
+    return hkeys, fences, q
+
+
+def probe_bound(W1: int, NB: int, B: int, P2: int, bid) -> tuple[float, str]:
+    """Least time for the probe's work on this card: bytes (fences, the
+    slots of every touched block, queries read once; outputs written
+    once) vs int32 compares, whichever is larger."""
+    touched = int(np.unique(np.clip(bid, 0, NB - 1)).size)
+    nbytes = 4 * W1 * NB + 4 * W1 * B * touched + 4 * W1 * P2 + 12 * P2
+    ops = P2 * W1 * ((NB.bit_length() - 1) + (B.bit_length() - 1) + 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_probe(hkeys, fences, q, NB: int, B: int, timed: bool = False):
+    """Kernel vs plain version on the same CUDA tensors: (max |diff|,
+    kernel ms, plain ms)."""
+    import torch
+    from foundationdb_tpu_torch.resolver import probe
+
+    got = probe.probe_ranks(hkeys, fences, q, NB=NB, B=B)
+    want = probe.probe_ranks_ref(hkeys, fences, q, NB=NB, B=B)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    if err:
+        fail(f"probe kernel disagrees with its plain version (NB={NB} "
+             f"B={B} W1={q.shape[0]} P2={q.shape[1]}): max |diff| {err}")
+    if not timed:
+        return err, None, None
+    k_ms = cuda_ms(lambda: probe.probe_ranks(hkeys, fences, q, NB=NB, B=B))
+    p_ms = cuda_ms(lambda: probe.probe_ranks_ref(hkeys, fences, q, NB=NB, B=B))
+    return err, k_ms, p_ms
+
+
+def phase_probe(rng):
+    import torch
+
+    dev = torch.device("cuda")
+    cases = [  # (W1, NB, B, P2)
+        (2, 8, 8, 8), (4, 8, 32, 700), (17, 8, 8, 700), (5, 64, 32, 1000),
+        (4, 1024, 32, 4099), (17, 256, 16, 2048),
+    ]
+    for W1, NB, B, P2 in cases:
+        h, f, q = (torch.as_tensor(a, device=dev)
+                   for a in probe_case(rng, W1, NB, B, P2))
+        err, k_ms, p_ms = check_probe(h, f, q, NB, B, timed=True)
+        log("probe-edge", W1=W1, NB=NB, B=B, P2=P2, max_abs_err=err,
+            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    W1, NB, B, P2 = 4, 65536, 32, 917504
+    h, f, q = probe_case(rng, W1, NB, B, P2)
+    q = q[:, np.lexsort(q[::-1])]  # sorted columns, as the resolver's smat
+    h, f, q = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+               for a in (h, f, q))
+    err, k_ms, p_ms = check_probe(h, f, q, NB, B, timed=True)
+    log("probe-slice", W1=W1, NB=NB, B=B, P2=P2, max_abs_err=err,
+        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def k8(x: int) -> bytes:
+    return struct.pack(">Q", int(x))
+
+
+def phase_narrow(rng, device=None):
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.kv.keys import KeyRange
+    from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
+    from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+    from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
+
+    SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES = 4
+    ora = ConflictSetCPU()
+    gpu = ConflictSetGPU(max_key_bytes=8, initial_capacity=256, device=device)
+    v, want, got, handles = 10_000, [], [], []
+    for b in range(40):
+        v += 100
+        txns = []
+        for _ in range(256):
+            key = (lambda a: b"x" * 32 + k8(a)) if b == 20 else k8
+            rr = [KeyRange(key(a), key(a + int(rng.integers(1, 6))))
+                  for a in rng.integers(0, 2000, rng.integers(0, 4))]
+            wr = [KeyRange(key(a), key(a) + b"\x00")
+                  for a in rng.integers(0, 2000, rng.integers(0, 3))]
+            txns.append(TxnConflictInfo(v - int(rng.integers(0, 900)), rr, wr))
+        want.append(ora.resolve(v, v - 700, txns).statuses)
+        if len(handles) >= 4:
+            got.append(gpu.verdicts(handles.pop(0)))
+        handles.append(gpu.submit(v, v - 700, txns))
+    got.extend(gpu.verdicts(h) for h in handles)
+    SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES = 16
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        fail(f"narrow slice: statuses differ from the oracle at batch {bad}")
+    if gpu.entries() != ora.entries():
+        fail("narrow slice: entries() differ from the oracle")
+    n_old = sum(s.count(2) for s in want)
+    log("narrow", batches=40, txns_per_batch=256, statuses_equal=True,
+        entries_equal=True, entries=len(ora.entries()), too_old=n_old,
+        key_bytes=gpu.max_key_bytes, compactions=gpu.compactions,
+        fast_resolves=gpu.fast_resolves)
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def audit_syncs(cs, wb, version: int, window: int) -> None:
+    """Count the host syncs one submit() makes (torch's sync debug mode
+    flags every blocking CUDA call) and fail on any beyond the known
+    ones: phase 2's one read per round group and the lazy fence/count
+    mirror readback after a compaction (one read)."""
+    import warnings
+
+    import torch
+    from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+
+    p0, m0 = gpu_mod.P2_SYNCS, cs.mirror_reads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            h = cs.submit(version, max(0, version - window), wb)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cs.verdicts(h)
+    syncs = sum("synchroniz" in str(w.message).lower()
+                and "prototype" not in str(w.message) for w in caught)
+    known = (gpu_mod.P2_SYNCS - p0) + (cs.mirror_reads - m0)
+    log("sync-audit", host_syncs_in_submit=syncs, phase2_reads=gpu_mod.P2_SYNCS - p0,
+        mirror_reads=cs.mirror_reads - m0)
+    if syncs > known:
+        fail(f"submit made {syncs} host syncs, {known} expected")
+
+
+def profile_batch(cs, wb, version: int, window: int, batch_ms: float) -> None:
+    """One synchronous batch under torch.profiler: device busy time, kernel
+    launches and the kernels that take the most device time; the idle
+    share is against the pipelined run's mean batch time `batch_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if cs.device.type != "cuda":
+        return
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.resolve(version, max(0, version - window), wb)
+        torch.cuda.synchronize()
+    # Device-side events only (kernels, copies): the CPU ops that launched
+    # them report the same device time again.
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    launches = sum(e.count for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    log("full-profile",
+        device_busy_ms=f"{busy_ms:.3f}" if dev else "not measured",
+        device_ops=launches, batch_ms=f"{batch_ms:.2f}",
+        idle_share=f"{1 - busy_ms / batch_ms:.4f}" if dev else "not measured",
+        top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 3),
+                         e.count) for e in top]))
+
+
+def config5_batch(rng, n: int, version: int, space: int = 1 << 20,
+                  n_reads: int = 5, n_writes: int = 2, lag: int = 100_000):
+    """One config-5 batch as a WireBatch, built column-wise: point ranges
+    [k8(k), k8(k) + b"\\x00") over uniform keys, snapshots version - U[0,
+    lag)."""
+    from foundationdb_tpu_torch.resolver.wire import WireBatch
+
+    snaps = (version - rng.integers(0, lag, size=n)).astype(np.int64)
+    rk = rng.integers(0, space, size=n * n_reads).astype(">u8")
+    wk = rng.integers(0, space, size=n * n_writes).astype(">u8")
+
+    def begins(k):
+        return k.view(np.uint8).reshape(-1, 8)
+
+    def ends(k):
+        e = np.zeros((len(k), 9), dtype=np.uint8)
+        e[:, :8] = begins(k)
+        return e
+
+    parts = [begins(rk), ends(rk), begins(wk), ends(wk)]
+    blob = np.concatenate([p.reshape(-1) for p in parts])
+    base = np.cumsum([0] + [p.size for p in parts[:-1]])
+    cols = []
+    for p, b0 in zip(parts, base):
+        w = p.shape[1]
+        cols += [b0 + np.arange(len(p), dtype=np.int64) * w,
+                 np.full(len(p), w, dtype=np.int32)]
+    return WireBatch(
+        n_txns=n, snaps=snaps,
+        r_counts=np.full(n, n_reads, dtype=np.int32),
+        w_counts=np.full(n, n_writes, dtype=np.int32),
+        rb_off=cols[0], rb_len=cols[1], re_off=cols[2], re_len=cols[3],
+        wb_off=cols[4], wb_len=cols[5], we_off=cols[6], we_len=cols[7],
+        blob=blob,
+    )
+
+
+def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
+               n_batches: int = 24, capacity: int = 1 << 21,
+               chunk: int = 8192):
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+    from foundationdb_tpu_torch.resolver import probe
+    from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+
+    step, window, depth = 65536, 131072, 4
+    # Chunks of 8,192 txns. A 64K-txn chunk writes up to 262,144 endpoint
+    # keys while the state holds about two batches of writes at fill
+    # B/2 = 16 per block, so the host's pessimistic headroom proof (fill +
+    # new keys <= B-1 in every touched block) fails somewhere on every
+    # dispatch and every batch would take the compaction pass; the last
+    # leg below measures that. Chunks at one version resolve exactly like
+    # one chunk.
+    SERVER_KNOBS.TPU_MAX_CHUNK_TXNS = chunk
+    kw = dict(max_key_bytes=9, initial_capacity=capacity)
+    v0 = 1_000_000
+    batches = [config5_batch(rng, n_txn, v0 + i * step) for i in range(n_batches)]
+
+    # Capture the probe's inputs on the main path (last call wins) so the
+    # kernel is held against its plain version at exactly those shapes.
+    captured = {}
+    real_probe = gpu_mod.probe_ranks
+
+    def recording_probe(hkeys, fences, smat, *, NB, B):
+        captured.update(hkeys=hkeys.clone(), fences=fences.clone(),
+                        smat=smat.clone(), NB=NB, B=B)
+        return real_probe(hkeys, fences, smat, NB=NB, B=B)
+
+    gpu_mod.probe_ranks = recording_probe
+    cs = ConflictSetGPU(device=device, **kw)
+    ref = ConflictSetGPU(device="cpu", **kw)
+    probe.LAUNCHES = 0
+    syncs0 = gpu_mod.P2_SYNCS
+    sync(cs.device)
+    lat, statuses, handles, p2 = [], [], [], []
+
+    stages = {"pack_ms": [], "dispatch_ms": [], "wait_ms": []}
+
+    def consume():
+        t_sub, h = handles.pop(0)
+        statuses.append(cs.verdicts(h))
+        lat.append(time.perf_counter() - t_sub)
+        p2.append(cs.last_p2_iters)
+        for k, x in (("pack_ms", h.pack_ms), ("dispatch_ms", h.dispatch_ms),
+                     ("wait_ms", h.device_ms)):
+            stages[k].append(x)
+
+    for i, wb in enumerate(batches):
+        v = v0 + i * step
+        if i == 2:
+            # Batches 0-1 consumed, then held against the CPU twin.
+            while handles:
+                consume()
+            for j in range(2):
+                rv = v0 + j * step
+                want = ref.resolve(rv, max(0, rv - window), batches[j]).statuses
+                if want != statuses[j]:
+                    fail(f"full width: card statuses differ from the CPU "
+                         f"twin at batch {j}")
+            if cs.entries() != ref.entries():
+                fail("full width: card entries() differ from the CPU twin "
+                     "after batch 2")
+            t_steady = time.perf_counter()
+        elif len(handles) >= depth:
+            consume()
+        handles.append((time.perf_counter(),
+                        cs.submit(v, max(0, v - window), wb)))
+    while handles:
+        consume()
+    sync(cs.device)
+    t_end = time.perf_counter()
+    launches = probe.LAUNCHES
+    syncs = gpu_mod.P2_SYNCS - syncs0
+    gpu_mod.probe_ranks = real_probe
+    if launches <= 0:
+        fail("full width: the probe kernel was not launched on the main path")
+    st = np.concatenate([np.asarray(s) for s in statuses])
+    if st.size != n_txn * n_batches or not np.isin(st, (0, 1, 2)).all():
+        fail("full width: malformed statuses")
+    steady = (n_batches - 2) * n_txn / (t_end - t_steady)
+    lat_ms = np.asarray(lat) * 1e3
+    n_entries = len(cs.entries())
+    log("full", card=json.dumps(card), smi=json.dumps(smi), batches=n_batches, txns_per_batch=n_txn,
+        txns_per_s=f"{steady:.1f}",
+        p50_batch_ms=f"{np.percentile(lat_ms, 50):.2f}",
+        p90_batch_ms=f"{np.percentile(lat_ms, 90):.2f}",
+        conflict_rate=f"{float((st == 1).mean()):.4f}",
+        last_p2_iters=p2[-1], p2_syncs_per_batch=f"{syncs / n_batches:.2f}",
+        entries=n_entries, compactions=cs.compactions,
+        fast_resolves=cs.fast_resolves, probe_launches=launches,
+        probe_launches_per_batch=f"{launches / n_batches:.2f}",
+        cpu_twin_batches=2)
+    log("full-stages", **{f"p50_{k}": f"{np.percentile(x, 50):.2f}"
+                          for k, x in stages.items()})
+    profile_batch(cs, config5_batch(rng, n_txn, v0 + n_batches * step),
+                  v0 + n_batches * step, window,
+                  batch_ms=1e3 * n_txn / steady)
+    n_batches += 1
+    if cs.device.type == "cuda":
+        audit_syncs(cs, config5_batch(rng, n_txn, v0 + n_batches * step),
+                    v0 + n_batches * step, window)
+        n_batches += 1
+
+    # Last leg, after the counts were read: the same set and traffic with
+    # 64K-txn chunks (the knob's default), to see which path it takes.
+    SERVER_KNOBS.TPU_MAX_CHUNK_TXNS = 65536
+    n_more = 6
+    comp0, fast0 = cs.compactions, cs.fast_resolves
+    more = [config5_batch(rng, n_txn, v0 + (n_batches + i) * step)
+            for i in range(n_more)]
+    t0 = time.perf_counter()
+    for i, wb in enumerate(more):
+        v = v0 + (n_batches + i) * step
+        if len(handles) >= depth:
+            consume()
+        handles.append((time.perf_counter(),
+                        cs.submit(v, max(0, v - window), wb)))
+    while handles:
+        consume()
+    sync(cs.device)
+    log("full-64k-chunks", batches=n_more,
+        txns_per_s=f"{n_more * n_txn / (time.perf_counter() - t0):.1f}",
+        compactions=cs.compactions - comp0,
+        fast_resolves=cs.fast_resolves - fast0)
+    return launches, captured
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from foundationdb_tpu_torch import _build
+    from foundationdb_tpu_torch.resolver import probe
+
+    torch.manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    smi = smi[0] if smi else "not readable"
+    build_s = _build.build_all()
+    ptxas = " | ".join(
+        ln.strip() for ln in _build.BUILD_LOG.get("probe", "").splitlines()
+        if "registers" in ln or "spill" in ln
+    )
+    log("device", name=json.dumps(card), smi=json.dumps(smi),
+        count=torch.cuda.device_count(), torch=torch.__version__,
+        cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
+        ptxas=json.dumps(ptxas))
+
+    phase_probe(rng)
+    phase_narrow(rng)
+    launches, cap = phase_full(rng, card, smi)
+
+    # The probe held against its plain version on the main path's inputs.
+    h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB", "B"))
+    err, k_ms, p_ms = check_probe(h, f, q, NB, B, timed=True)
+    bid = probe.probe_ranks_ref(h, f, q, NB=NB, B=B)[0].cpu().numpy()
+    bound_ms, bound_by = probe_bound(q.shape[0], NB, B, q.shape[1], bid)
+    log("probe-main", W1=q.shape[0], NB=NB, B=B, P2=q.shape[1],
+        max_abs_err=err, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+
+    print(json.dumps({"kernels": [{
+        "name": "probe_ranks",
+        "route": "cuda",
+        "source": "foundationdb_tpu_torch/csrc/probe.cu",
+        "replaces": "foundationdb_tpu/resolver/pallas_probe.py:61",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

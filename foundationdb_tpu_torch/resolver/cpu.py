@@ -1,0 +1,175 @@
+"""Exact CPU reference conflict set — the oracle.
+
+The port's own copy of foundationdb_tpu.resolver.cpu (the port imports nothing
+of the JAX package); the byte and buffer formats are identical.
+
+Semantics are a faithful re-derivation of the reference's versioned-skip-list
+ConflictSet (fdbserver/SkipList.cpp), restated as a *step function*
+version(x) over the key space:
+
+- An entry (key_i, v_i) means: every key in [key_i, key_{i+1}) was last
+  written at version v_i (skip-list nodes store exactly this,
+  SkipList.cpp:309-352 + addConflictRanges :511-523).
+- Read check (SkipList::CheckMax, :755-837): read range [b, e) at snapshot s
+  conflicts iff max(version at b, versions of entries in (b, e)) > s.
+- tooOld (ConflictBatch::addTransaction, :979-987): read_snapshot <
+  oldestVersion and the txn has read ranges; such txns take no further part.
+- Intra-batch (checkIntraBatchConflicts, :1133-1158): sequential in batch
+  order; a txn's reads are checked against the accumulated writes of earlier
+  *non-conflicting* txns in the same batch; only non-conflicting txns add
+  their writes.
+- Merge (mergeWriteConflictRanges, :1260+): committed txns' write ranges are
+  set to the batch version in the step function.
+- GC (removeBefore, :665-702): entries below the oldest version may be
+  collapsed; observable answers are preserved because any live read has
+  snapshot >= oldestVersion (we clamp stale versions to 0 and coalesce,
+  which is equivalent for every reachable query).
+"""
+
+from __future__ import annotations
+
+from bisect import bisect_left, bisect_right
+from typing import Sequence
+
+from ..kv.keys import KeyRange
+from .types import COMMITTED, CONFLICT, TOO_OLD, ConflictBatchResult, TxnConflictInfo
+
+
+class ConflictSetCPU:
+    """Step-function conflict history over byte-string keys."""
+
+    max_key_bytes: int | None = None  # unlimited (the TPU twin has a width)
+
+    def __init__(self, init_version: int = 0):
+        # Parallel arrays, keys sorted ascending; keys[0] == b"" always.
+        # versions[i] applies to [keys[i], keys[i+1]) (last segment unbounded).
+        self._keys: list[bytes] = [b""]
+        self._vers: list[int] = [init_version]
+        self.oldest_version: int = 0
+
+    # -- introspection (tests) --
+    def entries(self) -> list[tuple[bytes, int]]:
+        return list(zip(self._keys, self._vers))
+
+    def version_at(self, key: bytes) -> int:
+        i = bisect_right(self._keys, key) - 1
+        return self._vers[i]
+
+    def max_version_in(self, r: KeyRange) -> int:
+        """max version over [begin, end): segment at begin plus entries in
+        (begin, end)."""
+        lo = bisect_right(self._keys, r.begin) - 1  # segment containing begin
+        hi = bisect_left(self._keys, r.end)  # entries strictly < end
+        return max(self._vers[lo:hi])
+
+    # -- the ConflictBatch contract --
+    def resolve(
+        self,
+        version: int,
+        new_oldest_version: int,
+        txns: Sequence[TxnConflictInfo],
+    ) -> ConflictBatchResult:
+        n = len(txns)
+        statuses = [COMMITTED] * n
+
+        # Phase 0: tooOld (checked against the *pre-batch* oldestVersion).
+        too_old = [
+            t.read_snapshot < self.oldest_version and len(t.read_ranges) > 0 for t in txns
+        ]
+
+        # Phase 1: read-vs-history.
+        for i, t in enumerate(txns):
+            if too_old[i]:
+                statuses[i] = TOO_OLD
+                continue
+            for r in t.read_ranges:
+                if r.is_empty():
+                    continue
+                if self.max_version_in(r) > t.read_snapshot:
+                    statuses[i] = CONFLICT
+                    break
+
+        # Phase 2: intra-batch, sequential in batch order. Reads of txn i are
+        # checked against writes of earlier txns that are (so far) committed.
+        committed_writes: list[KeyRange] = []  # kept sorted by begin
+        begins: list[bytes] = []
+        for i, t in enumerate(txns):
+            if statuses[i] != COMMITTED:
+                continue
+            conflict = False
+            for r in t.read_ranges:
+                if r.is_empty():
+                    continue
+                # candidate writes: begin < r.end; check we > r.begin.
+                hi = bisect_left(begins, r.end)
+                for w in committed_writes[:hi]:
+                    if w.end > r.begin and w.begin < r.end:
+                        conflict = True
+                        break
+                if conflict:
+                    break
+            if conflict:
+                statuses[i] = CONFLICT
+            else:
+                for w in t.write_ranges:
+                    if w.is_empty():
+                        continue
+                    j = bisect_left(begins, w.begin)
+                    begins.insert(j, w.begin)
+                    committed_writes.insert(j, w)
+
+        # Phase 3: merge committed write ranges at the batch version.
+        for i, t in enumerate(txns):
+            if statuses[i] == COMMITTED:
+                for w in t.write_ranges:
+                    if not w.is_empty():
+                        self._set_range(w, version)
+
+        # Phase 4: GC. The clamp/coalesce runs every batch (a no-op beyond
+        # the <= boundary when the horizon does not advance), keeping the
+        # step function bit-identical to the TPU kernel's, which always
+        # clamps during its merge pass.
+        self.oldest_version = max(self.oldest_version, new_oldest_version)
+        self._gc()
+
+        return ConflictBatchResult(statuses)
+
+    # -- step-function mutation --
+    def _set_range(self, r: KeyRange, version: int) -> None:
+        """Set version over [begin, end), preserving the value at end
+        (ref: SkipList::addConflictRanges — insert end with prior value,
+        remove interior, insert begin at the new version)."""
+        end_value = self.version_at(r.end)
+        lo = bisect_left(self._keys, r.begin)
+        hi = bisect_left(self._keys, r.end)
+        # Replace entries in [begin, end) with (begin, version), then ensure
+        # an entry at end restoring end_value.
+        new_keys = [r.begin]
+        new_vers = [version]
+        if hi >= len(self._keys) or self._keys[hi] != r.end:
+            new_keys.append(r.end)
+            new_vers.append(end_value)
+        self._keys[lo:hi] = new_keys
+        self._vers[lo:hi] = new_vers
+
+    def _gc(self) -> None:
+        """Clamp versions at-or-below the horizon to 0 and coalesce equal
+        neighbours. The clamp is `<=` (not `<`): an entry at exactly
+        oldest_version can never conflict either (every live snapshot is
+        >= oldest_version >= it), and the inclusive clamp gives 0 a unique
+        meaning — "at or below the horizon" — shared bit-for-bit with the
+        TPU kernel's int32-offset representation."""
+        keys, vers = self._keys, self._vers
+        out_k: list[bytes] = []
+        out_v: list[int] = []
+        for k, v in zip(keys, vers):
+            if v <= self.oldest_version:
+                v = 0
+            if out_v and out_v[-1] == v:
+                continue
+            out_k.append(k)
+            out_v.append(v)
+        self._keys, self._vers = out_k, out_v
+
+    def __len__(self) -> int:
+        return len(self._keys)

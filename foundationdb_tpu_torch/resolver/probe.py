@@ -1,0 +1,98 @@
+"""Two-level rank probe of the block-sparse fast path.
+
+The counterpart of foundationdb_tpu/resolver/pallas_probe.py: for every
+sorted endpoint column it gives (bid, lb_loc, eq_loc) — the block id (last
+fence <= key), the number of that block's entries < key, and equality at
+that rank — exactly as gpu._fence_rank + gpu._block_probe do.
+
+On a CUDA tensor `probe_ranks` launches the hand-written kernel
+csrc/probe.cu (built by _build.py) and counts the launch in LAUNCHES; on
+a CPU tensor it runs `probe_ranks_ref`, the plain torch version. There is
+no size limit (no counterpart of pallas_probe.fits_vmem): the operands stay
+in device memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = 0  # kernel launches since the caller last reset it
+
+_c_ptr = ctypes.c_void_p
+
+
+def probe_ranks_ref(hkeys, fences, smat, *, NB: int, B: int):
+    """Plain torch version: gpu._fence_rank + gpu._block_probe."""
+    from .gpu import _block_probe, _fence_rank
+
+    bid = _fence_rank(fences, smat)
+    start = bid.clamp(0, NB - 1) * B
+    lb_loc, eq_loc = _block_probe(hkeys, smat, start, B)
+    return bid, lb_loc, eq_loc
+
+
+def _check(hkeys, fences, smat, NB: int, B: int) -> None:
+    for name, t in (("hkeys", hkeys), ("fences", fences), ("smat", smat)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != smat.device:
+            raise ValueError(f"{name} is on {t.device}, smat on {smat.device}")
+    W1 = smat.shape[0]
+    if tuple(fences.shape) != (W1, NB):
+        raise ValueError(f"fences shape {tuple(fences.shape)} != {(W1, NB)}")
+    if tuple(hkeys.shape) != (W1, NB * B):
+        raise ValueError(
+            f"hkeys shape {tuple(hkeys.shape)} != {(W1, NB * B)}"
+        )
+
+
+def _lib():
+    from .. import _build
+
+    lib = _build.load("probe")
+    if not getattr(lib, "_fdb_typed", False):
+        lib.fdb_probe_ranks.argtypes = [
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, _c_ptr,
+        ]
+        lib.fdb_probe_ranks.restype = ctypes.c_int
+        lib.fdb_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fdb_cuda_error_string.restype = ctypes.c_char_p
+        lib._fdb_typed = True
+    return lib
+
+
+def probe_ranks(hkeys, fences, smat, *, NB: int, B: int):
+    """(bid, lb_loc, eq_loc), each (P2,) int32, of every query column of
+    smat (W1, P2) against the fence directory fences (W1, NB) and the
+    block key matrix hkeys (W1, NB*B)."""
+    global LAUNCHES
+    _check(hkeys, fences, smat, NB, B)
+    if smat.device.type == "cpu":
+        return probe_ranks_ref(hkeys, fences, smat, NB=NB, B=B)
+    if smat.device.type != "cuda":
+        raise ValueError(f"unsupported device {smat.device}")
+    lib = _lib()
+    W1, P2 = smat.shape
+    out = torch.empty((3, P2), dtype=torch.int32, device=smat.device)
+    with torch.cuda.device(smat.device):
+        stream = torch.cuda.current_stream(smat.device).cuda_stream
+        rc = lib.fdb_probe_ranks(
+            hkeys.data_ptr(), fences.data_ptr(), smat.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            W1, hkeys.shape[1], NB, B, P2, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"probe kernel launch failed: CUDA error {rc} "
+            f"({lib.fdb_cuda_error_string(rc).decode()})"
+        )
+    LAUNCHES += 1
+    return out[0], out[1], out[2]

@@ -1,0 +1,55 @@
+"""The port stands alone: nothing under foundationdb_tpu_torch/ and nothing
+in chip_smoke.py imports jax, jaxlib or the JAX package foundationdb_tpu
+(not even its pure-numpy modules), and importing every module of the port
+loads none of them."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "foundationdb_tpu"}
+
+
+def port_sources():
+    return sorted((ROOT / "foundationdb_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"
+    ]
+
+
+def absolute_imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.name)
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in absolute_imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    import foundationdb_tpu_torch
+
+    mods = [m.name for m in pkgutil.walk_packages(
+        foundationdb_tpu_torch.__path__, "foundationdb_tpu_torch.")]
+    assert "foundationdb_tpu_torch.resolver.gpu" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
