@@ -8,9 +8,11 @@ Phases (each prints one line; any failure exits nonzero):
 1. device: the card's name and power limit, the kernel build (nvcc, from
    foundationdb_tpu_torch/csrc) and its seconds;
 2. probe kernel vs its plain torch version on the same CUDA tensors, bit
-   exact, at edge shapes and at the resolver's full-width shapes (W1 = 4,
-   NB = 65,536 blocks of 32, P2 = 917,504 endpoints), with CUDA-event
-   medians of both;
+   exact, at edge shapes that take every branch of the kernel (unsorted
+   queries, permuted blocks) and at the resolver's full-width shapes
+   (W1 = 4, NB = 65,536 blocks of 32, P2 = 917,504 sorted endpoints),
+   with the device time of both (foundationdb_tpu_torch/timing.py: warm
+   over 50 launches per event pair, cold after an L2 flush);
 3. narrow slice: ConflictSetGPU on the card against the CPU oracle
    ConflictSetCPU, 40 batches of 256 txns at pipeline depth 4 (GC horizon,
    tooOld txns, a 40-byte key mid-run, compaction every 4 dispatches):
@@ -62,32 +64,27 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def cuda_ms(fn, reps: int = 15) -> float:
-    """Median CUDA-event time of fn() in ms, after two warm-up calls."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 # ---------------------------------------------------------------- phase 2
 
 
-def probe_case(rng, W1: int, NB: int, B: int, P2: int):
+def probe_case(rng, W1: int, NB: int, B: int, P2: int, permute: bool = False,
+               lead: int = 0):
     """A valid block state (sorted unique keys; 3/4 of the NB blocks hold
     a live prefix of 1..B-1 keys, the rest are +inf pad; fences = each
-    block's first key) and P2 queries: random keys, copies of stored keys
-    and fences, keys below every stored key, +inf pads."""
+    block's first key) and P2 unsorted queries: random keys, copies of
+    stored keys and fences, keys below every stored key, +inf pads. With
+    permute, each block's B slots are shuffled afterwards: no longer a
+    valid state, but the probe must still give exactly what the halving
+    walk gives (where a count of smaller slots would differ). With lead,
+    the first `lead` words of every key are one constant, as the high
+    words of short keys are (config 5's 8-byte keys under 2^32 pack to
+    INT32_MIN, value, 0, length), so compares are decided past word 0."""
+    if lead:
+        h, f, q = probe_case(rng, W1 - lead, NB, B, P2, permute)
+        return tuple(
+            np.concatenate([np.tile(np.where(a[:1] == PAD_WORD, PAD_WORD,
+                                             INT32_MIN), (lead, 1)), a])
+            .astype(np.int32) for a in (h, f, q))
     W = W1 - 1
     n_live = max(1, NB * 3 // 4)
     counts = rng.integers(1, B, size=n_live)
@@ -115,6 +112,10 @@ def probe_case(rng, W1: int, NB: int, B: int, P2: int):
     q[:, n4: n4 + n4 // 2] = fences[:, rng.integers(0, n_live, size=n4 // 2)]
     q[:, n4 + n4 // 2: n4 + n4 // 2 + 2] = INT32_MIN
     q[:, -2:] = pad[:, None]
+    if permute:
+        perm = np.argsort(rng.random((NB, B)), axis=1)
+        hkeys = np.take_along_axis(hkeys.reshape(W1, NB, B), perm[None],
+                                   axis=2).reshape(W1, NB * B)
     return hkeys, fences, q
 
 
@@ -131,10 +132,12 @@ def probe_bound(W1: int, NB: int, B: int, P2: int, bid) -> tuple[float, str]:
 
 
 def check_probe(hkeys, fences, q, NB: int, B: int, timed: bool = False):
-    """Kernel vs plain version on the same CUDA tensors: (max |diff|,
-    kernel ms, plain ms)."""
+    """Kernel vs plain version on the same CUDA tensors: max |diff| and,
+    if timed, {"ms": warm kernel, "ms_cold": kernel after an L2 flush,
+    "plain_ms": warm plain version}, device ms per call by device_ms."""
     import torch
     from foundationdb_tpu_torch.resolver import probe
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
 
     got = probe.probe_ranks(hkeys, fences, q, NB=NB, B=B)
     want = probe.probe_ranks_ref(hkeys, fences, q, NB=NB, B=B)
@@ -145,34 +148,72 @@ def check_probe(hkeys, fences, q, NB: int, B: int, timed: bool = False):
         fail(f"probe kernel disagrees with its plain version (NB={NB} "
              f"B={B} W1={q.shape[0]} P2={q.shape[1]}): max |diff| {err}")
     if not timed:
-        return err, None, None
-    k_ms = cuda_ms(lambda: probe.probe_ranks(hkeys, fences, q, NB=NB, B=B))
-    p_ms = cuda_ms(lambda: probe.probe_ranks_ref(hkeys, fences, q, NB=NB, B=B))
-    return err, k_ms, p_ms
+        return err, None
+    out = torch.empty((3, q.shape[1]), dtype=torch.int32, device=q.device)
+
+    def kernel():
+        probe.probe_ranks_into(out, hkeys, fences, q, NB=NB, B=B)
+
+    def plain():
+        probe.probe_ranks_ref(hkeys, fences, q, NB=NB, B=B)
+
+    return err, {
+        "ms": device_ms(kernel, n=50),
+        "ms_cold": device_ms(kernel, flush=l2_flusher(q.device)),
+        "plain_ms": device_ms(plain),
+    }
+
+
+def fmt_times(t) -> dict:
+    return {k: f"{v:.5f}" for k, v in t.items()}
 
 
 def phase_probe(rng):
     import torch
+    from foundationdb_tpu_torch.resolver import probe
 
     dev = torch.device("cuda")
-    cases = [  # (W1, NB, B, P2)
-        (2, 8, 8, 8), (4, 8, 32, 700), (17, 8, 8, 700), (5, 64, 32, 1000),
-        (4, 1024, 32, 4099), (17, 256, 16, 2048),
+    # (W1, NB, B, P2, kind), unsorted queries unless "sorted"; "perm"
+    # shuffles each block's slots, "odd" places hkeys and fences 4 bytes
+    # off 16-byte alignment. Between them they take every path of the
+    # kernel: W1 in registers (2-8) and in global memory (9, 17, and 2,503
+    # = the widest key, 10,001 bytes, whose staged directory takes more
+    # than 48 KB of shared memory); the closing window on both walks, on
+    # the block's only (NB = 4 below it; NB = 24, not a power of two, which
+    # also stages nothing), on the fences' only (B = 4 below it) and on
+    # neither (misaligned); B from 4 to 64, NB from 4 to 65,536, P2 from 1
+    # to 4,099.
+    cases = [
+        (2, 8, 8, 1, ""), (4, 8, 16, 31, "perm"), (8, 64, 32, 33, ""),
+        (9, 64, 64, 4099, "perm"), (17, 8, 8, 4099, ""),
+        (17, 64, 16, 33, "perm"), (8, 8, 64, 31, "perm"),
+        (3, 24, 8, 700, "perm"), (2, 4, 16, 33, ""), (3, 64, 4, 700, "perm"),
+        (4, 64, 32, 700, "odd"), (8, 1024, 64, 4099, "odd"),
+        (4, 1024, 32, 4099, "sorted"), (2, 65536, 8, 4099, "perm"),
+        (5, 65536, 64, 4099, "sorted"), (4, 1024, 32, 4099, "perm"),
+        (9, 65536, 32, 4099, ""), (2503, 64, 8, 33, "perm"),
     ]
-    for W1, NB, B, P2 in cases:
-        h, f, q = (torch.as_tensor(a, device=dev)
-                   for a in probe_case(rng, W1, NB, B, P2))
-        err, k_ms, p_ms = check_probe(h, f, q, NB, B, timed=True)
-        log("probe-edge", W1=W1, NB=NB, B=B, P2=P2, max_abs_err=err,
-            kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    for W1, NB, B, P2, kind in cases:
+        h, f, q = probe_case(rng, W1, NB, B, P2, permute=kind == "perm")
+        if kind == "sorted":
+            q = np.ascontiguousarray(q[:, np.lexsort(q[::-1])])
+        h, f, q = (torch.as_tensor(a, device=dev) for a in (h, f, q))
+        if kind == "odd":
+            h, f = (torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)[1:]
+                    .view(a.shape).copy_(a) for a in (h, f))
+        err, _ = check_probe(h, f, q, NB, B)
+        log("probe-edge", W1=W1, NB=NB, B=B, P2=P2, kind=kind or "valid",
+            max_abs_err=err)
     W1, NB, B, P2 = 4, 65536, 32, 917504
     h, f, q = probe_case(rng, W1, NB, B, P2)
     q = q[:, np.lexsort(q[::-1])]  # sorted columns, as the resolver's smat
     h, f, q = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
                for a in (h, f, q))
-    err, k_ms, p_ms = check_probe(h, f, q, NB, B, timed=True)
+    err, t = check_probe(h, f, q, NB, B, timed=True)
+    bid = probe.probe_ranks_ref(h, f, q, NB=NB, B=B)[0].cpu().numpy()
+    bound_ms, _ = probe_bound(W1, NB, B, P2, bid)
     log("probe-slice", W1=W1, NB=NB, B=B, P2=P2, max_abs_err=err,
-        kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+        bound_ms=f"{bound_ms:.5f}", **fmt_times(t))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -275,10 +316,14 @@ def profile_batch(cs, wb, version: int, window: int, batch_ms: float) -> None:
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     launches = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    pk = [e for e in dev if "probe_kernel" in e.key]
     log("full-profile",
         device_busy_ms=f"{busy_ms:.3f}" if dev else "not measured",
         device_ops=launches, batch_ms=f"{batch_ms:.2f}",
         idle_share=f"{1 - busy_ms / batch_ms:.4f}" if dev else "not measured",
+        probe_kernel_ms=(f"{sum(e.self_device_time_total for e in pk) / 1e3:.4f}"
+                         if pk else "not measured"),
+        probe_kernel_count=sum(e.count for e in pk),
         top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 3),
                          e.count) for e in top]))
 
@@ -469,10 +514,7 @@ def main() -> int:
     ).stdout.strip().splitlines()
     smi = smi[0] if smi else "not readable"
     build_s = _build.build_all()
-    ptxas = " | ".join(
-        ln.strip() for ln in _build.BUILD_LOG.get("probe", "").splitlines()
-        if "registers" in ln or "spill" in ln
-    )
+    ptxas = _build.ptxas_summary(_build.BUILD_LOG.get("probe", ""))
     log("device", name=json.dumps(card), smi=json.dumps(smi),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
@@ -484,12 +526,12 @@ def main() -> int:
 
     # The probe held against its plain version on the main path's inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB", "B"))
-    err, k_ms, p_ms = check_probe(h, f, q, NB, B, timed=True)
+    err, t = check_probe(h, f, q, NB, B, timed=True)
     bid = probe.probe_ranks_ref(h, f, q, NB=NB, B=B)[0].cpu().numpy()
     bound_ms, bound_by = probe_bound(q.shape[0], NB, B, q.shape[1], bid)
     log("probe-main", W1=q.shape[0], NB=NB, B=B, P2=q.shape[1],
-        max_abs_err=err, kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
-        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+        max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.5f}",
+        bound_by=bound_by)
 
     print(json.dumps({"kernels": [{
         "name": "probe_ranks",
@@ -498,8 +540,9 @@ def main() -> int:
         "replaces": "foundationdb_tpu/resolver/pallas_probe.py:61",
         "launches": launches,
         "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "ms": t["ms"],
+        "ms_cold": t["ms_cold"],
+        "plain_ms": t["plain_ms"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -70,6 +71,27 @@ def build_all(names=None) -> float:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_summary(log: str) -> str:
+    """One entry per compiled kernel in nvcc's -Xptxas=-v output: its
+    template argument (or name), registers and spill bytes."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            t = re.search(r"ILi(\d+)E", m.group(1))
+            name = f"<{t.group(1)}>" if t else m.group(1)
+            spill = "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs {spill} B spill")
+            name = None
+    return "; ".join(out)
 
 
 def load(name: str) -> ctypes.CDLL:
