@@ -24,6 +24,15 @@ Phases (each prints one line; any failure exits nonzero):
    through ConflictSetGPU(device="cpu"), statuses and entries() equal. The
    probe's launch count is reset just before and read just after this run
    and must be positive. Prints txns/s, p50/p90 batch latency and more.
+5. storage read window, one memory-engine storage process: 1,000,000 YCSB
+   records (hashed keys of 5-23 bytes, 1,000-byte values) in
+   KeyValueStoreGPU through make_mvcc_window("gpu"), then YCSB workload B
+   (95% Zipfian point reads, 5% updates) and E (95% scans of 1-100
+   records, 5% inserts), 720 batches of 128 operations each, at pipeline
+   depth 2, the version 10,000 on per batch, forget_before once per 100
+   batches. Every reply and each leg's entries() equal an independent
+   VersionedMap fed the same writes; the probe launches once per submit;
+   submit_reads makes no host sync (plain, delta fold, compaction).
 
 Then one JSON line with the kernel table, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -265,28 +274,35 @@ def phase_narrow(rng, device=None):
 # ---------------------------------------------------------------- phase 4
 
 
-def audit_syncs(cs, wb, version: int, window: int) -> None:
-    """Count the host syncs one submit() makes (torch's sync debug mode
-    flags every blocking CUDA call) and fail on any beyond the known
-    ones: phase 2's one read per round group and the lazy fence/count
-    mirror readback after a compaction (one read)."""
+def count_syncs(fn):
+    """(fn(), the host syncs it made): torch's sync debug mode flags every
+    blocking CUDA call."""
     import warnings
 
     import torch
-    from foundationdb_tpu_torch.resolver import gpu as gpu_mod
 
-    p0, m0 = gpu_mod.P2_SYNCS, cs.mirror_reads
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            h = cs.submit(version, max(0, version - window), wb)
+            out = fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message).lower()
+                    and "prototype" not in str(w.message) for w in caught)
+
+
+def audit_syncs(cs, wb, version: int, window: int) -> None:
+    """Count the host syncs one submit() makes and fail on any beyond the
+    known ones: phase 2's one read per round group and the lazy
+    fence/count mirror readback after a compaction (one read)."""
+    from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+
+    p0, m0 = gpu_mod.P2_SYNCS, cs.mirror_reads
+    h, syncs = count_syncs(
+        lambda: cs.submit(version, max(0, version - window), wb))
     cs.verdicts(h)
-    syncs = sum("synchroniz" in str(w.message).lower()
-                and "prototype" not in str(w.message) for w in caught)
     known = (gpu_mod.P2_SYNCS - p0) + (cs.mirror_reads - m0)
     log("sync-audit", host_syncs_in_submit=syncs, phase2_reads=gpu_mod.P2_SYNCS - p0,
         mirror_reads=cs.mirror_reads - m0)
@@ -294,20 +310,20 @@ def audit_syncs(cs, wb, version: int, window: int) -> None:
         fail(f"submit made {syncs} host syncs, {known} expected")
 
 
-def profile_batch(cs, wb, version: int, window: int, batch_ms: float) -> None:
-    """One synchronous batch under torch.profiler: device busy time, kernel
-    launches and the kernels that take the most device time; the idle
-    share is against the pipelined run's mean batch time `batch_ms`."""
+def profile_batch(run, batch_ms: float, phase: str = "full-profile",
+                  smi: str = "") -> None:
+    """One synchronous batch, run(), under torch.profiler: device busy
+    time, kernel launches and the kernels that take the most device time;
+    the idle share is against the pipelined run's mean batch time
+    `batch_ms`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if cs.device.type != "cuda":
-        return
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cs.resolve(version, max(0, version - window), wb)
+        run()
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies): the CPU ops that launched
     # them report the same device time again.
@@ -317,14 +333,20 @@ def profile_batch(cs, wb, version: int, window: int, batch_ms: float) -> None:
     launches = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     pk = [e for e in dev if "probe_kernel" in e.key]
-    log("full-profile",
+    pk_ms = sum(e.self_device_time_total for e in pk) / 1e3
+    # every event naming the probe, host or device, as the trace has it
+    probe_events = [(e.key[:40], str(e.device_type).split(".")[-1], e.count,
+                     e.self_device_time_total) for e in prof.key_averages()
+                    if "probe" in e.key.lower()]
+    log(phase, smi=json.dumps(smi),
         device_busy_ms=f"{busy_ms:.3f}" if dev else "not measured",
-        device_ops=launches, batch_ms=f"{batch_ms:.2f}",
+        device_ops=launches, batch_ms=f"{batch_ms:.3f}",
         idle_share=f"{1 - busy_ms / batch_ms:.4f}" if dev else "not measured",
-        probe_kernel_ms=(f"{sum(e.self_device_time_total for e in pk) / 1e3:.4f}"
-                         if pk else "not measured"),
+        probe_kernel_ms=f"{pk_ms:.4f}" if pk else "not measured",
         probe_kernel_count=sum(e.count for e in pk),
-        top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 3),
+        probe_share=f"{pk_ms / busy_ms:.4f}" if pk and busy_ms else "not measured",
+        probe_events=json.dumps(probe_events),
+        top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 4),
                          e.count) for e in top]))
 
 
@@ -462,11 +484,12 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         cpu_twin_batches=2)
     log("full-stages", **{f"p50_{k}": f"{np.percentile(x, 50):.2f}"
                           for k, x in stages.items()})
-    profile_batch(cs, config5_batch(rng, n_txn, v0 + n_batches * step),
-                  v0 + n_batches * step, window,
-                  batch_ms=1e3 * n_txn / steady)
-    n_batches += 1
     if cs.device.type == "cuda":
+        vp = v0 + n_batches * step
+        wb = config5_batch(rng, n_txn, vp)
+        profile_batch(lambda: cs.resolve(vp, max(0, vp - window), wb),
+                      batch_ms=1e3 * n_txn / steady)
+        n_batches += 1
         audit_syncs(cs, config5_batch(rng, n_txn, v0 + n_batches * step),
                     v0 + n_batches * step, window)
         n_batches += 1
@@ -493,6 +516,392 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         compactions=cs.compactions - comp0,
         fast_resolves=cs.fast_resolves - fast0)
     return launches, captured
+
+
+# ---------------------------------------------------------------- phase 5
+
+FNV_OFFSET_64 = 0xCBF29CE484222325
+FNV_PRIME_64 = 1099511628211
+ZIPF_ITEMS = 10_000_000_000     # YCSB ScrambledZipfianGenerator.ITEM_COUNT
+ZIPF_ZETAN = 26.46902820178302  # its precomputed zeta(ITEM_COUNT, 0.99)
+ZIPF_THETA = 0.99
+
+
+def fnv64(x) -> np.ndarray:
+    """YCSB Utils.fnvhash64 of each int64: FNV-1 over the 8 low-first
+    bytes, then Math.abs of the signed result."""
+    x = np.asarray(x, dtype=np.int64).view(np.uint64).copy()
+    h = np.full(x.shape, FNV_OFFSET_64, dtype=np.uint64)
+    for _ in range(8):
+        h ^= x & np.uint64(0xFF)
+        h *= np.uint64(FNV_PRIME_64)
+        x >>= np.uint64(8)
+    return np.abs(h.view(np.int64))
+
+
+def ycsb_keys(keynums) -> list[bytes]:
+    """CoreWorkload.buildKeyName with insertorder=hashed: "user" + the
+    decimal FNV-64 hash of the record number (5 to 23 bytes)."""
+    return [b"user%d" % h for h in fnv64(keynums).tolist()]
+
+
+def zipf_scrambled(rng, n: int, count: int) -> np.ndarray:
+    """n record numbers in [0, count) from YCSB's ScrambledZipfianGenerator
+    (Zipfian constant 0.99 over ITEM_COUNT items, hashed with fnv64 and
+    taken mod count)."""
+    zeta2 = 1.0 + 0.5**ZIPF_THETA
+    alpha = 1.0 / (1.0 - ZIPF_THETA)
+    eta = ((1.0 - (2.0 / ZIPF_ITEMS) ** (1.0 - ZIPF_THETA))
+           / (1.0 - zeta2 / ZIPF_ZETAN))
+    u = rng.random(n)
+    uz = u * ZIPF_ZETAN
+    r = (ZIPF_ITEMS * (eta * u - eta + 1.0) ** alpha).astype(np.int64)
+    r = np.where(uz < 1.0 + 0.5**ZIPF_THETA, 1, r)
+    r = np.where(uz < 1.0, 0, r)
+    return fnv64(r) % count
+
+
+def probe_walk_bound(hkeys, fences, q, NB: int, B: int) -> tuple[float, str]:
+    """Least time for the probe on these queries, counted as the walks
+    need it: every fence column and block slot the two halving walks read
+    (each once, with the equality reads), the queries read and the
+    outputs written, in bytes over the memory rate, against the int32
+    compares over the integer rate; whichever is larger. The directory
+    and blocks no walk reaches are not counted."""
+    W1, P2 = q.shape
+
+    def walk(mat, start, width):
+        pos = np.zeros(P2, dtype=np.int64)
+        seen, steps = set(), 0
+        s = width // 2
+        while s >= 1:
+            col = np.clip(start + pos + s - 1, 0, mat.shape[1] - 1)
+            seen.update(col.tolist())
+            lt, _ = lex_lt_eq(mat[:, col], q)
+            pos += lt * s
+            s //= 2
+            steps += 1
+        col = np.clip(start + pos, 0, mat.shape[1] - 1)
+        seen.update(col.tolist())
+        _, eq = lex_lt_eq(mat[:, col], q)
+        return pos, eq, seen, steps + 1
+
+    lb, eq, fcols, fsteps = walk(fences, 0, NB)
+    bid = lb + eq - 1
+    _, _, hcols, hsteps = walk(hkeys, np.clip(bid, 0, NB - 1) * B, B)
+    nbytes = 4 * W1 * (len(fcols) + len(hcols) + P2) + 12 * P2
+    ops = P2 * W1 * (fsteps + hsteps)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lex_lt_eq(h, q):
+    """Lexicographic h < q and h == q over the word rows (numpy)."""
+    lt = np.zeros(q.shape[1], dtype=bool)
+    eq = np.ones(q.shape[1], dtype=bool)
+    for j in range(q.shape[0]):
+        lt |= eq & (h[j] < q[j])
+        eq &= h[j] == q[j]
+    return lt, eq
+
+
+class StorageLoad:
+    """YCSB traffic against one storage window and an independent
+    VersionedMap fed the same writes. Every reply is kept with its request
+    and checked against that oracle before the window moves and at the
+    end of each leg."""
+
+    def __init__(self, rng, eng, ora, n_records: int, version: int):
+        from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+
+        self.rng, self.eng, self.ora = rng, eng, ora
+        self.count = n_records
+        self.v = version
+        self.k = SERVER_KNOBS
+        self.unchecked = []
+        self.side_s = 0.0  # host time of the harness's own work
+        self.eng_s = 0.0   # host time of the engine's writes
+
+    def value(self) -> bytes:
+        return self.rng.bytes(1000)  # 10 fields of 100 bytes
+
+    def read_version(self) -> int:
+        life = self.k.MAX_READ_TRANSACTION_LIFE_VERSIONS
+        return max(self.eng.oldest_version,
+                   self.v - int(self.rng.integers(0, life + 1)))
+
+    def write(self, keys) -> None:
+        for k in keys:
+            val = self.value()
+            t0 = time.perf_counter()
+            self.eng.set(k, val, self.v)
+            self.eng_s += time.perf_counter() - t0
+            self.ora.set(k, val, self.v)
+
+    def writes(self, scans: bool, n: int) -> None:
+        """Workload B: updates of Zipfian records; E: inserts of new
+        records, at the current version."""
+        if scans:
+            self.write(ycsb_keys(np.arange(self.count, self.count + n)))
+            self.count += n
+        else:
+            self.write(ycsb_keys(zipf_scrambled(self.rng, n, self.count)))
+
+    def reads(self, scans: bool, n: int):
+        """(points, ranges): B, point reads of Zipfian records; E, scans
+        from a Zipfian record over 1 to 100 records (end = the record that
+        many keys on, limit = that count)."""
+        from bisect import bisect_left
+
+        keys = ycsb_keys(zipf_scrambled(self.rng, n, self.count))
+        if not scans:
+            return [(k, self.read_version()) for k in keys], []
+        index = self.ora._keys
+        ranges = []
+        for k, ln in zip(keys, self.rng.integers(1, 101, n).tolist()):
+            at = bisect_left(index, k) + ln
+            end = index[at] if at < len(index) else b"\xff"
+            ranges.append((k, end, self.read_version(), ln, False))
+        return [], ranges
+
+    def batch(self, scans: bool):
+        """One batch of STORAGE_READ_BATCH_MAX operations at the next
+        version: the 5% writes applied, then the 95% reads returned. The
+        time spent here outside the engine's own calls (drawing requests,
+        the independent oracle) counts as the harness's (side_s)."""
+        t0 = time.perf_counter()
+        eng0 = self.eng_s
+        self.v += self.k.VERSIONS_PER_SECOND // 100
+        n = self.k.STORAGE_READ_BATCH_MAX
+        n_w = int((self.rng.random(n) < 0.05).sum())
+        self.writes(scans, n_w)
+        out = self.reads(scans, n - n_w)
+        self.side_s += time.perf_counter() - t0 - (self.eng_s - eng0)
+        return out
+
+    def check(self) -> None:
+        """Every kept reply against the independent oracle."""
+        t0 = time.perf_counter()
+        for points, ranges, pv, rr in self.unchecked:
+            if pv != [self.ora.get(k, v) for k, v in points]:
+                fail("storage: a point read differs from the oracle")
+            if rr != [self.ora.get_range(*r) for r in ranges]:
+                fail("storage: a range read differs from the oracle")
+        self.unchecked.clear()
+        self.side_s += time.perf_counter() - t0
+
+    def forget(self) -> None:
+        """Move the window: forget_before(v - MAX_READ_TRANSACTION_LIFE)."""
+        floor = self.v - self.k.MAX_READ_TRANSACTION_LIFE_VERSIONS
+        self.eng.forget_before(floor)
+        t0 = time.perf_counter()
+        self.ora.forget_before(floor)
+        self.side_s += time.perf_counter() - t0
+
+
+def storage_leg(load: StorageLoad, leg: str, n_batches: int, smi: str):
+    """One YCSB leg through submit_reads/read_verdicts at pipeline depth
+    STORAGE_READ_PIPELINE_DEPTH; forget_before once per simulated second
+    (100 batches), after draining the pipeline. Returns the probe's
+    launches in the leg and the mean host ms per batch."""
+    from collections import deque
+
+    from foundationdb_tpu_torch.resolver import probe
+
+    eng = load.eng
+    depth = load.k.STORAGE_READ_PIPELINE_DEPTH
+    c0 = {c: getattr(eng, c).total for c in (
+        "c_compactions", "c_delta_folds", "c_span_fallbacks", "c_batches")}
+    handles = deque()
+    lat, pack, disp, d2h, comp = [], [], [], [], []
+    n_reads = 0
+
+    def consume():
+        t_sub, h, points, ranges = handles.popleft()
+        pv, rr = eng.read_verdicts(h)
+        lat.append((time.perf_counter() - t_sub) * 1e3)
+        d2h.append(eng.last_d2h_ms)
+        load.unchecked.append((points, ranges, pv, rr))
+
+    sync(eng.device)
+    probe.LAUNCHES = 0
+    side0 = load.side_s
+    t0 = time.perf_counter()
+    for b in range(n_batches):
+        if b and b % 100 == 0:
+            while handles:
+                consume()
+            load.check()
+            load.forget()
+        points, ranges = load.batch(scans=leg == "E")
+        n_reads += len(points) + len(ranges)
+        if len(handles) >= depth:
+            consume()
+        n_comp = eng.c_compactions.total
+        t_sub = time.perf_counter()
+        handles.append((t_sub, eng.submit_reads(points, ranges), points,
+                        ranges))
+        pack.append(eng.last_pack_ms)
+        disp.append(eng.last_dispatch_ms)
+        if eng.c_compactions.total > n_comp:
+            comp.append((eng.last_rebuild_ms, eng.last_upload_ms))
+    while handles:
+        consume()
+    sync(eng.device)
+    wall = time.perf_counter() - t0 - (load.side_s - side0)
+    launches = probe.LAUNCHES
+    load.check()
+    if eng.entries() != load.ora.entries():
+        fail(f"storage leg {leg}: entries() differ from the oracle")
+    d = {c: getattr(eng, c).total - c0[c] for c in c0}
+    if d["c_compactions"] < 2:
+        fail(f"storage leg {leg}: {d['c_compactions']} compactions, "
+             "at least 2 wanted")
+    if eng.device.type == "cuda" and launches != d["c_batches"]:
+        fail(f"storage leg {leg}: {launches} probe launches in "
+             f"{d['c_batches']} submits, one each wanted")
+
+    def p(x, q):
+        return f"{np.percentile(x, q):.3f}"
+
+    log(f"storage-{leg}", smi=json.dumps(smi), batches=n_batches,
+        reads=n_reads, reads_per_s=f"{n_reads / wall:.1f}",
+        p50_batch_ms=p(lat, 50), p90_batch_ms=p(lat, 90), depth=depth,
+        p50_pack_ms=p(pack, 50), p50_dispatch_ms=p(disp, 50),
+        p50_d2h_ms=p(d2h, 50), compactions=d["c_compactions"],
+        compaction_rebuild_ms=json.dumps([round(r, 1) for r, _ in comp]),
+        compaction_upload_ms=json.dumps([round(u, 1) for _, u in comp]),
+        delta_folds=d["c_delta_folds"],
+        span_fallbacks=d["c_span_fallbacks"], probe_launches=launches,
+        probe_launches_per_batch=f"{launches / n_batches:.2f}",
+        entries=eng._n_base, version=load.v, replies_equal=True,
+        entries_equal=True)
+    return launches, 1e3 * wall / n_batches
+
+
+def phase_storage(rng, smi: str = "", device=None,
+                  n_records: int = 1_000_000, n_batches: int = 720):
+    """The storage read window at one memory-engine storage process's size:
+    n_records YCSB records of 1,000 bytes, loaded in key order at one
+    version, then leg B (95% Zipfian point reads, 5% updates) and leg E
+    (95% scans, 5% inserts), n_batches batches each, every reply and the
+    final entries() of each leg against an independent VersionedMap."""
+    import torch
+    from foundationdb_tpu_torch.kv.versioned_map import VersionedMap
+    from foundationdb_tpu_torch.storage_engine import gpu_engine
+    from foundationdb_tpu_torch.storage_engine.factory import make_mvcc_window
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        log("storage-memory", smi=json.dumps(smi), allocated_before_mb=(
+            f"{torch.cuda.memory_allocated() / 1e6:.1f}"))
+    t0 = time.perf_counter()
+    recs = sorted(zip(ycsb_keys(np.arange(n_records)),
+                      (rng.bytes(1000) for _ in range(n_records))))
+    keys = [k for k, _ in recs]
+    vals = [v for _, v in recs]
+    del recs
+    t_gen = time.perf_counter() - t0
+    v0 = 10_000_000
+    eng = make_mvcc_window("gpu", device=device)
+    ora = VersionedMap()
+    t0 = time.perf_counter()
+    eng.set_bulk(keys, vals, v0)
+    t_set = time.perf_counter() - t0
+    for k, val in zip(keys, vals):
+        ora.set(k, val, v0)
+    t0 = time.perf_counter()
+    h = eng.submit_reads([(keys[0], v0)], [(keys[0], keys[-1], v0, 3, False)])
+    t_sub = time.perf_counter() - t0
+    pv, rr = eng.read_verdicts(h)
+    sync(eng.device)
+    t_load = time.perf_counter() - t0
+    if pv != [vals[0]] or rr != [ora.get_range(keys[0], keys[-1], v0, 3)]:
+        fail("storage: the first read after the load differs from the oracle")
+    log("storage-load", records=n_records, key_bytes=f"{min(map(len, keys))}-"
+        f"{max(map(len, keys))}", value_bytes=1000, gen_s=f"{t_gen:.2f}",
+        set_bulk_s=f"{t_set:.2f}", first_submit_s=f"{t_sub:.2f}",
+        rebuild_ms=f"{eng.last_rebuild_ms:.1f}",
+        upload_enqueue_ms=f"{eng.last_upload_ms:.1f}",
+        first_read_s=f"{t_load:.2f}", n_words=eng._n_words, NB=eng.NB, B=eng.B,
+        F=eng.F, hmat_mb=f"{eng._d_hmat.numel() * 4 / 1e6:.1f}")
+    del keys, vals
+
+    captured = {}
+    real_probe = gpu_engine.probe_ranks
+
+    def recording_probe(hkeys, fences, smat, *, NB, B):
+        # the engine replaces these tensors at a compaction and never
+        # writes them in place, so references suffice
+        captured.update(hkeys=hkeys, fences=fences, smat=smat, NB=NB, B=B)
+        return real_probe(hkeys, fences, smat, NB=NB, B=B)
+
+    load = StorageLoad(rng, eng, ora, n_records, v0)
+    out = {}
+    gpu_engine.probe_ranks = recording_probe
+    try:
+        for leg in ("B", "E"):
+            launches, batch_ms = storage_leg(load, leg, n_batches, smi)
+            out[leg] = dict(captured, launches=launches)
+            if eng.device.type == "cuda":
+                points, ranges = load.batch(scans=leg == "E")
+                shape = []
+
+                def one_batch():
+                    h = eng.submit_reads(points, ranges)
+                    shape.append((h.P, h.R, h.S))
+                    load.unchecked.append((points, ranges,
+                                           *eng.read_verdicts(h)))
+
+                profile_batch(one_batch, batch_ms, f"storage-{leg}-profile",
+                              smi)
+                load.check()
+                P, R, S = shape[0]
+                log(f"storage-{leg}-d2h", P=P, R=R, S=S,
+                    aux_bytes_per_batch=4 * (6 * P + 4 * R + 6 * R * S))
+    finally:
+        gpu_engine.probe_ranks = real_probe
+    if eng.device.type == "cuda":
+        # one compaction alone, to the end of its upload
+        sync(eng.device)
+        t0 = time.perf_counter()
+        eng._compact()
+        t1 = time.perf_counter()
+        sync(eng.device)
+        log("storage-compaction", smi=json.dumps(smi), entries=eng._n_base,
+            rebuild_ms=f"{eng.last_rebuild_ms:.1f}",
+            upload_enqueue_ms=f"{eng.last_upload_ms:.1f}",
+            upload_wait_ms=f"{(time.perf_counter() - t1) * 1e3:.1f}",
+            total_ms=f"{(time.perf_counter() - t0) * 1e3:.1f}")
+        storage_sync_audit(load)
+        log("storage-memory", smi=json.dumps(smi),
+            max_memory_allocated_mb=f"{torch.cuda.max_memory_allocated() / 1e6:.1f}")
+    return out
+
+
+def storage_sync_audit(load: StorageLoad) -> None:
+    """Host syncs inside submit_reads: a plain submit, one that folds
+    writes into the delta, one that compacts. 0 expected in each."""
+    eng = load.eng
+    for kind in ("plain", "compact", "fold"):
+        load.v += load.k.VERSIONS_PER_SECOND // 100
+        if kind == "compact":
+            room = load.k.STORAGE_TPU_DELTA_SLOTS - len(eng._delta_keys)
+            load.writes(False, room + 1)
+        elif kind == "fold":
+            load.writes(False, 8)
+        points, ranges = load.reads(False, load.k.STORAGE_READ_BATCH_MAX)
+        folds, comps = eng.c_delta_folds.total, eng.c_compactions.total
+        h, syncs = count_syncs(lambda: eng.submit_reads(points, ranges))
+        load.unchecked.append((points, ranges, *eng.read_verdicts(h)))
+        load.check()
+        log("storage-sync-audit", submit=kind, host_syncs_in_submit=syncs,
+            delta_folds=eng.c_delta_folds.total - folds,
+            compactions=eng.c_compactions.total - comps)
+        if syncs:
+            fail(f"storage: submit_reads ({kind}) made {syncs} host syncs")
 
 
 def main() -> int:
@@ -533,8 +942,9 @@ def main() -> int:
         max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.5f}",
         bound_by=bound_by)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "probe_ranks",
+        "path": "resolver",
         "route": "cuda",
         "source": "foundationdb_tpu_torch/csrc/probe.cu",
         "replaces": "foundationdb_tpu/resolver/pallas_probe.py:61",
@@ -546,7 +956,26 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }]
+
+    # The storage path, and the probe held against its plain version on
+    # each leg's last operands (W1 = n_words + 2, queries in request order).
+    del cap, h, f, q
+    legs = phase_storage(rng, smi)
+    for leg, cap in legs.items():
+        h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB", "B"))
+        err, t = check_probe(h, f, q, NB, B, timed=True)
+        bound_ms, bound_by = probe_walk_bound(
+            h.cpu().numpy(), f.cpu().numpy(), q.cpu().numpy(), NB, B)
+        log(f"probe-storage-{leg}", smi=json.dumps(smi), W1=q.shape[0], NB=NB, B=B, P2=q.shape[1],
+            max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.6f}",
+            bound_by=bound_by)
+        kernels.append(dict(kernels[0], path=f"storage-{leg}",
+                            launches=cap["launches"], max_abs_err=err,
+                            ms=t["ms"], ms_cold=t["ms_cold"],
+                            plain_ms=t["plain_ms"], bound_ms=bound_ms,
+                            bound_by=bound_by))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),
