@@ -33,8 +33,24 @@ Phases (each prints one line; any failure exits nonzero):
    batches. Every reply and each leg's entries() equal an independent
    VersionedMap fed the same writes; the probe launches once per submit;
    submit_reads makes no host sync (plain, delta fold, compaction).
+6. the transaction system: the port's LocalCluster under its sim_loop,
+   ConflictSetGPU (2^21 slots) behind the resolver role and
+   KeyValueStoreGPU behind the storage server's read batcher, knobs at
+   their defaults. Cycle over 1,000 nodes (64 clients x 25 txns), then
+   BASELINE config 1: 2^20 keys of ReadWrite's space loaded through the
+   client in 1,000-key transactions, then ReadWriteWorkload (5 reads, 2
+   writes per txn, uniform keys over 2^20) from 1,024 clients until
+   10,000 txns have committed. Every resolve batch's verdicts are
+   replayed through a fresh ConflictSetCPU (and entries() compared),
+   every read reply is held against an independent VersionedMap fed the
+   same mutations, the window's entries() too; submit makes no host sync
+   beyond phase 2's and the mirror's; the probe launches on both paths.
+   Prints committed txns per wall second, batch sizes and latencies,
+   the pipeline stages, profiled batches and the idle share.
 
-Then one JSON line with the kernel table, the card's name and power limit,
+Then one JSON line with the kernel table (the probe on each path: resolver,
+storage-B, storage-E, cluster-resolver, cluster-storage), the card's name
+and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
 """
@@ -274,14 +290,17 @@ def phase_narrow(rng, device=None):
 # ---------------------------------------------------------------- phase 4
 
 
-def count_syncs(fn):
+def count_syncs(fn, settle: bool = True, sites=None):
     """(fn(), the host syncs it made): torch's sync debug mode flags every
-    blocking CUDA call."""
+    blocking CUDA call. `settle` drains the card first (off where the
+    caller's pipeline must keep running); `sites`, a list, gets the
+    file:line of each."""
     import warnings
 
     import torch
 
-    torch.cuda.synchronize()
+    if settle:
+        torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -289,8 +308,12 @@ def count_syncs(fn):
             out = fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message).lower()
-                    and "prototype" not in str(w.message) for w in caught)
+    hits = [w for w in caught if "synchroniz" in str(w.message).lower()
+            and "prototype" not in str(w.message)]
+    if sites is not None:
+        sites.extend(f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}"
+                     for w in hits)
+    return out, len(hits)
 
 
 def audit_syncs(cs, wb, version: int, window: int) -> None:
@@ -311,11 +334,12 @@ def audit_syncs(cs, wb, version: int, window: int) -> None:
 
 
 def profile_batch(run, batch_ms: float, phase: str = "full-profile",
-                  smi: str = "") -> None:
+                  smi: str = ""):
     """One synchronous batch, run(), under torch.profiler: device busy
     time, kernel launches and the kernels that take the most device time;
     the idle share is against the pipelined run's mean batch time
-    `batch_ms`."""
+    `batch_ms`. Returns (device busy ms, device ops), or None when the
+    trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -348,6 +372,7 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
         probe_events=json.dumps(probe_events),
         top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 4),
                          e.count) for e in top]))
+    return (busy_ms, launches) if dev else None
 
 
 def config5_batch(rng, n: int, version: int, space: int = 1 << 20,
@@ -904,6 +929,453 @@ def storage_sync_audit(load: StorageLoad) -> None:
             fail(f"storage: submit_reads ({kind}) made {syncs} host syncs")
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+class RecordingConflictSet:
+    """The resolver role's conflict set (ConflictSetGPU), recording every
+    submit (version, new oldest version, batch) with its verdicts for the
+    CPU replay, the batch's size, its wall latency from submit to
+    verdicts, and the host syncs inside submit: torch's count on the card
+    and the ones the set knows of (phase-2 reads, mirror reads)."""
+
+    def __init__(self, cs):
+        self.cs = cs
+        self.log = []       # [version, new_oldest, batch, verdicts]
+        self._open = {}     # id(handle) -> (log index, submit time)
+        self.lat_ms, self.n_txns = [], []
+        self.syncs, self.known, self.sites = [], [], []
+
+    def submit(self, version, new_oldest, batch):
+        from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+
+        p0, m0 = gpu_mod.P2_SYNCS, self.cs.mirror_reads
+        t0 = time.perf_counter()
+        if self.cs.device.type == "cuda":
+            sites = []
+            h, syncs = count_syncs(
+                lambda: self.cs.submit(version, new_oldest, batch),
+                settle=False, sites=sites)
+            self.syncs.append(syncs)
+            self.sites.append(sites)
+        else:
+            h = self.cs.submit(version, new_oldest, batch)
+        self.known.append(gpu_mod.P2_SYNCS - p0 + self.cs.mirror_reads - m0)
+        self.log.append([version, new_oldest, batch, None])
+        self.n_txns.append(h.n_txns)
+        self._open[id(h)] = (len(self.log) - 1, t0)
+        return h
+
+    def verdicts(self, handle):
+        st = self.cs.verdicts(handle)
+        i, t0 = self._open.pop(id(handle))
+        self.lat_ms.append((time.perf_counter() - t0) * 1e3)
+        self.log[i][3] = [int(x) for x in st]
+        return st
+
+    def __getattr__(self, name):
+        return getattr(self.cs, name)
+
+
+class CheckedWindow:
+    """The storage server's window (KeyValueStoreGPU): every mutation also
+    goes to an independent VersionedMap, and every read reply the batcher
+    consumes is held against it (replies for versions the window has
+    since forgotten are discarded by the batcher, and skipped here)."""
+
+    def __init__(self, eng):
+        from foundationdb_tpu_torch.kv.versioned_map import VersionedMap
+
+        self.eng = eng
+        self.ora = VersionedMap()
+        self.replies = 0
+        self.reads = []     # reads per batch
+        self._open = {}     # id(handle) -> (points, ranges, submit time)
+        self.lat_ms = []
+        self.compaction_ms = []  # host rebuild of each compaction
+
+    def __len__(self):
+        return len(self.eng)
+
+    def __getattr__(self, name):
+        return getattr(self.eng, name)
+
+    def set(self, key, value, version):
+        self.eng.set(key, value, version)
+        self.ora.set(key, value, version)
+
+    def set_bulk(self, keys, values, version):
+        self.eng.set_bulk(keys, values, version)
+        for k, v in zip(keys, values):
+            self.ora.set(k, v, version)
+
+    def clear(self, key, version):
+        self.eng.clear(key, version)
+        self.ora.clear(key, version)
+
+    def clear_range(self, begin, end, version):
+        self.eng.clear_range(begin, end, version)
+        self.ora.clear_range(begin, end, version)
+
+    def forget_before(self, version):
+        self.eng.forget_before(version)
+        self.ora.forget_before(version)
+
+    def submit_reads(self, points, ranges):
+        n = self.eng.c_compactions.total
+        t0 = time.perf_counter()
+        h = self.eng.submit_reads(points, ranges)
+        self._open[id(h)] = (points, ranges, t0)
+        self.reads.append(len(points) + len(ranges))
+        if self.eng.c_compactions.total > n:
+            self.compaction_ms.append(self.eng.last_rebuild_ms)
+        return h
+
+    def read_verdicts(self, handle):
+        pv, rv = self.eng.read_verdicts(handle)
+        points, ranges, t0 = self._open.pop(id(handle))
+        self.lat_ms.append((time.perf_counter() - t0) * 1e3)
+        old = self.ora.oldest_version
+        for (k, v), got in zip(points, pv):
+            if v >= old:
+                if got != self.ora.get(k, v):
+                    fail(f"cluster: a point read of {k!r} at {v} differs "
+                         "from the independent VersionedMap")
+                self.replies += 1
+        for r, got in zip(ranges, rv):
+            if r[2] >= old:
+                if got != self.ora.get_range(*r):
+                    fail(f"cluster: a range read {r[:3]!r} differs from the "
+                         "independent VersionedMap")
+                self.replies += 1
+        return pv, rv
+
+
+def rw_key(i: int) -> bytes:
+    """ReadWriteWorkload's key for record i (workloads/read_write.py)."""
+    return b"rw/" + b"%06d" % i
+
+
+def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
+                  cycle_clients: int = 64, cycle_txns: int = 25,
+                  key_space: int = 1 << 20, load_keys: int = 1 << 20,
+                  loaders: int = 32, clients: int = 1024,
+                  target: int = 10_000, capacity: int = 1 << 21):
+    """The transaction system on the card: the port's LocalCluster with
+    ConflictSetGPU as its resolver and KeyValueStoreGPU as its storage
+    window, under the port's sim_loop, knobs at their defaults. Cycle
+    (`nodes` nodes, cycle_clients x cycle_txns), then BASELINE config 1:
+    `load_keys` keys of ReadWrite's `key_space`, spread evenly, loaded
+    through the client in 1,000-key transactions (`loaders` at a time),
+    then ReadWriteWorkload (5 reads, 2 writes per transaction) from
+    `clients` concurrent clients until `target` transactions have
+    committed. Every verdict is replayed through a
+    fresh ConflictSetCPU and every read reply is held against an
+    independent VersionedMap. Returns the probe's operands and launches
+    on each path."""
+    import torch
+    from foundationdb_tpu_torch.cluster import LocalCluster
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS, ServerKnobs
+    from foundationdb_tpu_torch.core.runtime import (
+        current_loop,
+        loop_context,
+        sim_loop,
+        spawn,
+    )
+    from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+    from foundationdb_tpu_torch.resolver import probe
+    from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
+    from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+    from foundationdb_tpu_torch.storage_engine import gpu_engine
+    from foundationdb_tpu_torch.workloads.cycle import CycleWorkload
+    from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
+
+    t_phase = time.perf_counter()
+    # knobs at their defaults (earlier phases set some), the window on
+    # the card
+    for name, value in ServerKnobs().all().items():
+        setattr(SERVER_KNOBS, name, value)
+    log("cluster-knobs", knobs=json.dumps(SERVER_KNOBS.all()))
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+
+    # The probe on each path: launches counted by the kernel's wrapper
+    # (probe.LAUNCHES), split here by caller; the last operands kept.
+    captured = {"resolver": {}, "storage": {}}
+    launches = {"resolver": 0, "storage": 0}
+    real_probe = probe.probe_ranks
+
+    def recording(path, clone):
+        def probe_ranks(hkeys, fences, smat, *, NB, B):
+            n0 = probe.LAUNCHES
+            out = real_probe(hkeys, fences, smat, NB=NB, B=B)
+            launches[path] += probe.LAUNCHES - n0
+            cap = captured[path]
+            # the resolver updates its state in place: copy its operands;
+            # the storage window replaces its tensors, so references do
+            if clone:
+                hkeys, fences, smat = (t.clone() for t in (hkeys, fences,
+                                                           smat))
+            cap.update(hkeys=hkeys, fences=fences, smat=smat, NB=NB, B=B)
+            return out
+
+        return probe_ranks
+
+    loop = sim_loop(seed=SEED)
+    cs = RecordingConflictSet(ConflictSetGPU(
+        0, max_key_bytes=16, initial_capacity=capacity, device=device))
+    try:
+        gpu_mod.probe_ranks = recording("resolver", True)
+        gpu_engine.probe_ranks = recording("storage", False)
+        with loop_context(loop):
+            cluster = LocalCluster(conflict_set=cs, device=device)
+            win = CheckedWindow(cluster.storage.data)
+            cluster.storage.data = win
+            cluster.start()
+            db = cluster.database()
+            keys = sorted(rw_key(i) for i in np.linspace(
+                0, key_space, load_keys, endpoint=False).astype(np.int64))
+            stamps = {}
+
+            async def main():
+                loop_ = current_loop()
+
+                def mark(name):
+                    stamps[name] = (time.perf_counter(), loop_.now())
+
+                mark("cycle")
+                cyc = CycleWorkload(db, nodes=nodes)
+                await cyc.setup()
+                await cyc.start(clients=cycle_clients,
+                                txns_per_client=cycle_txns)
+                ok = await cyc.check()
+                mark("load")
+
+                async def load(chunk):
+                    async def body(tr):
+                        for k in chunk:
+                            tr.set(k, b"v%d" % len(k))
+
+                    await db.transact(body)
+
+                # rounds of `loaders` concurrent transactions, in key
+                # order: each round commits in about one proxy batch and
+                # appends to the sorted maps behind the window and the
+                # oracles
+                chunks = [keys[i:i + 1000] for i in range(0, len(keys), 1000)]
+                for r in range(0, len(chunks), loaders):
+                    tasks = [spawn(load(c), name=f"load_{r + j}")
+                             for j, c in enumerate(chunks[r:r + loaders])]
+                    for t in tasks:
+                        await t.done
+                mark("rw")
+                c0 = (win.eng.c_compactions.total, cs.compactions,
+                      cs.fast_resolves, len(cs.log), len(win.reads))
+                rw = ReadWriteWorkload(db, key_space=key_space,
+                                       reads_per_txn=5, writes_per_txn=2)
+
+                async def client():
+                    while rw.txns_done < target:
+                        await rw._one()
+
+                tasks = [spawn(client(), name=f"rw_client_{i}")
+                         for i in range(clients)]
+                for t in tasks:
+                    await t.done
+                mark("end")
+                st = cluster.resolver.pipeline_status()
+                cluster.stop()
+                return ok, cyc, rw, c0, st
+
+            ok, cyc, rw, c0, pipe = loop.run(main(), timeout_sim_seconds=1e6)
+        loop.shutdown()
+    finally:
+        gpu_mod.probe_ranks = real_probe
+        gpu_engine.probe_ranks = real_probe
+    sync(dev)
+    conflicts = cluster.resolver.conflict_transactions
+    if not ok:
+        fail("cluster: the Cycle invariant does not hold")
+    if cyc.retries <= 0 or conflicts <= 0:
+        fail(f"cluster: no conflicts detected (retries {cyc.retries}, "
+             f"conflicts {conflicts})")
+    if rw.txns_done < target:
+        fail(f"cluster: {rw.txns_done} config-1 transactions, {target} wanted")
+
+    def span(a, b):
+        return (stamps[b][0] - stamps[a][0], stamps[b][1] - stamps[a][1])
+
+    wall_cyc, sim_cyc = span("cycle", "load")
+    wall_load, sim_load = span("load", "rw")
+    wall_rw, sim_rw = span("rw", "end")
+    n_res = len(cs.log) - c0[3]
+    n_read = len(win.reads) - c0[4]
+    log("cluster-cycle", smi=json.dumps(smi), nodes=nodes,
+        clients=cycle_clients, txns=cyc.txns_done, retries=cyc.retries,
+        check=ok, wall_s=f"{wall_cyc:.2f}", sim_s=f"{sim_cyc:.3f}",
+        txns_per_wall_s=f"{cyc.txns_done / wall_cyc:.1f}")
+    log("cluster-load", keys=len(keys), key_space=key_space,
+        txn_keys=1000, txns=(len(keys) + 999) // 1000, loaders=loaders,
+        wall_s=f"{wall_load:.2f}", sim_s=f"{sim_load:.3f}",
+        keys_per_wall_s=f"{len(keys) / wall_load:.1f}")
+    log("cluster-config1", smi=json.dumps(smi), clients=clients,
+        committed=rw.txns_done, retries=rw.retries,
+        wall_s=f"{wall_rw:.2f}", sim_s=f"{sim_rw:.3f}",
+        committed_per_wall_s=f"{rw.txns_done / wall_rw:.1f}",
+        resolve_batches=n_res, read_batches=n_read,
+        compactions_window=win.eng.c_compactions.total - c0[0],
+        resolver_compactions=cs.compactions - c0[1],
+        resolver_fast=cs.fast_resolves - c0[2])
+
+    def pct(x, q):
+        return f"{np.percentile(x, q):.3f}" if len(x) else "none"
+
+    syncs = f"{sum(cs.syncs) / len(cs.syncs):.2f}" if cs.syncs else \
+        "not measured"
+    log("cluster-resolve", smi=json.dumps(smi), batches=len(cs.log),
+        txns_per_batch_p50=pct(cs.n_txns, 50),
+        txns_per_batch_max=max(cs.n_txns),
+        config1_txns_per_batch_p50=pct(cs.n_txns[c0[3]:], 50),
+        config1_txns_per_batch_max=max(cs.n_txns[c0[3]:]),
+        latency_ms_p50=pct(cs.lat_ms, 50), latency_ms_p90=pct(cs.lat_ms, 90),
+        config1_latency_ms_p50=pct(cs.lat_ms[c0[3]:], 50),
+        config1_latency_ms_p90=pct(cs.lat_ms[c0[3]:], 90),
+        host_syncs_per_submit=syncs,
+        known_syncs_per_submit=f"{sum(cs.known) / len(cs.known):.2f}",
+        fast_resolves=cs.fast_resolves, compactions=cs.compactions,
+        conflicts=conflicts,
+        probe_launches=launches["resolver"],
+        probe_launches_per_batch=f"{launches['resolver'] / len(cs.log):.2f}")
+    log("cluster-pipeline", stages=json.dumps(pipe["stages"]),
+        depth=pipe["depth_configured"],
+        max_in_flight=pipe["max_in_flight_measured"])
+    log("cluster-reads", smi=json.dumps(smi), batches=len(win.reads),
+        reads=sum(win.reads), reads_per_batch_p50=pct(win.reads, 50),
+        reads_per_batch_max=max(win.reads),
+        config1_reads_per_batch_p50=pct(win.reads[c0[4]:], 50),
+        config1_latency_ms_p50=pct(win.lat_ms[c0[4]:], 50),
+        replies_checked=win.replies,
+        latency_ms_p50=pct(win.lat_ms, 50), latency_ms_p90=pct(win.lat_ms, 90),
+        compactions=win.eng.c_compactions.total,
+        compaction_rebuild_ms=json.dumps([round(x, 1)
+                                          for x in win.compaction_ms]),
+        delta_folds=win.eng.c_delta_folds.total,
+        span_fallbacks=win.eng.c_span_fallbacks.total,
+        probe_launches=launches["storage"],
+        probe_launches_per_batch=f"{launches['storage'] / len(win.reads):.2f}")
+    if card:
+        for path in ("resolver", "storage"):
+            if launches[path] <= 0:
+                fail(f"cluster: the probe kernel was not launched on the "
+                     f"{path} path")
+
+    # Every verdict replayed through a fresh oracle, in submit order.
+    t0 = time.perf_counter()
+    ora = ConflictSetCPU(0)
+    for i, (v, oldest, batch, verdicts) in enumerate(cs.log):
+        txns = batch.to_txns() if hasattr(batch, "to_txns") else batch
+        if ora.resolve(v, oldest, txns).statuses != verdicts:
+            fail(f"cluster: resolve batch {i} (version {v}) differs from "
+                 "the ConflictSetCPU replay")
+    if cs.entries() != ora.entries():
+        fail("cluster: the resolver's entries() differ from the replay")
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if win.eng.entries() != win.ora.entries():
+        fail("cluster: the storage window's entries() differ from the "
+             "independent VersionedMap")
+    log("cluster-check", smi=json.dumps(smi), verdicts_equal=True,
+        resolve_batches=len(cs.log), entries_equal=True,
+        resolver_entries=len(ora.entries()), replies_equal=True,
+        replies=win.replies, window_entries_equal=True,
+        window_entries=win.eng._n_base, replay_s=f"{t_replay:.2f}",
+        window_check_s=f"{time.perf_counter() - t0:.2f}")
+
+    if card:
+        # One resolve batch and one read batch under the profiler, each of
+        # config 1's median size; the idle share is against the config-1
+        # run's wall time per batch of its kind. The resolve batch takes
+        # the fast path, as nearly all of config 1's do: a batch due for
+        # the cadence's compaction goes first, outside the profile.
+        med = sorted(cs.log[c0[3]:], key=lambda e: len(e[3]))
+        batch = med[len(med) // 2][2]
+        txns = batch.to_txns() if hasattr(batch, "to_txns") else batch
+        v, oldest = cs.log[-1][:2]
+        got = []
+        for vp in range(v + 1, v + 3):
+            if (cs.cs._since_compact + 1
+                    < SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES):
+                break
+            got.append(cs.cs.resolve(vp, oldest, batch).statuses)
+        fast0 = cs.cs.fast_resolves
+        busy_r = profile_batch(
+            lambda: got.append(cs.cs.resolve(vp, oldest, batch).statuses),
+            batch_ms=1e3 * wall_rw / max(n_res, 1),
+            phase="cluster-resolve-profile", smi=smi)
+        for i, st in enumerate(got):
+            if st != ora.resolve(v + 1 + i, oldest, txns).statuses:
+                fail("cluster: a profiled resolve differs from the oracle")
+        n_pts = max(1, int(np.median(win.reads[c0[4]:])))
+        pts = [(rw_key(int(i)), win.ora.latest_version)
+               for i in rng.integers(0, key_space, n_pts)]
+        busy_s = profile_batch(
+            lambda: win.read_verdicts(win.submit_reads(pts, [])),
+            batch_ms=1e3 * wall_rw / max(n_read, 1),
+            phase="cluster-read-profile", smi=smi)
+        log("cluster-profiled-batches",
+            resolve_path="fast" if cs.cs.fast_resolves > fast0
+            else "compaction",
+            resolve_txns=batch.n_txns if hasattr(batch, "n_txns")
+            else len(batch), reads=n_pts)
+        if busy_r is not None and busy_s is not None:
+            busy = busy_r[0] * n_res + busy_s[0] * n_read
+            log("cluster-idle", smi=json.dumps(smi),
+                device_busy_ms_estimate=f"{busy:.1f}",
+                config1_wall_ms=f"{wall_rw * 1e3:.1f}",
+                idle_share=f"{1 - busy / (wall_rw * 1e3):.4f}")
+    if card:
+        bad = [(i, n, k, cs.sites[i])
+               for i, (n, k) in enumerate(zip(cs.syncs, cs.known)) if n > k]
+        log("cluster-sync-audit", submits=len(cs.syncs),
+            host_syncs=sum(cs.syncs), phase2_and_mirror_reads=sum(cs.known),
+            submits_over=len(bad), first_over=json.dumps(bad[:5]))
+        if bad:
+            fail("cluster: submit made more host syncs than phase 2 and "
+                 "the mirror account for")
+    log("cluster-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
+    return {path: dict(cap, launches=launches[path])
+            for path, cap in captured.items()}
+
+
+def cluster_kernels(paths: dict, smi: str, base: dict) -> list:
+    """The probe held against its plain version on each cluster path's
+    last operands, timed, with its bound: one kernel-table entry each."""
+    from foundationdb_tpu_torch.resolver import probe
+
+    out = []
+    for path, cap in paths.items():
+        h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
+                                            "B"))
+        err, t = check_probe(h, f, q, NB, B, timed=True)
+        if path == "resolver":
+            bid = probe.probe_ranks_ref(h, f, q, NB=NB, B=B)[0].cpu().numpy()
+            bound_ms, bound_by = probe_bound(q.shape[0], NB, B, q.shape[1],
+                                             bid)
+        else:
+            bound_ms, bound_by = probe_walk_bound(
+                h.cpu().numpy(), f.cpu().numpy(), q.cpu().numpy(), NB, B)
+        log(f"probe-cluster-{path}", smi=json.dumps(smi), W1=q.shape[0],
+            NB=NB, B=B, P2=q.shape[1], max_abs_err=err, **fmt_times(t),
+            bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
+            launches=cap["launches"])
+        out.append(dict(base, path=f"cluster-{path}",
+                        launches=cap["launches"], max_abs_err=err,
+                        ms=t["ms"], ms_cold=t["ms_cold"],
+                        plain_ms=t["plain_ms"], bound_ms=bound_ms,
+                        bound_by=bound_by))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -975,6 +1447,8 @@ def main() -> int:
                             ms=t["ms"], ms_cold=t["ms_cold"],
                             plain_ms=t["plain_ms"], bound_ms=bound_ms,
                             bound_by=bound_by))
+    del legs, cap, h, f, q
+    kernels += cluster_kernels(phase_cluster(rng, smi), smi, kernels[0])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,3 @@
-"""Keys and key ranges."""
+"""Key/value data model: keys, ranges, mutations."""
+
+from .keys import KeyRange, empty_range, key_after, strinc  # noqa: F401

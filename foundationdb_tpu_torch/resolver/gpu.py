@@ -1035,8 +1035,14 @@ class ConflictSetGPU:
 
     def _dev(self, arr) -> torch.Tensor:
         """A fresh int32 device tensor (always a copy: the state is updated
-        in place and must never alias the caller's array)."""
-        return torch.tensor(np.asarray(arr, dtype=np.int32), device=self.device)
+        in place and must never alias the caller's array). On the card the
+        copy goes through pinned memory with non_blocking: a copy from
+        pageable memory would block the host, and block growth calls this
+        inside submit."""
+        src = torch.from_numpy(np.array(arr, dtype=np.int32))
+        if self.device.type != "cuda":
+            return src
+        return src.pin_memory().to(self.device, non_blocking=True)
 
     def _upload(self, buf: np.ndarray):
         """One H2D of a fused buffer: (device tensor, pinned source to keep

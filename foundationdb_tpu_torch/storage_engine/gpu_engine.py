@@ -643,6 +643,36 @@ class KeyValueStoreGPU:
             out_ranges.append(rows)
         return out_points, out_ranges
 
+    def register_metrics(self, registry=None, labels=()) -> None:
+        """Per-engine read metrics on the process MetricRegistry: batch
+        shape, stage samples, cadence counters (StorageServer.
+        register_metrics calls this)."""
+        from ..core.metrics import global_registry
+
+        reg = registry if registry is not None else global_registry()
+        lbl = tuple(labels)
+        for name, c in (
+            ("storage.gpu.point_reads", self.c_point_reads),
+            ("storage.gpu.range_reads", self.c_range_reads),
+            ("storage.gpu.batches", self.c_batches),
+            ("storage.gpu.span_fallbacks", self.c_span_fallbacks),
+            ("storage.gpu.compactions", self.c_compactions),
+            ("storage.gpu.delta_folds", self.c_delta_folds),
+        ):
+            reg.register_counter(name, c, labels=lbl, replace=True)
+        for name, fn in (
+            ("storage.gpu.entries", lambda: self._n_base),
+            ("storage.gpu.delta_fill_entries",
+             lambda: len(self._delta_keys)),
+            ("storage.gpu.blocks_count", lambda: self.NB),
+            ("storage.gpu.last_batch_width_count",
+             lambda: self.last_batch_width),
+            ("storage.gpu.last_pack_ms", lambda: self.last_pack_ms),
+            ("storage.gpu.last_dispatch_ms", lambda: self.last_dispatch_ms),
+            ("storage.gpu.last_d2h_ms", lambda: self.last_d2h_ms),
+        ):
+            reg.register_gauge(name, fn, labels=lbl, replace=True)
+
 
 def decode_set_columns(batch):
     """Decode a TaggedMutationBatch's SET-only entries into (version, keys,

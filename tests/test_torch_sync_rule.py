@@ -1,0 +1,162 @@
+"""The port's pipeline-sync rule, checked on the source (AST).
+
+The submit/verdicts contract: a dispatch (ConflictSetGPU.submit /
+resolve_async, KeyValueStoreGPU.submit_reads) enqueues device work and
+returns without waiting for the card; the consumption call
+(verdicts / read_verdicts) is where the host waits. So in
+resolver/gpu.py and storage_engine/gpu_engine.py a host-sync call
+(`.item()`, `.cpu()`, `.tolist()`, `torch.cuda.synchronize()`, an event's
+`.synchronize()`, a handle's `.wait()`, or `torch.tensor(host data,
+device=...)`, a copy from pageable memory) may stand only in
+
+- the consumption calls and the functions they call;
+- a function no dispatch reaches (host inspection such as entries(),
+  hand-over, warm-up);
+- the recorded departures (ROADMAP Queue 3): `_phase2_fixed_point`'s one
+  `.item()` per round group, `_refresh_mirror`'s one fence/count readback
+  per compaction, and `_grow_width`'s host re-pack when a longer key
+  arrives.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1] / "foundationdb_tpu_torch"
+SYNC_METHODS = {"item", "cpu", "tolist", "synchronize", "wait"}
+MODULES = {
+    "resolver/gpu.py": {
+        "dispatch": {"submit", "resolve_async"},
+        "consume": {"verdicts"},
+        "departures": {"_phase2_fixed_point", "_refresh_mirror",
+                       "_grow_width"},
+    },
+    "storage_engine/gpu_engine.py": {
+        "dispatch": {"submit_reads"},
+        "consume": {"read_verdicts"},
+        "departures": set(),
+    },
+}
+
+
+def functions(tree):
+    """name -> [FunctionDef] for every function and method (nested
+    functions belong to their enclosing function)."""
+    out = {}
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out.setdefault(node.name, []).append(node)
+    return out
+
+
+def own_nodes(fn):
+    """The nodes of `fn`, nested functions included."""
+    return list(ast.walk(fn))
+
+
+def callees(fn, names):
+    """Names of this module's functions that `fn` calls, by bare name or
+    as an attribute (`self.x()`, `h.wait()`): an over-approximation."""
+    out = set()
+    for node in own_nodes(fn):
+        if isinstance(node, ast.Call):
+            f = node.func
+            name = f.id if isinstance(f, ast.Name) else (
+                f.attr if isinstance(f, ast.Attribute) else None)
+            if name in names:
+                out.add(name)
+    return out
+
+
+def closure(roots, fns):
+    seen, stack = set(), [r for r in roots if r in fns]
+    while stack:
+        name = stack.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        for fn in fns[name]:
+            stack.extend(callees(fn, fns) - seen)
+    return seen
+
+
+def sync_calls(fn):
+    """(line, text) of every host-sync call in `fn`: the methods above,
+    and a tensor built from host data straight on a device
+    (`torch.tensor(x, device=d)` copies from pageable memory, which
+    blocks the host)."""
+    out = []
+    for node in own_nodes(fn):
+        if not isinstance(node, ast.Call) or not isinstance(
+                node.func, ast.Attribute):
+            continue
+        if node.func.attr in SYNC_METHODS and not node.args:
+            out.append((node.lineno, ast.unparse(node)))
+        elif (node.func.attr in ("tensor", "as_tensor")
+              and any(k.arg == "device" for k in node.keywords)):
+            out.append((node.lineno, ast.unparse(node)))
+    return out
+
+
+def analyse(rel):
+    spec = MODULES[rel]
+    tree = ast.parse((ROOT / rel).read_text(), rel)
+    fns = functions(tree)
+    reach = closure(spec["dispatch"], fns)
+    sinks = closure(spec["consume"], fns)
+    return spec, fns, reach, sinks
+
+
+@pytest.mark.parametrize("rel", sorted(MODULES))
+def test_dispatch_path_makes_no_host_sync(rel):
+    spec, fns, reach, sinks = analyse(rel)
+    assert spec["dispatch"] <= reach and spec["consume"] <= sinks
+    bad = []
+    for name in sorted(reach - sinks - spec["departures"]):
+        for fn in fns[name]:
+            bad += [f"{rel}:{line} in {name}: {text}"
+                    for line, text in sync_calls(fn)]
+    assert not bad, "host syncs on the dispatch path:\n" + "\n".join(bad)
+
+
+@pytest.mark.parametrize("rel", sorted(MODULES))
+def test_recorded_departures_are_on_the_path_and_sync(rel):
+    """Each recorded departure is reached by a dispatch and does sync:
+    the list names exactly the places where the contract bends."""
+    spec, fns, reach, sinks = analyse(rel)
+    for name in spec["departures"]:
+        assert name in reach, f"{name} is not on the dispatch path"
+        assert any(sync_calls(fn) for fn in fns[name]), name
+
+
+def test_phase2_makes_one_item_per_round_group():
+    _, fns, _, _ = analyse("resolver/gpu.py")
+    (fn,) = fns["_phase2_fixed_point"]
+    calls = sync_calls(fn)
+    assert [t for _, t in calls if t.endswith(".item()")] == [
+        "active.item()"]
+    assert len(calls) == 1
+    # the read sits inside the round-group loop
+    loops = [n for n in ast.walk(fn) if isinstance(n, (ast.For, ast.While))]
+    assert any(calls[0][0] in {getattr(m, "lineno", None)
+                               for m in ast.walk(loop)} for loop in loops)
+
+
+@pytest.mark.parametrize("stray", [
+    "self._d_hmat.sum().item()",
+    "torch.tensor(np.zeros(4, np.int32), device=self.device)",
+])
+def test_the_rule_catches_a_stray_sync(stray):
+    """A sync added to a dispatch-path function is flagged."""
+    src = (ROOT / "storage_engine/gpu_engine.py").read_text()
+    marker = "        self._fold_pending()\n"
+    assert marker in src
+    bad = src.replace(marker, marker + f"        {stray}\n", 1)
+    tree = ast.parse(bad)
+    fns = functions(tree)
+    reach = closure({"submit_reads"}, fns)
+    sinks = closure({"read_verdicts"}, fns)
+    found = [t for name in reach - sinks for fn in fns[name]
+             for _, t in sync_calls(fn)]
+    assert found == [stray]
