@@ -37,26 +37,63 @@ Phases (each prints one line; any failure exits nonzero):
    ConflictSetGPU (2^21 slots) behind the resolver role and
    KeyValueStoreGPU behind the storage server's read batcher, knobs at
    their defaults. Cycle over 1,000 nodes (64 clients x 25 txns), then
-   BASELINE config 1: 2^20 keys of ReadWrite's space loaded through the
-   client in 1,000-key transactions, then ReadWriteWorkload (5 reads, 2
-   writes per txn, uniform keys over 2^20) from 1,024 clients until
-   10,000 txns have committed. Every resolve batch's verdicts are
-   replayed through a fresh ConflictSetCPU (and entries() compared),
+   BASELINE config 1: 2^18 keys of ReadWrite's space of 2^20 loaded
+   through the client in 1,000-key transactions (cut from 2^20 to keep
+   the whole run inside its time: phase 9 loads the full 2^20), then
+   ReadWriteWorkload (5 reads, 2 writes per txn, uniform keys over 2^20)
+   from 1,024 clients until 10,000 txns have committed. Every resolve
+   batch's verdicts are replayed through a fresh ConflictSetCPU in a
+   process of its own, fed while the cluster runs (and entries()
+   compared),
    every read reply is held against an independent VersionedMap fed the
    same mutations, the window's entries() too; submit makes no host sync
    beyond phase 2's and the mirror's; the probe launches on both paths.
    Prints committed txns per wall second, batch sizes and latencies,
    the pipeline stages, profiled batches and the idle share.
+7. BASELINE config 4 standalone, `[sharded]`: ShardedConflictSetGPU with
+   4 shards over uniform 8-byte keys in 2^20 (boundaries at the
+   quarters), 5 point reads + 2 point writes per txn and on every 7th
+   txn one read range drawn over the whole space, snapshots lagging U[0,
+   100,000), the GC horizon version - 131,072, 2^19 slots per shard: 40
+   batches of 8,192 txns through submit/verdicts at depth 4 (the
+   version 8,192 on per batch) and one profiled, then 6 batches of
+   65,536. ShardedConflictSetCPU's four shards replay every batch in four
+   processes; every batch's statuses and each leg's shard_entries() must
+   equal theirs; the probe launches 4 times per fast-path batch; every
+   submit's syncs are audited.
+8. `[cluster-sharded]`: the port's LocalCluster with a 4-shard
+   ShardedConflictSetGPU as its resolver, split at the Cycle keys of
+   nodes 250, 500 and 750; Cycle over 1,000 nodes (64 clients x 25
+   txns); every resolve batch replayed through ShardedConflictSetCPU's
+   four shards (four processes), every read reply checked, every
+   submit's syncs audited.
+9. `[sharded-cluster]`: ShardedKVCluster(n_storage=4, n_logs=2,
+   replication="double", n_resolvers=4), storage shards and resolvers
+   split at rw_key(2^18), rw_key(2^19) and rw_key(3 * 2^18), under
+   config 1 at full width (a 2^20-key load, then ReadWrite from 1,024
+   clients until 10,000 txns commit); each role's submits replayed
+   through its own ConflictSetCPU (four processes), every read reply held
+   against an independent VersionedMap per storage server, every
+   submit's syncs audited.
+
+Every run drives every phase, and logs each one's wall time
+(`[phase-wall]`). The oracle replays of phases 6-9 share one mechanism,
+StreamingReplays: spawned processes fed through queues while the card
+runs, one per resolver or one per shard (each clipping every batch to
+its shard with clip_txns_to_shard), their statuses max-merged over the
+shards by check_replays.
 
 Then one JSON line with the kernel table (the probe on each path: resolver,
-storage-B, storage-E, cluster-resolver, cluster-storage), the card's name
-and power limit,
+storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
+cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage), the
+card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import struct
 import subprocess
@@ -68,6 +105,12 @@ import numpy as np
 SEED = 20261016
 PAD_WORD = 2**31 - 1
 INT32_MIN = -(2**31)
+# The collector's thresholds for this process and its replay processes:
+# the defaults are sized for small heaps, while these hold tens of millions
+# of objects (1M-record windows, 2^20-key maps and their oracles), over
+# which full collections took about a sixth of a cluster phase's wall time
+# (the CPU at a 2^17-key load). Young cycles are still collected.
+GC_THRESHOLDS = (100_000, 50, 100)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -823,11 +866,14 @@ def phase_storage(rng, smi: str = "", device=None,
         log("storage-memory", smi=json.dumps(smi), allocated_before_mb=(
             f"{torch.cuda.memory_allocated() / 1e6:.1f}"))
     t0 = time.perf_counter()
-    recs = sorted(zip(ycsb_keys(np.arange(n_records)),
-                      (rng.bytes(1000) for _ in range(n_records))))
-    keys = [k for k, _ in recs]
-    vals = [v for _, v in recs]
-    del recs
+    # The records in key order; the values are the same bytes as
+    # n_records draws of rng.bytes(1000), drawn at once.
+    keys = ycsb_keys(np.arange(n_records))
+    blob = rng.bytes(1000 * n_records)
+    order = sorted(range(n_records), key=keys.__getitem__)
+    keys = [keys[i] for i in order]
+    vals = [blob[1000 * i: 1000 * i + 1000] for i in order]
+    del blob, order
     t_gen = time.perf_counter() - t0
     v0 = 10_000_000
     eng = make_mvcc_window("gpu", device=device)
@@ -937,14 +983,17 @@ class RecordingConflictSet:
     submit (version, new oldest version, batch) with its verdicts for the
     CPU replay, the batch's size, its wall latency from submit to
     verdicts, and the host syncs inside submit: torch's count on the card
-    and the ones the set knows of (phase-2 reads, mirror reads)."""
+    and the ones the set knows of (phase-2 reads, mirror reads). With a
+    `sink`, each recorded batch goes to it, in submit order, as soon as
+    its verdicts are in (a replay that runs while the cluster does)."""
 
-    def __init__(self, cs):
+    def __init__(self, cs, sink=None):
         self.cs = cs
         self.log = []       # [version, new_oldest, batch, verdicts]
         self._open = {}     # id(handle) -> (log index, submit time)
         self.lat_ms, self.n_txns = [], []
         self.syncs, self.known, self.sites = [], [], []
+        self.sink, self._sent = sink, 0
 
     def submit(self, version, new_oldest, batch):
         from foundationdb_tpu_torch.resolver import gpu as gpu_mod
@@ -971,6 +1020,10 @@ class RecordingConflictSet:
         i, t0 = self._open.pop(id(handle))
         self.lat_ms.append((time.perf_counter() - t0) * 1e3)
         self.log[i][3] = [int(x) for x in st]
+        while (self.sink is not None and self._sent < len(self.log)
+               and self.log[self._sent][3] is not None):
+            self.sink(tuple(self.log[self._sent][:3]))
+            self._sent += 1
         return st
 
     def __getattr__(self, name):
@@ -983,9 +1036,10 @@ class CheckedWindow:
     consumes is held against it (replies for versions the window has
     since forgotten are discarded by the batcher, and skipped here)."""
 
-    def __init__(self, eng):
+    def __init__(self, eng, name: str = "cluster"):
         from foundationdb_tpu_torch.kv.versioned_map import VersionedMap
 
+        self.name = name
         self.eng = eng
         self.ora = VersionedMap()
         self.replies = 0
@@ -1039,14 +1093,14 @@ class CheckedWindow:
         for (k, v), got in zip(points, pv):
             if v >= old:
                 if got != self.ora.get(k, v):
-                    fail(f"cluster: a point read of {k!r} at {v} differs "
-                         "from the independent VersionedMap")
+                    fail(f"{self.name}: a point read of {k!r} at {v} "
+                         "differs from the independent VersionedMap")
                 self.replies += 1
         for r, got in zip(ranges, rv):
             if r[2] >= old:
                 if got != self.ora.get_range(*r):
-                    fail(f"cluster: a range read {r[:3]!r} differs from the "
-                         "independent VersionedMap")
+                    fail(f"{self.name}: a range read {r[:3]!r} differs "
+                         "from the independent VersionedMap")
                 self.replies += 1
         return pv, rv
 
@@ -1056,9 +1110,133 @@ def rw_key(i: int) -> bytes:
     return b"rw/" + b"%06d" % i
 
 
+def default_knobs() -> None:
+    """Every server knob back to its default (earlier phases set some)."""
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS, ServerKnobs
+
+    for name, value in ServerKnobs().all().items():
+        setattr(SERVER_KNOBS, name, value)
+
+
+class ProbeTap:
+    """The probe on each path while the block is open: launches counted by
+    the kernel's wrapper (probe.LAUNCHES), split by caller (the resolver
+    kernels of resolver/gpu.py, which the sharded set runs too, and the
+    storage window of storage_engine/gpu_engine.py), and each path's last
+    operands, held against the plain version afterwards."""
+
+    def __init__(self):
+        self.launches = {"resolver": 0, "storage": 0}
+        self.captured = {"resolver": {}, "storage": {}}
+
+    def _recording(self, path: str, clone: bool):
+        from foundationdb_tpu_torch.resolver import probe
+
+        real = self._real
+
+        def probe_ranks(hkeys, fences, smat, *, NB, B):
+            n0 = probe.LAUNCHES
+            out = real(hkeys, fences, smat, NB=NB, B=B)
+            self.launches[path] += probe.LAUNCHES - n0
+            # the resolver updates its state in place: copy its operands;
+            # the storage window replaces its tensors, so references do
+            if clone:
+                hkeys, fences, smat = (t.clone() for t in (hkeys, fences,
+                                                           smat))
+            self.captured[path].update(hkeys=hkeys, fences=fences,
+                                       smat=smat, NB=NB, B=B)
+            return out
+
+        return probe_ranks
+
+    def __enter__(self) -> "ProbeTap":
+        from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+        from foundationdb_tpu_torch.resolver import probe
+        from foundationdb_tpu_torch.storage_engine import gpu_engine
+
+        self._real = probe.probe_ranks
+        gpu_mod.probe_ranks = self._recording("resolver", True)
+        gpu_engine.probe_ranks = self._recording("storage", False)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from foundationdb_tpu_torch.resolver import gpu as gpu_mod
+        from foundationdb_tpu_torch.storage_engine import gpu_engine
+
+        gpu_mod.probe_ranks = self._real
+        gpu_engine.probe_ranks = self._real
+
+    def paths(self, **names) -> dict:
+        """{entry name: last operands and launches} for the named paths."""
+        return {name: dict(self.captured[path],
+                           launches=self.launches[path])
+                for name, path in names.items()}
+
+
+def load_key_set(key_space: int, load_keys: int) -> list[bytes]:
+    """`load_keys` of ReadWrite's keys spread evenly over `key_space`,
+    sorted."""
+    return sorted(rw_key(i) for i in np.linspace(
+        0, key_space, load_keys, endpoint=False).astype(np.int64))
+
+
+def stamper(stamps: dict):
+    """mark(name): the wall and simulated clocks at a point of the run."""
+    from foundationdb_tpu_torch.core.runtime import current_loop
+
+    loop = current_loop()
+
+    def mark(name):
+        stamps[name] = (time.perf_counter(), loop.now())
+
+    return mark
+
+
+async def load_through_client(db, keys, loaders: int) -> None:
+    """The keys through the client in 1,000-key transactions, in rounds of
+    `loaders` concurrent transactions in key order: each round commits in
+    about one proxy batch and appends to the sorted maps behind the
+    windows and the oracles."""
+    from foundationdb_tpu_torch.core.runtime import spawn
+
+    async def load(chunk):
+        async def body(tr):
+            for k in chunk:
+                tr.set(k, b"v%d" % len(k))
+
+        await db.transact(body)
+
+    chunks = [keys[i:i + 1000] for i in range(0, len(keys), 1000)]
+    for r in range(0, len(chunks), loaders):
+        tasks = [spawn(load(c), name=f"load_{r + j}")
+                 for j, c in enumerate(chunks[r:r + loaders])]
+        for t in tasks:
+            await t.done
+
+
+async def read_write_until(db, key_space: int, clients: int, target: int):
+    """BASELINE config 1's traffic: ReadWriteWorkload (5 reads, 2 writes
+    per transaction, uniform keys) from `clients` concurrent clients until
+    `target` transactions have committed. Returns the workload."""
+    from foundationdb_tpu_torch.core.runtime import spawn
+    from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
+
+    rw = ReadWriteWorkload(db, key_space=key_space, reads_per_txn=5,
+                           writes_per_txn=2)
+
+    async def client():
+        while rw.txns_done < target:
+            await rw._one()
+
+    tasks = [spawn(client(), name=f"rw_client_{i}") for i in range(clients)]
+    for t in tasks:
+        await t.done
+    return rw
+
+
 def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
                   cycle_clients: int = 64, cycle_txns: int = 25,
-                  key_space: int = 1 << 20, load_keys: int = 1 << 20,
+                  key_space: int = 1 << 20, load_keys: int = 1 << 18,
                   loaders: int = 32, clients: int = 1024,
                   target: int = 10_000, capacity: int = 1 << 21):
     """The transaction system on the card: the port's LocalCluster with
@@ -1075,74 +1253,37 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     on each path."""
     import torch
     from foundationdb_tpu_torch.cluster import LocalCluster
-    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS, ServerKnobs
-    from foundationdb_tpu_torch.core.runtime import (
-        current_loop,
-        loop_context,
-        sim_loop,
-        spawn,
-    )
-    from foundationdb_tpu_torch.resolver import gpu as gpu_mod
-    from foundationdb_tpu_torch.resolver import probe
-    from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.core.runtime import loop_context, sim_loop
     from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
-    from foundationdb_tpu_torch.storage_engine import gpu_engine
     from foundationdb_tpu_torch.workloads.cycle import CycleWorkload
-    from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
 
     t_phase = time.perf_counter()
-    # knobs at their defaults (earlier phases set some), the window on
-    # the card
-    for name, value in ServerKnobs().all().items():
-        setattr(SERVER_KNOBS, name, value)
+    default_knobs()
     log("cluster-knobs", knobs=json.dumps(SERVER_KNOBS.all()))
     dev = torch.device("cuda" if device is None else device)
     card = dev.type == "cuda"
 
-    # The probe on each path: launches counted by the kernel's wrapper
-    # (probe.LAUNCHES), split here by caller; the last operands kept.
-    captured = {"resolver": {}, "storage": {}}
-    launches = {"resolver": 0, "storage": 0}
-    real_probe = probe.probe_ranks
-
-    def recording(path, clone):
-        def probe_ranks(hkeys, fences, smat, *, NB, B):
-            n0 = probe.LAUNCHES
-            out = real_probe(hkeys, fences, smat, NB=NB, B=B)
-            launches[path] += probe.LAUNCHES - n0
-            cap = captured[path]
-            # the resolver updates its state in place: copy its operands;
-            # the storage window replaces its tensors, so references do
-            if clone:
-                hkeys, fences, smat = (t.clone() for t in (hkeys, fences,
-                                                           smat))
-            cap.update(hkeys=hkeys, fences=fences, smat=smat, NB=NB, B=B)
-            return out
-
-        return probe_ranks
-
     loop = sim_loop(seed=SEED)
+    # The oracle replays every resolve batch in a process of its own while
+    # the cluster runs; results() below ends it (a failure before that
+    # leaves it to end with this process: it is a daemon).
+    replays = StreamingReplays()
     cs = RecordingConflictSet(ConflictSetGPU(
-        0, max_key_bytes=16, initial_capacity=capacity, device=device))
-    try:
-        gpu_mod.probe_ranks = recording("resolver", True)
-        gpu_engine.probe_ranks = recording("storage", False)
+        0, max_key_bytes=16, initial_capacity=capacity, device=device),
+        replays.send)
+    with ProbeTap() as tap:
         with loop_context(loop):
             cluster = LocalCluster(conflict_set=cs, device=device)
             win = CheckedWindow(cluster.storage.data)
             cluster.storage.data = win
             cluster.start()
             db = cluster.database()
-            keys = sorted(rw_key(i) for i in np.linspace(
-                0, key_space, load_keys, endpoint=False).astype(np.int64))
+            keys = load_key_set(key_space, load_keys)
             stamps = {}
 
             async def main():
-                loop_ = current_loop()
-
-                def mark(name):
-                    stamps[name] = (time.perf_counter(), loop_.now())
-
+                mark = stamper(stamps)
                 mark("cycle")
                 cyc = CycleWorkload(db, nodes=nodes)
                 await cyc.setup()
@@ -1150,38 +1291,11 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
                                 txns_per_client=cycle_txns)
                 ok = await cyc.check()
                 mark("load")
-
-                async def load(chunk):
-                    async def body(tr):
-                        for k in chunk:
-                            tr.set(k, b"v%d" % len(k))
-
-                    await db.transact(body)
-
-                # rounds of `loaders` concurrent transactions, in key
-                # order: each round commits in about one proxy batch and
-                # appends to the sorted maps behind the window and the
-                # oracles
-                chunks = [keys[i:i + 1000] for i in range(0, len(keys), 1000)]
-                for r in range(0, len(chunks), loaders):
-                    tasks = [spawn(load(c), name=f"load_{r + j}")
-                             for j, c in enumerate(chunks[r:r + loaders])]
-                    for t in tasks:
-                        await t.done
+                await load_through_client(db, keys, loaders)
                 mark("rw")
                 c0 = (win.eng.c_compactions.total, cs.compactions,
                       cs.fast_resolves, len(cs.log), len(win.reads))
-                rw = ReadWriteWorkload(db, key_space=key_space,
-                                       reads_per_txn=5, writes_per_txn=2)
-
-                async def client():
-                    while rw.txns_done < target:
-                        await rw._one()
-
-                tasks = [spawn(client(), name=f"rw_client_{i}")
-                         for i in range(clients)]
-                for t in tasks:
-                    await t.done
+                rw = await read_write_until(db, key_space, clients, target)
                 mark("end")
                 st = cluster.resolver.pipeline_status()
                 cluster.stop()
@@ -1189,9 +1303,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
 
             ok, cyc, rw, c0, pipe = loop.run(main(), timeout_sim_seconds=1e6)
         loop.shutdown()
-    finally:
-        gpu_mod.probe_ranks = real_probe
-        gpu_engine.probe_ranks = real_probe
+    launches = tap.launches
     sync(dev)
     conflicts = cluster.resolver.conflict_transactions
     if not ok:
@@ -1226,9 +1338,6 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
         compactions_window=win.eng.c_compactions.total - c0[0],
         resolver_compactions=cs.compactions - c0[1],
         resolver_fast=cs.fast_resolves - c0[2])
-
-    def pct(x, q):
-        return f"{np.percentile(x, q):.3f}" if len(x) else "none"
 
     syncs = f"{sum(cs.syncs) / len(cs.syncs):.2f}" if cs.syncs else \
         "not measured"
@@ -1269,28 +1378,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
                 fail(f"cluster: the probe kernel was not launched on the "
                      f"{path} path")
 
-    # Every verdict replayed through a fresh oracle, in submit order.
-    t0 = time.perf_counter()
-    ora = ConflictSetCPU(0)
-    for i, (v, oldest, batch, verdicts) in enumerate(cs.log):
-        txns = batch.to_txns() if hasattr(batch, "to_txns") else batch
-        if ora.resolve(v, oldest, txns).statuses != verdicts:
-            fail(f"cluster: resolve batch {i} (version {v}) differs from "
-                 "the ConflictSetCPU replay")
-    if cs.entries() != ora.entries():
-        fail("cluster: the resolver's entries() differ from the replay")
-    t_replay = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if win.eng.entries() != win.ora.entries():
-        fail("cluster: the storage window's entries() differ from the "
-             "independent VersionedMap")
-    log("cluster-check", smi=json.dumps(smi), verdicts_equal=True,
-        resolve_batches=len(cs.log), entries_equal=True,
-        resolver_entries=len(ora.entries()), replies_equal=True,
-        replies=win.replies, window_entries_equal=True,
-        window_entries=win.eng._n_base, replay_s=f"{t_replay:.2f}",
-        window_check_s=f"{time.perf_counter() - t0:.2f}")
-
+    extra = []  # (version, statuses) of the profiled resolves
     if card:
         # One resolve batch and one read batch under the profiler, each of
         # config 1's median size; the idle share is against the config-1
@@ -1299,22 +1387,21 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
         # the cadence's compaction goes first, outside the profile.
         med = sorted(cs.log[c0[3]:], key=lambda e: len(e[3]))
         batch = med[len(med) // 2][2]
-        txns = batch.to_txns() if hasattr(batch, "to_txns") else batch
         v, oldest = cs.log[-1][:2]
-        got = []
         for vp in range(v + 1, v + 3):
             if (cs.cs._since_compact + 1
                     < SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES):
                 break
-            got.append(cs.cs.resolve(vp, oldest, batch).statuses)
+            extra.append((vp, cs.cs.resolve(vp, oldest, batch).statuses))
         fast0 = cs.cs.fast_resolves
         busy_r = profile_batch(
-            lambda: got.append(cs.cs.resolve(vp, oldest, batch).statuses),
+            lambda: extra.append((vp, cs.cs.resolve(vp, oldest,
+                                                    batch).statuses)),
             batch_ms=1e3 * wall_rw / max(n_res, 1),
             phase="cluster-resolve-profile", smi=smi)
-        for i, st in enumerate(got):
-            if st != ora.resolve(v + 1 + i, oldest, txns).statuses:
-                fail("cluster: a profiled resolve differs from the oracle")
+        for vp, _ in extra:
+            # The oracle replays these too, after the cluster's batches.
+            replays.send((vp, oldest, batch))
         n_pts = max(1, int(np.median(win.reads[c0[4]:])))
         pts = [(rw_key(int(i)), win.ora.latest_version)
                for i in rng.integers(0, key_space, n_pts)]
@@ -1333,44 +1420,609 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
                 device_busy_ms_estimate=f"{busy:.1f}",
                 config1_wall_ms=f"{wall_rw * 1e3:.1f}",
                 idle_share=f"{1 - busy / (wall_rw * 1e3):.4f}")
+    # Every verdict, the profiled ones last, against the oracle's replay
+    # in submit order.
+    t0 = time.perf_counter()
+    results = replays.results()
+    check_replays("cluster", [e[3] for e in cs.log] + [st for _, st in extra],
+                  results)
+    if cs.entries() != results[0][1][-1]:
+        fail("cluster: the resolver's entries() differ from the replay")
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if win.eng.entries() != win.ora.entries():
+        fail("cluster: the storage window's entries() differ from the "
+             "independent VersionedMap")
+    log("cluster-check", smi=json.dumps(smi), verdicts_equal=True,
+        resolve_batches=len(cs.log), entries_equal=True,
+        resolver_entries=len(results[0][1][-1]), replies_equal=True,
+        replies=win.replies, window_entries_equal=True,
+        window_entries=win.eng._n_base, replay_wait_s=f"{t_replay:.2f}",
+        window_check_s=f"{time.perf_counter() - t0:.2f}")
     if card:
-        bad = [(i, n, k, cs.sites[i])
-               for i, (n, k) in enumerate(zip(cs.syncs, cs.known)) if n > k]
-        log("cluster-sync-audit", submits=len(cs.syncs),
-            host_syncs=sum(cs.syncs), phase2_and_mirror_reads=sum(cs.known),
-            submits_over=len(bad), first_over=json.dumps(bad[:5]))
-        if bad:
-            fail("cluster: submit made more host syncs than phase 2 and "
-                 "the mirror account for")
+        sync_audit("cluster", cs.syncs, cs.known, cs.sites)
     log("cluster-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
-    return {path: dict(cap, launches=launches[path])
-            for path, cap in captured.items()}
+    return tap.paths(**{"cluster-resolver": "resolver",
+                        "cluster-storage": "storage"})
 
 
-def cluster_kernels(paths: dict, smi: str, base: dict) -> list:
-    """The probe held against its plain version on each cluster path's
-    last operands, timed, with its bound: one kernel-table entry each."""
+# ---------------------------------------------------------------- phase 7
+
+
+def config4_arrays(rng, n: int, version: int, space: int = 1 << 20,
+                   lag: int = 100_000):
+    """One BASELINE config-4 batch as arrays (the generator of
+    tests/test_kernel_baseline_sizes.py:103-157): snapshots version - U[0,
+    lag), 5 point-read and 2 point-write keys per txn uniform over
+    `space`, and for every 7th txn one read range [lo, hi) drawn uniformly
+    over the space, which crosses shard boundaries (range stitching)."""
+    snaps = (version - rng.integers(0, lag, n)).astype(np.int64)
+    rk = rng.integers(0, space, (n, 5))
+    wk = rng.integers(0, space, (n, 2))
+    lo = rng.integers(0, space - 1, (n + 6) // 7)
+    hi = rng.integers(lo + 1, space)
+    return snaps, rk, wk, lo, hi
+
+
+def config4_txns(arrays):
+    """The batch's TxnConflictInfo list: point ranges [k8(k), k8(k) +
+    b"\\x00"), the wide read last in its txn."""
+    from foundationdb_tpu_torch.kv.keys import KeyRange
+    from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
+
+    snaps, rk, wk, lo, hi = arrays
+
+    def keys(a):
+        b = np.ascontiguousarray(a.reshape(-1), dtype=">u8").tobytes()
+        return [b[i:i + 8] for i in range(0, len(b), 8)]
+
+    rkb, wkb, lob, hib = keys(rk), keys(wk), keys(lo), keys(hi)
+    out = []
+    for i, snap in enumerate(snaps.tolist()):
+        rr = [KeyRange(k, k + b"\x00") for k in rkb[5 * i: 5 * i + 5]]
+        if i % 7 == 0:
+            rr.append(KeyRange(lob[i // 7], hib[i // 7]))
+        wr = [KeyRange(k, k + b"\x00") for k in wkb[2 * i: 2 * i + 2]]
+        out.append(TxnConflictInfo(snap, rr, wr))
+    return out
+
+
+class Config4Batch:
+    """A config-4 batch as its arrays, cheap to send to a replay process;
+    to_txns() builds its TxnConflictInfo list."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+
+    def to_txns(self):
+        return config4_txns(self.arrays)
+
+
+def replay(items, shard=None):
+    """A resolver's submits, items (version, new oldest version, batch,
+    ...), replayed in order through a fresh ConflictSetCPU; with `shard`,
+    a key range (lo, hi), every batch is clipped to it first, as one shard
+    of ShardedConflictSetCPU does. The item "entries" takes the oracle's
+    entries() there. Returns (each batch's statuses as int8 arrays, the
+    entries() taken and those at the end)."""
+    from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
+    from foundationdb_tpu_torch.resolver.sharded import clip_txns_to_shard
+
+    ora = ConflictSetCPU(0)
+    statuses, entries = [], []
+    for item in items:
+        if isinstance(item, str):
+            entries.append(ora.entries())
+            continue
+        v, oldest, batch = item[:3]
+        txns = batch.to_txns() if hasattr(batch, "to_txns") else batch
+        if shard is not None:
+            txns = clip_txns_to_shard(txns, *shard)
+        statuses.append(np.asarray(ora.resolve(v, oldest, txns).statuses,
+                                   dtype=np.int8))
+    entries.append(ora.entries())
+    return statuses, entries
+
+
+def replay_worker(inq, outq, shard):
+    """replay() in a process of its own, fed through `inq` until a None;
+    its result goes back through `outq`."""
+    gc.set_threshold(*GC_THRESHOLDS)
+    outq.put(replay(iter(inq.get, None), shard))
+
+
+class StreamingReplays:
+    """Replay processes (spawned: the card stays with this process), fed
+    while the card runs so that little is left to replay at its end: `n`
+    of them, or one per shard of `boundaries`, each clipping every batch
+    to its shard. sink(i) feeds process i and send() feeds them all, in
+    the background (queues). results() ends them and returns their
+    replay() results in order; leaving the block ends any still running."""
+
+    def __init__(self, n: int = 1, boundaries=None):
+        import multiprocessing
+
+        from foundationdb_tpu_torch.resolver.sharded import shard_key_ranges
+
+        ctx = multiprocessing.get_context("spawn")
+        shards = ([None] * n if boundaries is None
+                  else shard_key_ranges(boundaries))
+        self.inqs = [ctx.Queue() for _ in shards]
+        self.outqs = [ctx.Queue() for _ in shards]
+        self.procs = [ctx.Process(target=replay_worker, args=(i, o, sh),
+                                  daemon=True)
+                      for i, o, sh in zip(self.inqs, self.outqs, shards)]
+        for proc in self.procs:
+            proc.start()
+
+    def sink(self, i: int):
+        return self.inqs[i].put
+
+    def send(self, item) -> None:
+        for q in self.inqs:
+            q.put(item)
+
+    def results(self) -> list:
+        self.send(None)
+        out = [q.get() for q in self.outqs]
+        for p in self.procs:
+            p.join(timeout=60)
+        return out
+
+    def __enter__(self) -> "StreamingReplays":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=10)
+        for q in self.inqs + self.outqs:
+            q.cancel_join_thread()
+            q.close()
+
+
+def check_replays(name: str, verdicts, results) -> None:
+    """Every batch's verdicts against the replays' statuses, max-merged
+    over the replays (one per shard; a lone replay is its own max)."""
+    n = len(results[0][0])
+    if n != len(verdicts):
+        fail(f"{name}: {n} batches replayed, {len(verdicts)} resolved")
+    for i, got in enumerate(verdicts):
+        want = np.max(np.stack([r[0][i] for r in results]), axis=0)
+        if not np.array_equal(np.asarray(got, dtype=np.int8), want):
+            fail(f"{name}: resolve batch {i} differs from its oracle replay")
+
+
+def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
+                  n_batches: int = 40, big_txn: int = 65536,
+                  big_batches: int = 6, space: int = 1 << 20,
+                  window: int = 131072, lag: int = 100_000,
+                  capacity: int = 1 << 19):
+    """BASELINE config 4 standalone: ShardedConflictSetGPU with 4 shards
+    over uniform 8-byte keys in `space`, boundaries at its quarters.
+    Leg A: n_batches of n_txn txns through submit/verdicts at depth 4, the
+    version n_txn on per batch, the GC horizon version - window, then one
+    profiled batch; leg B: big_batches of big_txn txns (the BASELINE
+    batch), the version big_txn on per batch. ShardedConflictSetCPU's four
+    shards replay every batch in four processes meanwhile; every batch's
+    statuses and each leg's shard_entries() must equal theirs. The probe
+    must launch once per shard per fast-path batch. Returns the probe's
+    last operands and launches."""
+    import torch
+    from foundationdb_tpu_torch.resolver.sharded import ShardedConflictSetGPU
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+    depth, S = 4, 4
+    bounds = [k8(space // 4), k8(space // 2), k8(3 * space // 4)]
+    v0 = 1_000_000
+    legs, v = [], v0
+    for n, count in ((n_txn, n_batches + 1), (big_txn, big_batches)):
+        leg = []
+        for _ in range(count):
+            v += n
+            leg.append((v, max(0, v - window),
+                        config4_arrays(rng, n, v, space, lag)))
+        legs.append(leg)
+
+    cs = ShardedConflictSetGPU(bounds, max_key_bytes=9,
+                               initial_capacity=capacity, device=device)
+    with StreamingReplays(boundaries=bounds) as replays, \
+            ProbeTap() as tap:
+        got, entries, runs = [], [], []
+        for li, leg in enumerate(legs):
+            for v, oldest, arrays in leg:
+                replays.send((v, oldest, Config4Batch(arrays)))
+            replays.send("entries")
+            timed = leg[:-1] if li == 0 else leg  # leg A: last is profiled
+            batches = [config4_txns(a) for _, _, a in timed]
+            f0, c0, l0, p0 = (cs.fast_resolves, cs.compactions,
+                              tap.launches["resolver"], len(got))
+            handles, lat, stages, syncs, known, sites = [], [], [], [], [], []
+
+            def consume():
+                t_sub, h = handles.pop(0)
+                got.append(cs.verdicts(h))
+                lat.append((time.perf_counter() - t_sub) * 1e3)
+                stages.append((h.pack_ms, h.dispatch_ms, h.device_ms,
+                               h.p2_syncs))
+
+            sync(dev)
+            t0 = time.perf_counter()
+            for (v, oldest, _), txns in zip(timed, batches):
+                if len(handles) >= depth:
+                    consume()
+                t_sub, m0 = time.perf_counter(), cs.mirror_reads
+                if card:
+                    site = []
+                    h, n_s = count_syncs(lambda: cs.submit(v, oldest, txns),
+                                         settle=False, sites=site)
+                    syncs.append(n_s)
+                    sites.append(site)
+                else:
+                    h = cs.submit(v, oldest, txns)
+                known.append(h.p2_syncs + cs.mirror_reads - m0)
+                handles.append((t_sub, h))
+            while handles:
+                consume()
+            sync(dev)
+            wall = time.perf_counter() - t0
+            runs.append(dict(
+                wall=wall, txns=len(timed) * len(batches[0]), lat=lat,
+                stages=np.asarray(stages), syncs=syncs, known=known,
+                sites=sites, fast=cs.fast_resolves - f0,
+                compactions=cs.compactions - c0,
+                launches=tap.launches["resolver"] - l0,
+                statuses=np.concatenate([np.asarray(g, dtype=np.int8)
+                                         for g in got[p0:]])))
+            del batches
+            if li == 0:
+                # one more batch of leg A, alone, under the profiler
+                v, oldest, arrays = leg[-1]
+                txns = config4_txns(arrays)
+                f1 = cs.fast_resolves
+                if card:
+                    profile_batch(
+                        lambda: got.append(cs.resolve(v, oldest,
+                                                      txns).statuses),
+                        batch_ms=wall * 1e3 / len(timed),
+                        phase="sharded-profile", smi=smi)
+                else:
+                    got.append(cs.resolve(v, oldest, txns).statuses)
+                runs[0]["profiled_path"] = ("fast" if cs.fast_resolves > f1
+                                            else "compaction")
+            entries.append(cs.shard_entries())
+        launches = tap.launches["resolver"]
+        t_wait = time.perf_counter()
+        results = replays.results()
+        t_wait = time.perf_counter() - t_wait
+
+    for li, (leg_name, run) in enumerate(zip(("sharded", "sharded-64k"),
+                                             runs)):
+        lat_ms = np.asarray(run["lat"])
+        st = run["statuses"]
+        log(leg_name, smi=json.dumps(smi), shards=S,
+            batches=len(lat_ms), txns_per_batch=run["txns"] // len(lat_ms),
+            txns_per_s=f"{run['txns'] / run['wall']:.1f}",
+            p50_batch_ms=f"{np.percentile(lat_ms, 50):.2f}",
+            p90_batch_ms=f"{np.percentile(lat_ms, 90):.2f}",
+            conflict_rate=f"{float((st == 1).mean()):.4f}",
+            too_old_rate=f"{float((st == 2).mean()):.4f}",
+            p2_syncs_per_batch=f"{run['stages'][:, 3].mean():.2f}",
+            fast_resolves=run["fast"], compactions=run["compactions"],
+            probe_launches=run["launches"],
+            p50_pack_ms=f"{np.percentile(run['stages'][:, 0], 50):.2f}",
+            p50_dispatch_ms=f"{np.percentile(run['stages'][:, 1], 50):.2f}",
+            p50_wait_ms=f"{np.percentile(run['stages'][:, 2], 50):.2f}",
+            NB=cs.NB, entries=json.dumps([len(e) for e in entries[li]]))
+        if card and run["launches"] != S * run["fast"]:
+            fail(f"{leg_name}: {run['launches']} probe launches for "
+                 f"{run['fast']} fast-path batches of {S} shards")
+        if card:
+            sync_audit(leg_name, run["syncs"], run["known"], run["sites"])
+    if runs[0]["fast"] <= 0:
+        fail("sharded: the fast path never ran at the 8,192-txn batch")
+    if runs[0].get("profiled_path"):
+        log("sharded-profiled-batch", path=runs[0]["profiled_path"],
+            txns=n_txn)
+
+    # Every batch against the oracle's shards, max-merged (leg A's
+    # batches first, then leg B's).
+    check_replays("sharded", got, results)
+    for li in range(len(legs)):
+        if entries[li] != [r[1][li] for r in results]:
+            fail(f"sharded: shard_entries() differ from ShardedConflictSetCPU "
+                 f"after leg {'AB'[li]}")
+    log("sharded-check", smi=json.dumps(smi), batches=len(got),
+        statuses_equal=True, entries_equal=True, oracle_processes=S,
+        oracle_wait_s=f"{t_wait:.2f}",
+        phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    if card and launches <= 0:
+        fail("sharded: the probe kernel was not launched on the main path")
+    return tap.paths(sharded="resolver")
+
+
+def cycle_key(i: int) -> bytes:
+    """CycleWorkload's key of node i (workloads/cycle.py)."""
+    return b"cycle/" + struct.pack(">I", i)
+
+
+def sync_audit(name: str, syncs, known, sites) -> None:
+    """Host syncs of every audited submit (torch's count on the card, and
+    the file:line of each) against the ones the sets know of: phase-2
+    reads and mirror reads."""
+    bad = [(i, n, k, sites[i]) for i, (n, k) in enumerate(zip(syncs, known))
+           if n > k]
+    log(f"{name}-sync-audit", submits=len(syncs), host_syncs=sum(syncs),
+        phase2_and_mirror_reads=sum(known), submits_over=len(bad),
+        first_over=json.dumps(bad[:5]))
+    if bad:
+        fail(f"{name}: submit made more host syncs than phase 2 and the "
+             "mirror account for")
+
+
+def pct(x, q):
+    return f"{np.percentile(x, q):.3f}" if len(x) else "none"
+
+
+def phase_cluster_sharded(rng, smi: str = "", device=None, nodes: int = 1000,
+                          clients: int = 64, txns: int = 25,
+                          capacity: int = 1 << 12):
+    """Path A of config 4: the port's LocalCluster with a 4-shard
+    ShardedConflictSetGPU (max_key_bytes 16) as its resolver, split at the
+    Cycle keys of nodes nodes/4, nodes/2 and 3*nodes/4; Cycle over `nodes`
+    nodes from `clients` clients x `txns` txns. Every resolve batch is
+    replayed through ShardedConflictSetCPU and shard_entries() compared;
+    every read reply is held against an independent VersionedMap; every
+    submit's syncs are audited."""
+    import torch
+    from foundationdb_tpu_torch.cluster import LocalCluster
+    from foundationdb_tpu_torch.core.runtime import loop_context, sim_loop
+    from foundationdb_tpu_torch.resolver.sharded import ShardedConflictSetGPU
+    from foundationdb_tpu_torch.workloads.cycle import CycleWorkload
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    card = torch.device("cuda" if device is None else device).type == "cuda"
+    bounds = [cycle_key(nodes * i // 4) for i in (1, 2, 3)]
+    loop = sim_loop(seed=SEED + 1)
+    with StreamingReplays(boundaries=bounds) as replays, \
+            ProbeTap() as tap:
+        cs = RecordingConflictSet(ShardedConflictSetGPU(
+            bounds, max_key_bytes=16, initial_capacity=capacity,
+            device=device), replays.send)
+        with loop_context(loop):
+            cluster = LocalCluster(conflict_set=cs, device=device)
+            win = CheckedWindow(cluster.storage.data, "cluster-sharded")
+            cluster.storage.data = win
+            cluster.start()
+            db = cluster.database()
+
+            async def main():
+                cyc = CycleWorkload(db, nodes=nodes)
+                await cyc.setup()
+                await cyc.start(clients=clients, txns_per_client=txns)
+                ok = await cyc.check()
+                cluster.stop()
+                return ok, cyc
+
+            t0 = time.perf_counter()
+            ok, cyc = loop.run(main(), timeout_sim_seconds=1e6)
+            wall = time.perf_counter() - t0
+        loop.shutdown()
+        t0 = time.perf_counter()
+        results = replays.results()
+    conflicts = cluster.resolver.conflict_transactions
+    if not ok:
+        fail("cluster-sharded: the Cycle invariant does not hold")
+    if cyc.retries <= 0 or conflicts <= 0:
+        fail(f"cluster-sharded: no conflicts detected (retries "
+             f"{cyc.retries}, conflicts {conflicts})")
+    log("cluster-sharded", smi=json.dumps(smi), shards=4, nodes=nodes,
+        clients=clients, txns=cyc.txns_done, retries=cyc.retries,
+        conflicts=conflicts, check=ok, wall_s=f"{wall:.2f}",
+        txns_per_wall_s=f"{cyc.txns_done / wall:.1f}",
+        resolve_batches=len(cs.log),
+        txns_per_batch_p50=pct(cs.n_txns, 50),
+        txns_per_batch_max=max(cs.n_txns),
+        latency_ms_p50=pct(cs.lat_ms, 50), latency_ms_p90=pct(cs.lat_ms, 90),
+        fast_resolves=cs.fast_resolves, compactions=cs.compactions,
+        p2_syncs_per_batch=f"{sum(cs.known) / len(cs.known):.2f}",
+        probe_launches=tap.launches["resolver"],
+        probe_launches_per_fast_batch=(
+            f"{tap.launches['resolver'] / cs.fast_resolves:.2f}"
+            if cs.fast_resolves else "none"),
+        read_batches=len(win.reads), replies_checked=win.replies)
+    if card and tap.launches["resolver"] != 4 * cs.fast_resolves:
+        fail(f"cluster-sharded: {tap.launches['resolver']} probe launches "
+             f"for {cs.fast_resolves} fast-path batches of 4 shards")
+    if card and tap.launches["resolver"] <= 0:
+        fail("cluster-sharded: the probe kernel was not launched")
+    check_replays("cluster-sharded", [e[3] for e in cs.log], results)
+    want = [r[1][-1] for r in results]
+    if cs.shard_entries() != want:
+        fail("cluster-sharded: shard_entries() differ from the replay")
+    if win.eng.entries() != win.ora.entries():
+        fail("cluster-sharded: the storage window's entries() differ from "
+             "the independent VersionedMap")
+    log("cluster-sharded-check", verdicts_equal=True, entries_equal=True,
+        shard_entries=json.dumps([len(e) for e in want]),
+        replies_equal=True, window_entries_equal=True,
+        replay_s=f"{time.perf_counter() - t0:.2f}")
+    if card:
+        sync_audit("cluster-sharded", cs.syncs, cs.known, cs.sites)
+    log("cluster-sharded-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
+    return tap.paths(**{"cluster-sharded": "resolver"})
+
+
+def phase_sharded_cluster(rng, smi: str = "", device=None,
+                          key_space: int = 1 << 20, load_keys: int = 1 << 20,
+                          loaders: int = 32, clients: int = 1024,
+                          target: int = 10_000):
+    """Path B of config 4, the reference's own layout at full width:
+    ShardedKVCluster(n_storage=4, n_logs=2, replication="double",
+    n_resolvers=4), both the storage shards and the resolvers split at
+    rw_key of key_space/4, /2 and 3/4; each resolver role holds a
+    ConflictSetGPU, each storage server a KeyValueStoreGPU window, knobs at
+    their defaults. BASELINE config 1's traffic as in [cluster]: a
+    `load_keys` load through the client, then ReadWrite until `target`
+    txns commit. Each role's submits are replayed through its own
+    ConflictSetCPU (four processes fed while the cluster runs), every read
+    reply is held against an
+    independent VersionedMap per storage server, every submit's syncs are
+    audited."""
+    import torch
+    from foundationdb_tpu_torch.cluster.sharded_cluster import ShardedKVCluster
+    from foundationdb_tpu_torch.core.runtime import loop_context, sim_loop
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    card = torch.device("cuda" if device is None else device).type == "cuda"
+    bounds = [rw_key(key_space * i // 4) for i in (1, 2, 3)]
+    loop = sim_loop(seed=SEED + 2)
+    with StreamingReplays(4) as replays, ProbeTap() as tap:
+        with loop_context(loop):
+            cluster = ShardedKVCluster(
+                n_storage=4, n_logs=2, replication="double",
+                shard_boundaries=bounds, n_resolvers=4,
+                resolver_boundaries=bounds, device=device)
+            recs = []
+            for i, role in enumerate(cluster.resolvers):
+                role.cs = RecordingConflictSet(role.cs, replays.sink(i))
+                recs.append(role.cs)
+            wins = []
+            for s in cluster.storages:
+                s.data = CheckedWindow(s.data, "sharded-cluster")
+                wins.append(s.data)
+            cluster.start()
+            db = cluster.database()
+            keys = load_key_set(key_space, load_keys)
+            stamps = {}
+
+            async def main():
+                mark = stamper(stamps)
+                mark("load")
+                await load_through_client(db, keys, loaders)
+                mark("rw")
+                c0 = ([len(r.log) for r in recs], [len(w.reads) for w in wins],
+                      [len(w.compaction_ms) for w in wins])
+                rw = await read_write_until(db, key_space, clients, target)
+                mark("end")
+                cluster.stop()
+                return rw, c0
+
+            rw, c0 = loop.run(main(), timeout_sim_seconds=1e6)
+        loop.shutdown()
+        # Every role's verdicts, replayed through its own ConflictSetCPU
+        # while the cluster ran; the windows against their VersionedMaps.
+        t0 = time.perf_counter()
+        for i, w in enumerate(wins):
+            if w.eng.entries() != w.ora.entries():
+                fail(f"sharded-cluster: storage {i}'s entries() differ "
+                     "from the independent VersionedMap")
+        results = replays.results()
+        t_check = time.perf_counter() - t0
+    if rw.txns_done < target:
+        fail(f"sharded-cluster: {rw.txns_done} config-1 transactions, "
+             f"{target} wanted")
+    wall_load = stamps["rw"][0] - stamps["load"][0]
+    wall_rw = stamps["end"][0] - stamps["rw"][0]
+    rebuild_ms = sum(sum(w.compaction_ms[n:]) for w, n in zip(wins, c0[2]))
+    load_ms = sum(sum(w.compaction_ms[:n]) for w, n in zip(wins, c0[2]))
+    log("sharded-cluster-load", keys=len(keys), key_space=key_space,
+        txns=(len(keys) + 999) // 1000, loaders=loaders,
+        wall_s=f"{wall_load:.2f}",
+        keys_per_wall_s=f"{len(keys) / wall_load:.1f}",
+        window_compactions=sum(c0[2]),
+        compaction_rebuild_s=f"{load_ms / 1e3:.2f}")
+    log("sharded-cluster-config1", smi=json.dumps(smi), clients=clients,
+        committed=rw.txns_done, retries=rw.retries, wall_s=f"{wall_rw:.2f}",
+        sim_s=f"{stamps['end'][1] - stamps['rw'][1]:.3f}",
+        committed_per_wall_s=f"{rw.txns_done / wall_rw:.1f}",
+        window_compactions=sum(len(w.compaction_ms) - n
+                               for w, n in zip(wins, c0[2])),
+        compaction_rebuild_s=f"{rebuild_ms / 1e3:.2f}",
+        compaction_wall_share=f"{rebuild_ms / 1e3 / wall_rw:.4f}")
+    for i, (rec, n0) in enumerate(zip(recs, c0[0])):
+        log("sharded-cluster-resolver", smi=json.dumps(smi), role=i,
+            batches=len(rec.log), config1_batches=len(rec.log) - n0,
+            txns_per_batch_p50=pct(rec.n_txns[n0:], 50),
+            txns_per_batch_max=max(rec.n_txns[n0:]),
+            latency_ms_p50=pct(rec.lat_ms[n0:], 50),
+            latency_ms_p90=pct(rec.lat_ms[n0:], 90),
+            all_latency_ms_p50=pct(rec.lat_ms, 50),
+            fast_resolves=rec.fast_resolves, compactions=rec.compactions,
+            capacity=rec.capacity, conflicts=cluster.resolvers[i]
+            .conflict_transactions,
+            known_syncs_per_submit=f"{sum(rec.known) / len(rec.known):.2f}")
+    reads = [x for w, n in zip(wins, c0[1]) for x in w.lat_ms[n:]]
+    log("sharded-cluster-reads", smi=json.dumps(smi),
+        batches=sum(len(w.reads) for w in wins),
+        config1_batches=sum(len(w.reads) - n for w, n in zip(wins, c0[1])),
+        config1_reads_per_batch_p50=pct(
+            [x for w, n in zip(wins, c0[1]) for x in w.reads[n:]], 50),
+        config1_latency_ms_p50=pct(reads, 50),
+        config1_latency_ms_p90=pct(reads, 90),
+        replies_checked=sum(w.replies for w in wins),
+        probe_launches=tap.launches["storage"])
+    if card:
+        for path in ("resolver", "storage"):
+            if tap.launches[path] <= 0:
+                fail(f"sharded-cluster: the probe kernel was not launched "
+                     f"on the {path} path")
+
+    for i, (rec, res) in enumerate(zip(recs, results)):
+        check_replays(f"sharded-cluster resolver {i}",
+                      [e[3] for e in rec.log], [res])
+        if rec.entries() != res[1][-1]:
+            fail(f"sharded-cluster: resolver {i}'s entries() differ from "
+                 "the replay")
+    log("sharded-cluster-check", smi=json.dumps(smi), verdicts_equal=True,
+        resolve_batches=sum(len(r.log) for r in recs),
+        resolver_entries=json.dumps([len(r[1][-1]) for r in results]),
+        entries_equal=True, replies_equal=True, window_entries_equal=True,
+        window_entries=json.dumps([w.eng._n_base for w in wins]),
+        check_s=f"{t_check:.2f}")
+    if card:
+        syncs, known, sites = ([x for r in recs for x in getattr(r, f)]
+                               for f in ("syncs", "known", "sites"))
+        sync_audit("sharded-cluster", syncs, known, sites)
+    log("sharded-cluster-phase",
+        wall_s=f"{time.perf_counter() - t_phase:.2f}")
+    return tap.paths(**{"sharded-cluster-resolver": "resolver",
+                        "sharded-cluster-storage": "storage"})
+
+
+def probe_entries(paths: dict, smi: str, base: dict) -> list:
+    """The probe held against its plain version on each path's last
+    operands, timed, with its bound: one kernel-table entry each. The
+    bound counts the touched blocks for a resolver's sorted endpoints and
+    the walks' reads for a storage window's unsorted queries."""
     from foundationdb_tpu_torch.resolver import probe
 
     out = []
     for path, cap in paths.items():
+        if "hkeys" not in cap:
+            fail(f"{path}: the probe was never called on this path")
         h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
                                             "B"))
         err, t = check_probe(h, f, q, NB, B, timed=True)
-        if path == "resolver":
+        if path.endswith("storage"):
+            bound_ms, bound_by = probe_walk_bound(
+                h.cpu().numpy(), f.cpu().numpy(), q.cpu().numpy(), NB, B)
+        else:
             bid = probe.probe_ranks_ref(h, f, q, NB=NB, B=B)[0].cpu().numpy()
             bound_ms, bound_by = probe_bound(q.shape[0], NB, B, q.shape[1],
                                              bid)
-        else:
-            bound_ms, bound_by = probe_walk_bound(
-                h.cpu().numpy(), f.cpu().numpy(), q.cpu().numpy(), NB, B)
-        log(f"probe-cluster-{path}", smi=json.dumps(smi), W1=q.shape[0],
+        log(f"probe-{path}", smi=json.dumps(smi), W1=q.shape[0],
             NB=NB, B=B, P2=q.shape[1], max_abs_err=err, **fmt_times(t),
             bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
             launches=cap["launches"])
-        out.append(dict(base, path=f"cluster-{path}",
-                        launches=cap["launches"], max_abs_err=err,
-                        ms=t["ms"], ms_cold=t["ms_cold"],
+        out.append(dict(base, path=path, launches=cap["launches"],
+                        max_abs_err=err, ms=t["ms"], ms_cold=t["ms_cold"],
                         plain_ms=t["plain_ms"], bound_ms=bound_ms,
                         bound_by=bound_by))
     return out
@@ -1379,12 +2031,14 @@ def cluster_kernels(paths: dict, smi: str, base: dict) -> list:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from foundationdb_tpu_torch import _build
     from foundationdb_tpu_torch.resolver import probe
 
+    gc.set_threshold(*GC_THRESHOLDS)
     torch.manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     card = torch.cuda.get_device_name(0)
@@ -1401,54 +2055,70 @@ def main() -> int:
         cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
         ptxas=json.dumps(ptxas))
 
-    phase_probe(rng)
-    phase_narrow(rng)
-    launches, cap = phase_full(rng, card, smi)
+    base = {
+        "name": "probe_ranks",
+        "route": "cuda",
+        "source": "foundationdb_tpu_torch/csrc/probe.cu",
+        "replaces": "foundationdb_tpu/resolver/pallas_probe.py:61",
+        "library_ms": None,
+    }
+    kernels = []
+    t_mark = [t_start]
 
-    # The probe held against its plain version on the main path's inputs.
-    h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB", "B"))
+    def phase_wall(name: str) -> None:
+        now = time.perf_counter()
+        log("phase-wall", name=name, wall_s=f"{now - t_mark[0]:.2f}")
+        t_mark[0] = now
+
+    phase_wall("build")
+    phase_probe(rng)
+    phase_wall("probe")
+    phase_narrow(rng)
+    phase_wall("narrow")
+    launches, cap = phase_full(rng, card, smi)
+    # The probe held against its plain version on the main path's
+    # inputs.
+    h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
+                                        "B"))
     err, t = check_probe(h, f, q, NB, B, timed=True)
     bid = probe.probe_ranks_ref(h, f, q, NB=NB, B=B)[0].cpu().numpy()
     bound_ms, bound_by = probe_bound(q.shape[0], NB, B, q.shape[1], bid)
     log("probe-main", W1=q.shape[0], NB=NB, B=B, P2=q.shape[1],
         max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.5f}",
         bound_by=bound_by)
-
-    kernels = [{
-        "name": "probe_ranks",
-        "path": "resolver",
-        "route": "cuda",
-        "source": "foundationdb_tpu_torch/csrc/probe.cu",
-        "replaces": "foundationdb_tpu/resolver/pallas_probe.py:61",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": t["ms"],
-        "ms_cold": t["ms_cold"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
-
-    # The storage path, and the probe held against its plain version on
-    # each leg's last operands (W1 = n_words + 2, queries in request order).
+    kernels.append(dict(base, path="resolver", launches=launches,
+                        max_abs_err=err, ms=t["ms"],
+                        ms_cold=t["ms_cold"], plain_ms=t["plain_ms"],
+                        bound_ms=bound_ms, bound_by=bound_by))
     del cap, h, f, q
+    phase_wall("full")
+    # The storage path, and the probe held against its plain version on
+    # each leg's last operands (W1 = n_words + 2, queries in request
+    # order).
     legs = phase_storage(rng, smi)
     for leg, cap in legs.items():
-        h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB", "B"))
+        h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat",
+                                            "NB", "B"))
         err, t = check_probe(h, f, q, NB, B, timed=True)
         bound_ms, bound_by = probe_walk_bound(
             h.cpu().numpy(), f.cpu().numpy(), q.cpu().numpy(), NB, B)
-        log(f"probe-storage-{leg}", smi=json.dumps(smi), W1=q.shape[0], NB=NB, B=B, P2=q.shape[1],
-            max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.6f}",
-            bound_by=bound_by)
-        kernels.append(dict(kernels[0], path=f"storage-{leg}",
+        log(f"probe-storage-{leg}", smi=json.dumps(smi), W1=q.shape[0],
+            NB=NB, B=B, P2=q.shape[1], max_abs_err=err, **fmt_times(t),
+            bound_ms=f"{bound_ms:.6f}", bound_by=bound_by)
+        kernels.append(dict(base, path=f"storage-{leg}",
                             launches=cap["launches"], max_abs_err=err,
                             ms=t["ms"], ms_cold=t["ms_cold"],
                             plain_ms=t["plain_ms"], bound_ms=bound_ms,
                             bound_by=bound_by))
     del legs, cap, h, f, q
-    kernels += cluster_kernels(phase_cluster(rng, smi), smi, kernels[0])
+    phase_wall("storage")
+    for name, phase in (("cluster", phase_cluster),
+                        ("sharded", phase_sharded),
+                        ("cluster-sharded", phase_cluster_sharded),
+                        ("sharded-cluster", phase_sharded_cluster)):
+        kernels += probe_entries(phase(rng, smi), smi, base)
+        phase_wall(name)
+    log("smoke", wall_s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -399,35 +399,34 @@ class TaggedMutationBatch:
         from .interfaces import Mutation
 
         blob = self.blob
+        p1_lens, p2_lens = self.p1_len.tolist(), self.p2_len.tolist()
+        types = self.m_types.tolist()
+        m_type = {t: MutationType(t) for t in set(types)}
         p1_at = 0
-        p2_at = int(self.p1_len.astype(np.int64).sum())
+        p2_at = sum(p1_lens)
         muts = []
-        for i in range(len(self.m_types)):
-            l1, l2 = int(self.p1_len[i]), int(self.p2_len[i])
+        for t, l1, l2 in zip(types, p1_lens, p2_lens):
             muts.append(Mutation(
-                MutationType(int(self.m_types[i])),
-                blob[p1_at: p1_at + l1], blob[p2_at: p2_at + l2],
+                m_type[t], blob[p1_at: p1_at + l1], blob[p2_at: p2_at + l2],
             ))
             p1_at += l1
             p2_at += l2
         if self.tagged:
             from .log_system import TaggedMutation
 
+            tags = self.tags.tolist()
             t_at = 0
             rows = []
-            for i, m in enumerate(muts):
-                tc = int(self.tag_counts[i])
-                rows.append(TaggedMutation(
-                    tuple(int(t) for t in self.tags[t_at: t_at + tc]), m
-                ))
+            for m, tc in zip(muts, self.tag_counts.tolist()):
+                rows.append(TaggedMutation(tuple(tags[t_at: t_at + tc]), m))
                 t_at += tc
         else:
             rows = muts
         out = []
         r_at = 0
-        for i in range(self.n_entries):
-            rc = int(self.row_counts[i])
-            out.append((int(self.versions[i]), rows[r_at: r_at + rc]))
+        for v, rc in zip(self.versions[: self.n_entries].tolist(),
+                         self.row_counts[: self.n_entries].tolist()):
+            out.append((v, rows[r_at: r_at + rc]))
             r_at += rc
         return out
 

@@ -125,6 +125,11 @@ def clip_txns(txns: Sequence[TxnConflictInfo],
 
     def clips(r: KeyRange):
         for lo, hi in segs:
+            if lo <= r.begin and r.end <= hi:
+                # inside the segment: the range itself (KeyRange is frozen)
+                if r.begin < r.end:
+                    yield r
+                continue
             b, e = max(r.begin, lo), min(r.end, hi)
             if b < e:
                 yield KeyRange(b, e)

@@ -2,7 +2,10 @@
 
 The port's own copy of foundationdb_tpu.kv.versioned_map (the port imports
 nothing of the JAX package); the contract and the canonical entries() form
-are identical. It is the host oracle of storage_engine/gpu_engine.py.
+are identical. It is the host oracle of storage_engine/gpu_engine.py. One
+departure: it indexes the keys whose chain forget_before can change (more
+than one entry, or a tombstone), so that moving the window visits those
+instead of every key (the same map after it).
 
 The reference uses a persistent treap with path copying (PTree,
 fdbclient/VersionedMap.h:38-63) so every version is a full immutable tree.
@@ -51,6 +54,15 @@ class VersionedMap:
         self._chains: dict[bytes, list[tuple[int, Optional[bytes]]]] = {}
         self.oldest_version = 0               # reads below this are invalid
         self.latest_version = 0
+        # keys whose chain forget_before may change: more than one entry,
+        # or a tombstone (a superset; reindex() rebuilds it)
+        self._trim: set[bytes] = set()
+
+    def reindex(self) -> None:
+        """Rebuild the forget_before index from _chains (after _chains was
+        assigned from outside, as a hand-over does)."""
+        self._trim = {k for k, c in self._chains.items()
+                      if len(c) > 1 or any(val is None for _, val in c)}
 
     def _chain(self, key: bytes) -> list[tuple[int, Optional[bytes]]]:
         c = self._chains.get(key)
@@ -70,6 +82,8 @@ class VersionedMap:
             c[-1] = (version, value)
         else:
             c.append((version, value))
+        if len(c) > 1 or value is None:
+            self._trim.add(key)
 
     def clear(self, key: bytes, version: int) -> None:
         c = self._chain(key)
@@ -79,6 +93,7 @@ class VersionedMap:
             c[-1] = (version, None)
         else:
             c.append((version, None))
+        self._trim.add(key)
 
     def clear_range(self, begin: bytes, end: bytes, version: int) -> None:
         for key in self.keys_in_range(begin, end):
@@ -96,6 +111,8 @@ class VersionedMap:
         while pos < len(c) and c[pos][0] <= version:
             pos += 1
         c[:pos] = [(version, value)]
+        if len(c) > 1 or value is None:
+            self._trim.add(key)
         self.latest_version = max(self.latest_version, version)
 
     # -- reads --
@@ -149,6 +166,7 @@ class VersionedMap:
                 dead.append(key)
         for key in dead:
             del self._chains[key]
+            self._trim.discard(key)
             i = bisect_left(self._keys, key)
             del self._keys[i]
         self.latest_version = min(self.latest_version, version)
@@ -160,7 +178,9 @@ class VersionedMap:
             return
         self.oldest_version = version
         dead: list[bytes] = []
-        for key, c in self._chains.items():
+        settled: list[bytes] = []
+        for key in self._trim:
+            c = self._chains[key]
             # keep the last entry <= version as the base, drop older
             i = 0
             while i + 1 < len(c) and c[i + 1][0] <= version:
@@ -169,6 +189,10 @@ class VersionedMap:
                 del c[:i]
             if len(c) == 1 and c[0][1] is None and c[0][0] <= version:
                 dead.append(key)
+            elif len(c) == 1 and c[0][1] is not None:
+                settled.append(key)  # one value: nothing left to trim
+        self._trim.difference_update(settled)
+        self._trim.difference_update(dead)
         for key in dead:
             del self._chains[key]
             i = bisect_left(self._keys, key)
@@ -180,13 +204,20 @@ class VersionedMap:
         reconstruction must match bit-for-bit, and its compaction's
         rebuild source."""
         out: list[tuple[bytes, int, Optional[bytes]]] = []
+        oldest, chains = self.oldest_version, self._chains
         for key in self._keys:
-            c = self._chains.get(key)
+            c = chains.get(key)
             if not c:
                 continue
+            if len(c) == 1:
+                # canonical_chain of one entry: kept unless a tombstone
+                # at or below the horizon
+                v, val = c[0]
+                if val is not None or v > oldest:
+                    out.append((key, v, val))
+                continue
             out.extend(
-                (key, v, val)
-                for v, val in canonical_chain(c, self.oldest_version)
+                (key, v, val) for v, val in canonical_chain(c, oldest)
             )
         return out
 

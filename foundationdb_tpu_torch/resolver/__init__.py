@@ -4,6 +4,11 @@
   foundationdb_tpu.resolver.tpu.ConflictSetTPU; its rank probe is the
   hand-written CUDA kernel of probe.py / csrc/probe.cu.
 - `ConflictSetCPU` (cpu.py): the exact step-function oracle.
+- `ShardedConflictSetGPU` (sharded.py): S resolver shards over a key-space
+  partition, stacked on one device (BASELINE config 4), the port of
+  foundationdb_tpu.resolver.sharded.ShardedConflictSetTPU;
+  `ShardedConflictSetCPU` is its oracle, `shard_key_ranges` and
+  `clip_txns_to_shard` the partition helpers both share.
 
 `make_conflict_set` (factory.py) constructs either by name.
 """
@@ -17,3 +22,9 @@ from .types import (  # noqa: F401
 )
 from .cpu import ConflictSetCPU  # noqa: F401
 from .factory import make_conflict_set  # noqa: F401
+from .sharded import (  # noqa: F401
+    ShardedConflictSetCPU,
+    ShardedConflictSetGPU,
+    clip_txns_to_shard,
+    shard_key_ranges,
+)

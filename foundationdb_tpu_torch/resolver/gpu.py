@@ -799,6 +799,87 @@ def _touched_blocks(fences_enc: np.ndarray, wb_enc, we_enc, nw: int):
     return touched, inc
 
 
+def needs_compaction(since_compact: int, version_off: int, n_touched: int,
+                     fills, incs, n_writes, NB: int, B: int) -> bool:
+    """Whether a batch takes the compaction instead of the fast step: the
+    compaction cadence, a version offset near the int32 limit, more
+    touched blocks than the cap, or, in any shard (fills, incs and
+    n_writes hold one entry per shard; a lone set is one shard), a block
+    whose pessimistic insert bound passes B - 1 or a fill that could pass
+    the capacity."""
+    return (
+        since_compact + 1 >= SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES
+        or version_off >= 1 << 30
+        or next_bucket(max(n_touched, 1))
+        > SERVER_KNOBS.TPU_MAX_TOUCHED_BLOCKS
+        or any(
+            bool(np.any(f[: len(inc)] + inc > B - 1))
+            or int(f.sum()) + 2 * nw + 1 >= NB * B
+            for f, inc, nw in zip(fills, incs, n_writes)
+        )
+    )
+
+
+def compacted_blocks(m_pred: int, F: int, min_NB: int, NB: int) -> int:
+    """NB after a compaction: room for m_pred entries at fill F with at
+    least one pad fence, no fewer than min_NB, and NB kept where it would
+    shrink less than 4x (hysteresis)."""
+    NB_out = max(next_pow2(max(-(-(m_pred + 1) // F) + 1, 8)), min_NB)
+    if NB_out < NB and NB_out * 4 > NB:
+        NB_out = NB
+    return NB_out
+
+
+def rebase_snapshots(buf: np.ndarray, lay: FusedLayout, delta: int) -> None:
+    """Move a packed batch's snapshots from its packing base to the
+    device base (delta = packing base - device base), in place."""
+    if delta:
+        buf[lay.off_tsnap: lay.off_tsnap + lay.T] += delta
+
+
+def block_step_buf(buf: np.ndarray, lay: FusedLayout, touched, K: int,
+                   NB: int, version_off: int, oldest_off: int,
+                   delta: int) -> np.ndarray:
+    """The fast step's fused buffer: the packed batch, the touched-block
+    gather vector padded with NB up to K (the kernel redirects pad rows to
+    an untouched block), the touched count, the step's scalars, and the
+    snapshots rebased by delta."""
+    g = np.full(K, NB, dtype=np.int32)
+    g[: len(touched)] = touched
+    buf2 = np.concatenate([buf, g, np.array([len(touched)], dtype=np.int32)])
+    buf2[lay.off_scalars] = version_off
+    buf2[lay.off_scalars + 1] = oldest_off
+    rebase_snapshots(buf2, lay, delta)
+    return buf2
+
+
+def fence_mirror(fw: np.ndarray, n_words: int, nbl: int) -> np.ndarray:
+    """The host fence mirror: the first nbl fences of fw (n_words + 1,
+    NB), encoded."""
+    return encode_packed_words(fw[:n_words, :nbl].T, fw[n_words, :nbl])
+
+
+def widen_fences(fw: np.ndarray, n_words: int, new_words: int) -> np.ndarray:
+    """Fence columns fw (..., n_words + 1, NB) at a wider key width: a
+    live fence gains biased zero words, a pad fence pad words."""
+    live = fw[..., n_words, :] != INT32_MAX
+    extra = np.where(
+        live[..., None, :],
+        np.int32(np.uint32(BIAS).view(np.int32)),  # biased zero word
+        np.int32(PAD_WORD),
+    )
+    return np.concatenate(
+        [
+            fw[..., :n_words, :],
+            np.broadcast_to(
+                extra, fw.shape[:-2] + (new_words - n_words, fw.shape[-1])
+            ),
+            fw[..., n_words:, :],
+        ],
+        axis=-2,
+    )
+
+
 def canonical_entries(hmat: np.ndarray, counts: np.ndarray, n_words: int,
                       B: int, base: int, oldest_version: int):
     """Canonicalize a block-sparse state's host copy into the oracle's
@@ -822,6 +903,28 @@ def canonical_entries(hmat: np.ndarray, counts: np.ndarray, n_words: int,
     return [
         (unpack_key(kw[:, i], int(lens[i])), int(absv[i])) for i in idx
     ]
+
+
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """A fresh int32 tensor on `device` (always a copy: the state is
+    updated in place and must never alias the caller's array). On the
+    card the copy goes through pinned memory with non_blocking: a copy
+    from pageable memory would block the host, and block growth calls
+    this inside submit."""
+    src = torch.from_numpy(np.array(arr, dtype=np.int32, order="C"))
+    if device.type != "cuda":
+        return src
+    return src.pin_memory().to(device, non_blocking=True)
+
+
+def upload(buf: np.ndarray, device: torch.device):
+    """One H2D of a fused buffer: (device tensor, pinned source to keep
+    alive until the copy completes, or None)."""
+    src = torch.from_numpy(buf)
+    if device.type != "cuda":
+        return src, None
+    src = src.pin_memory()
+    return src.to(device, non_blocking=True), src
 
 
 def _start_d2h(st_aux: torch.Tensor):
@@ -1034,24 +1137,7 @@ class ConflictSetGPU:
         return cs
 
     def _dev(self, arr) -> torch.Tensor:
-        """A fresh int32 device tensor (always a copy: the state is updated
-        in place and must never alias the caller's array). On the card the
-        copy goes through pinned memory with non_blocking: a copy from
-        pageable memory would block the host, and block growth calls this
-        inside submit."""
-        src = torch.from_numpy(np.array(arr, dtype=np.int32))
-        if self.device.type != "cuda":
-            return src
-        return src.pin_memory().to(self.device, non_blocking=True)
-
-    def _upload(self, buf: np.ndarray):
-        """One H2D of a fused buffer: (device tensor, pinned source to keep
-        alive until the copy completes, or None)."""
-        src = torch.from_numpy(buf)
-        if self.device.type != "cuda":
-            return src, None
-        src = src.pin_memory()
-        return src.to(self.device, non_blocking=True), src
+        return to_device(arr, self.device)
 
     # -- introspection --
 
@@ -1092,10 +1178,8 @@ class ConflictSetGPU:
         both = torch.cat([counts_dev, fences_dev.reshape(-1)]).cpu().numpy()
         nb = counts_dev.shape[0]
         counts, fw = both[:nb], both[nb:].reshape(self.n_words + 1, nb)
-        nbl = int((counts > 0).sum())
-        self._fences_enc = encode_packed_words(
-            fw[: self.n_words, :nbl].T, fw[self.n_words, :nbl]
-        )
+        self._fences_enc = fence_mirror(fw, self.n_words,
+                                        int((counts > 0).sum()))
         self._fills = counts.astype(np.int64)
 
     # -- growth --
@@ -1133,26 +1217,12 @@ class ConflictSetGPU:
             widen_state(self.hmat.cpu().numpy(), self.n_words, new_words)
         )
         fw = self.fences.cpu().numpy()
-        live = fw[self.n_words] != INT32_MAX
-        extra = np.where(
-            live[None, :],
-            np.int32(np.uint32(BIAS).view(np.int32)),  # biased zero word
-            np.int32(PAD_WORD),
-        )
-        fw2 = np.concatenate(
-            [
-                fw[: self.n_words],
-                np.broadcast_to(extra, (new_words - self.n_words, fw.shape[1])),
-                fw[self.n_words:],
-            ],
-            axis=0,
-        )
+        fw2 = widen_fences(fw, self.n_words, new_words)
         self.fences = self._dev(fw2)
         self.n_words = new_words
         self.max_key_bytes = 4 * new_words
-        nbl = int(live.sum())
-        self._fences_enc = encode_packed_words(
-            fw2[:new_words, :nbl].T, fw2[new_words, :nbl]
+        self._fences_enc = fence_mirror(
+            fw2, new_words, int((fw[-1] != INT32_MAX).sum())
         )
 
     # -- resolution --
@@ -1184,31 +1254,21 @@ class ConflictSetGPU:
         touched, inc = _touched_blocks(self._fences_enc, pb.wb_enc,
                                        pb.we_enc, nw)
 
-        m_bound = int(self._fills.sum())
-        need_slow = (
-            self._since_compact + 1 >= SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES
-            or bool(np.any(self._fills[:nbl] + inc > self.B - 1))
-            or version - self._base >= 1 << 30
-            or m_bound + 2 * nw + 1 >= self.NB * self.B
-            or next_bucket(max(len(touched), 1))
-            > SERVER_KNOBS.TPU_MAX_TOUCHED_BLOCKS
+        need_slow = needs_compaction(
+            self._since_compact, version - self._base, len(touched),
+            [self._fills], [inc], [nw], self.NB, self.B,
         )
         delta = pb.base - self._base
 
         if need_slow:
-            # Amortized compaction + dense resolve; NB sized so the
-            # canonical set fits at fill F with at least one pad fence.
-            m_pred = m_bound + 2 * nw
-            NB_need = next_pow2(max(-(-(m_pred + 1) // self.F) + 1, 8))
-            NB_out = max(NB_need, self.min_NB)
-            if NB_out < self.NB and NB_out * 4 > self.NB:
-                NB_out = self.NB  # shrink hysteresis
+            # Amortized compaction + dense resolve.
+            NB_out = compacted_blocks(int(self._fills.sum()) + 2 * nw,
+                                      self.F, self.min_NB, self.NB)
             if NB_out > self.NB:
                 self._grow_blocks(NB_out)
             pb.set_scalars(version - self._base, oldest_eff - self._base)
-            if delta:
-                pb.buf[lay.off_tsnap: lay.off_tsnap + lay.T] += delta
-            fused, keep = self._upload(pb.buf)
+            rebase_snapshots(pb.buf, lay, delta)
+            fused, keep = upload(pb.buf, self.device)
             out = _compact_resolve_impl(
                 self.hmat, self.counts, fused, lay=lay, NB=self.NB,
                 NB_out=NB_out, B=self.B,
@@ -1224,16 +1284,10 @@ class ConflictSetGPU:
             k_nat = next_bucket(max(len(touched), 1))
             K = min(max(k_nat, self._sticky.k_cap_for(pb.n_txns)), self.NB)
             self._sticky.update_k(pb.n_txns, min(k_nat, self.NB))
-            g = np.full(K, self.NB, dtype=np.int32)
-            g[: len(touched)] = touched
-            buf2 = np.concatenate(
-                [pb.buf, g, np.array([len(touched)], dtype=np.int32)]
-            )
-            buf2[lay.off_scalars] = version - self._base
-            buf2[lay.off_scalars + 1] = oldest_eff - self._base
-            if delta:
-                buf2[lay.off_tsnap: lay.off_tsnap + lay.T] += delta
-            fused, keep = self._upload(buf2)
+            buf2 = block_step_buf(pb.buf, lay, touched, K, self.NB,
+                                  version - self._base,
+                                  oldest_eff - self._base, delta)
+            fused, keep = upload(buf2, self.device)
             out = _resolve_block_kernel_impl(
                 self.hmat, self.counts, self.btree, self.fences, self.n,
                 fused, lay=lay, K=K, NB=self.NB, B=self.B,

@@ -511,6 +511,7 @@ def pack_batch(
     oldest_version: int,
     n_words: int,
     caps: tuple | None = None,
+    flat: tuple | None = None,
 ) -> PackedBatch:
     """Flatten, sort and fuse a transaction batch into one int32 buffer.
 
@@ -523,10 +524,12 @@ def pack_batch(
     expl_write_cap]) minimum row capacities — the multi-resolver path packs
     every shard to common shapes so the stacked tensors shard evenly over
     the mesh, and StickyCaps pins layouts across jittering batches.
+    `flat`, if given, is flatten_batch(txns, oldest_version), already
+    computed by the caller.
     """
     n_txns = len(txns)
     (too_old_l, r_begin, r_end, r_txn, r_snap, w_begin, w_end, w_txn) = (
-        flatten_batch(txns, oldest_version)
+        flatten_batch(txns, oldest_version) if flat is None else flat
     )
     words, lens = pack_keys(
         r_end + w_end + w_begin + r_begin, n_words

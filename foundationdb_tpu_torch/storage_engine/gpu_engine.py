@@ -241,6 +241,7 @@ class KeyValueStoreGPU:
         ora._chains = {k: list(c) for k, c in state["_chains"].items()}
         ora.oldest_version = int(state["oldest_version"])
         ora.latest_version = int(state["latest_version"])
+        ora.reindex()
         eng._n_words = int(state["n_words"])
         eng.B = int(state["B"])
         eng.F = eng.B // 2

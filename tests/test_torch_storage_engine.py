@@ -549,3 +549,66 @@ def test_from_state_handover_mid_stream(seed, knob):
     twin = Twin(gpu=gpu, tpu=tpu)
     twin.check_state()
     run_ops(twin, oracle, ops[cut:])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_versioned_map_matches_jax(seed):
+    """The port's VersionedMap (its forget_before visits only the keys
+    its index names) against the JAX package's under a seeded mix of
+    sets, clears, range clears, snapshot inserts, window moves and
+    rollbacks: the same entries(), key index, version chains (trimmed
+    alike), point and range reads and live count after every step, and after a hand-over of its chains
+    (reindex)."""
+    from foundationdb_tpu.kv.versioned_map import VersionedMap as JMap
+
+    rng = np.random.default_rng(seed)
+    mine, theirs = VersionedMap(), JMap()
+    keys = [b"k%03d" % i for i in range(60)]
+    v = 10
+    for step in range(600):
+        op = rng.random()
+        k = keys[int(rng.integers(0, len(keys)))]
+        if op < 0.45:
+            v += int(rng.integers(0, 3))
+            val = b"v%d" % step
+            mine.set(k, val, v)
+            theirs.set(k, val, v)
+        elif op < 0.6:
+            v += 1
+            mine.clear(k, v)
+            theirs.clear(k, v)
+        elif op < 0.65:
+            v += 1
+            e = keys[int(rng.integers(0, len(keys)))]
+            mine.clear_range(k, e, v)
+            theirs.clear_range(k, e, v)
+        elif op < 0.7:
+            sv = max(mine.oldest_version, v - int(rng.integers(0, 20)))
+            mine.set_snapshot(k, b"s%d" % step, sv)
+            theirs.set_snapshot(k, b"s%d" % step, sv)
+        elif op < 0.9:
+            f = v - int(rng.integers(0, 15))
+            mine.forget_before(f)
+            theirs.forget_before(f)
+        elif op < 0.93:
+            r = max(mine.oldest_version, v - int(rng.integers(0, 10)))
+            mine.rollback_above(r)
+            theirs.rollback_above(r)
+            v = r
+        else:
+            handed = VersionedMap()
+            handed._keys = list(mine._keys)
+            handed._chains = {kk: list(c) for kk, c in mine._chains.items()}
+            handed.oldest_version = mine.oldest_version
+            handed.latest_version = mine.latest_version
+            handed.reindex()
+            mine = handed
+        assert mine.entries() == theirs.entries(), step
+        assert mine._keys == theirs._keys, step
+        assert mine._chains == theirs._chains, step  # trimmed alike
+        assert len(mine) == len(theirs), step
+        rv = max(mine.oldest_version, v - int(rng.integers(0, 10)))
+        assert [mine.get(kk, rv) for kk in keys] == [
+            theirs.get(kk, rv) for kk in keys], step
+        assert mine.get_range(keys[5], keys[40], rv, 7) == theirs.get_range(
+            keys[5], keys[40], rv, 7), step

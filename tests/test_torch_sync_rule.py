@@ -1,10 +1,11 @@
 """The port's pipeline-sync rule, checked on the source (AST).
 
 The submit/verdicts contract: a dispatch (ConflictSetGPU.submit /
-resolve_async, KeyValueStoreGPU.submit_reads) enqueues device work and
-returns without waiting for the card; the consumption call
-(verdicts / read_verdicts) is where the host waits. So in
-resolver/gpu.py and storage_engine/gpu_engine.py a host-sync call
+resolve_async, ShardedConflictSetGPU.submit, KeyValueStoreGPU.submit_reads)
+enqueues device work and returns without waiting for the card; the
+consumption call (verdicts / read_verdicts) is where the host waits. So
+in resolver/gpu.py, resolver/sharded.py and storage_engine/gpu_engine.py
+a host-sync call
 (`.item()`, `.cpu()`, `.tolist()`, `torch.cuda.synchronize()`, an event's
 `.synchronize()`, a handle's `.wait()`, or `torch.tensor(host data,
 device=...)`, a copy from pageable memory) may stand only in
@@ -15,7 +16,11 @@ device=...)`, a copy from pageable memory) may stand only in
 - the recorded departures (ROADMAP Queue 3): `_phase2_fixed_point`'s one
   `.item()` per round group, `_refresh_mirror`'s one fence/count readback
   per compaction, and `_grow_width`'s host re-pack when a longer key
-  arrives.
+  arrives (sharded.py has its own `_refresh_mirror` and `_grow_width`,
+  and runs gpu.py's phase 2 once per shard).
+
+sharded.py calls the kernels of gpu.py, so its analysis sees gpu.py's
+functions too, its own taking precedence where a name is in both.
 """
 
 import ast
@@ -31,6 +36,13 @@ MODULES = {
         "consume": {"verdicts"},
         "departures": {"_phase2_fixed_point", "_refresh_mirror",
                        "_grow_width"},
+    },
+    "resolver/sharded.py": {
+        "dispatch": {"submit"},
+        "consume": {"verdicts"},
+        "departures": {"_phase2_fixed_point", "_refresh_mirror",
+                       "_grow_width"},
+        "sees": ("resolver/gpu.py",),
     },
     "storage_engine/gpu_engine.py": {
         "dispatch": {"submit_reads"},
@@ -101,8 +113,10 @@ def sync_calls(fn):
 
 def analyse(rel):
     spec = MODULES[rel]
-    tree = ast.parse((ROOT / rel).read_text(), rel)
-    fns = functions(tree)
+    fns = {}
+    for other in spec.get("sees", ()):
+        fns.update(functions(ast.parse((ROOT / other).read_text(), other)))
+    fns.update(functions(ast.parse((ROOT / rel).read_text(), rel)))
     reach = closure(spec["dispatch"], fns)
     sinks = closure(spec["consume"], fns)
     return spec, fns, reach, sinks
@@ -158,5 +172,26 @@ def test_the_rule_catches_a_stray_sync(stray):
     reach = closure({"submit_reads"}, fns)
     sinks = closure({"read_verdicts"}, fns)
     found = [t for name in reach - sinks for fn in fns[name]
+             for _, t in sync_calls(fn)]
+    assert found == [stray]
+
+
+@pytest.mark.parametrize("stray", [
+    "self.n.sum().item()",
+    "torch.tensor(np.zeros(4, np.int32), device=self.device)",
+])
+def test_the_rule_catches_a_stray_sync_in_the_sharded_set(stray):
+    """A sync added to the sharded set's block growth (on the dispatch
+    path, not a departure) is flagged, with gpu.py's functions in view."""
+    src = (ROOT / "resolver/sharded.py").read_text()
+    marker = "        S = self.n_shards\n        pad = (NB_out - self.NB) * self.B\n"
+    assert marker in src
+    bad = src.replace(marker, marker + f"        {stray}\n", 1)
+    fns = functions(ast.parse((ROOT / "resolver/gpu.py").read_text()))
+    fns.update(functions(ast.parse(bad)))
+    reach = closure({"submit"}, fns)
+    sinks = closure({"verdicts"}, fns)
+    departures = MODULES["resolver/sharded.py"]["departures"]
+    found = [t for name in reach - sinks - departures for fn in fns[name]
              for _, t in sync_calls(fn)]
     assert found == [stray]
