@@ -20,8 +20,9 @@ Phases (each prints one line; any failure exits nonzero):
 4. full width, BASELINE config 5 (sliding MVCC window): uniform 8-byte
    keys over 2^20, 5 point reads + 2 point writes per txn, 65,536 txns per
    batch, version step 65,536, GC horizon version - 131,072, a 2^21-slot
-   state. 24 batches through submit/verdicts at depth 4; the first 2 also
-   through ConflictSetGPU(device="cpu"), statuses and entries() equal. The
+   state. 16 batches through submit/verdicts at depth 4 (cut from 24 to
+   keep the whole run near 600 s); the first 2 also through
+   ConflictSetGPU(device="cpu"), statuses and entries() equal. The
    probe's launch count is reset just before and read just after this run
    and must be positive. Prints txns/s, p50/p90 batch latency and more.
 5. storage read window, one memory-engine storage process: 1,000,000 YCSB
@@ -76,8 +77,34 @@ Phases (each prints one line; any failure exits nonzero):
    against an independent VersionedMap per storage server, every
    submit's syncs audited.
 
+10. `[rankfed]`: BASELINE config 5 as in phase 4 through
+   ConflictSetRankFed (keys in a sorted host mirror, one int32 version
+   vector of 2^23 slots on the card, the kernel as torch ops): 24 batches
+   of 65,536 txns (converted to TxnConflictInfo lists first) through
+   prepare/pack/resolve_async at depth 4, one GC round on the cadence;
+   the first 2 also through ConflictSetRankFed(device="cpu"), statuses
+   and the version vector equal; a ConflictSetCPU replays every batch,
+   statuses and entries() equal. Prints txns/s beside phase 4's, the
+   stage times, one profiled batch, and `[rankfed-sync-audit]`:
+   resolve_async makes exactly its phase-2 group reads, a GC round one.
+11. `[recovery]`: the port's RecoverableCluster, two controllers, its
+   resolver recruited each generation through CONFLICT_SET_IMPL ("gpu"),
+   its storage window KeyValueStoreGPU: Cycle over 1,000 nodes (64 x 25)
+   with the transaction system killed after 25%, 50% and 75% of the
+   commits, then BASELINE config 1 as in phase 6 with kills at 2,500,
+   5,000 and 7,500 commits. Each generation's submits replay through a
+   fresh ConflictSetCPU at its start version; every read reply is held
+   against an independent VersionedMap; the probe launches in every
+   generation on both paths; no dead generation's conflict set outlives
+   its recovery. Prints the time to recover of each kill.
+12. `[sharded-recovery]`: RecoverableShardedCluster(n_storage=4,
+   n_logs=2, replication="double", n_resolvers=4) split at the Cycle
+   keys of nodes 250, 500 and 750; Cycle over 1,000 nodes with 2 kills;
+   each generation's four roles replayed per role, every team member of
+   every shard answering the same get_range after the run.
+
 Every run drives every phase, and logs each one's wall time
-(`[phase-wall]`). The oracle replays of phases 6-9 share one mechanism,
+(`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
 StreamingReplays: spawned processes fed through queues while the card
 runs, one per resolver or one per shard (each clipping every batch to
 its shard with clip_txns_to_shard), their statuses max-merged over the
@@ -85,8 +112,9 @@ shards by check_replays.
 
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
-cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage), the
-card's name and power limit,
+cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage,
+recovery-resolver, recovery-storage, sharded-recovery-resolver; and the
+rank-fed kernel, route "torch"), the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
 """
@@ -99,6 +127,7 @@ import struct
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 
@@ -456,7 +485,7 @@ def config5_batch(rng, n: int, version: int, space: int = 1 << 20,
 
 
 def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
-               n_batches: int = 24, capacity: int = 1 << 21,
+               n_batches: int = 16, capacity: int = 1 << 21,
                chunk: int = 8192):
     from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
     from foundationdb_tpu_torch.resolver import gpu as gpu_mod
@@ -583,7 +612,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         txns_per_s=f"{n_more * n_txn / (time.perf_counter() - t0):.1f}",
         compactions=cs.compactions - comp0,
         fast_resolves=cs.fast_resolves - fast0)
-    return launches, captured
+    return launches, captured, steady
 
 
 # ---------------------------------------------------------------- phase 5
@@ -990,7 +1019,7 @@ class RecordingConflictSet:
     def __init__(self, cs, sink=None):
         self.cs = cs
         self.log = []       # [version, new_oldest, batch, verdicts]
-        self._open = {}     # id(handle) -> (log index, submit time)
+        self._open = {}     # id(handle) -> (log index, submit time, handle)
         self.lat_ms, self.n_txns = [], []
         self.syncs, self.known, self.sites = [], [], []
         self.sink, self._sent = sink, 0
@@ -1012,12 +1041,18 @@ class RecordingConflictSet:
         self.known.append(gpu_mod.P2_SYNCS - p0 + self.cs.mirror_reads - m0)
         self.log.append([version, new_oldest, batch, None])
         self.n_txns.append(h.n_txns)
-        self._open[id(h)] = (len(self.log) - 1, t0)
+        self._open[id(h)] = (len(self.log) - 1, t0, h)
         return h
+
+    def drain(self) -> None:
+        """Read the verdicts of every submit still open, in submit order
+        (a killed generation's in-flight batches: its roles will not)."""
+        for _, _, h in sorted(self._open.values(), key=lambda e: e[0]):
+            self.verdicts(h)
 
     def verdicts(self, handle):
         st = self.cs.verdicts(handle)
-        i, t0 = self._open.pop(id(handle))
+        i, t0, _ = self._open.pop(id(handle))
         self.lat_ms.append((time.perf_counter() - t0) * 1e3)
         self.log[i][3] = [int(x) for x in st]
         while (self.sink is not None and self._sent < len(self.log)
@@ -1074,6 +1109,10 @@ class CheckedWindow:
     def forget_before(self, version):
         self.eng.forget_before(version)
         self.ora.forget_before(version)
+
+    def rollback_above(self, version):
+        self.eng.rollback_above(version)
+        self.ora.rollback_above(version)
 
     def submit_reads(self, points, ranges):
         n = self.eng.c_compactions.total
@@ -1214,15 +1253,17 @@ async def load_through_client(db, keys, loaders: int) -> None:
             await t.done
 
 
-async def read_write_until(db, key_space: int, clients: int, target: int):
-    """BASELINE config 1's traffic: ReadWriteWorkload (5 reads, 2 writes
-    per transaction, uniform keys) from `clients` concurrent clients until
-    `target` transactions have committed. Returns the workload."""
+async def read_write_until(db, key_space: int, clients: int, target: int,
+                           cls=None):
+    """BASELINE config 1's traffic: ReadWriteWorkload (or its subclass
+    `cls`; 5 reads, 2 writes per transaction, uniform keys) from `clients`
+    concurrent clients until `target` transactions have committed.
+    Returns the workload."""
     from foundationdb_tpu_torch.core.runtime import spawn
     from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
 
-    rw = ReadWriteWorkload(db, key_space=key_space, reads_per_txn=5,
-                           writes_per_txn=2)
+    rw = (cls or ReadWriteWorkload)(db, key_space=key_space, reads_per_txn=5,
+                                    writes_per_txn=2)
 
     async def client():
         while rw.txns_done < target:
@@ -1503,8 +1544,9 @@ def replay(items, shard=None):
     ...), replayed in order through a fresh ConflictSetCPU; with `shard`,
     a key range (lo, hi), every batch is clipped to it first, as one shard
     of ShardedConflictSetCPU does. The item "entries" takes the oracle's
-    entries() there. Returns (each batch's statuses as int8 arrays, the
-    entries() taken and those at the end)."""
+    entries() there; an int item starts a fresh ConflictSetCPU at that
+    version (a recovered generation's resolver). Returns (each batch's
+    statuses as int8 arrays, the entries() taken and those at the end)."""
     from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
     from foundationdb_tpu_torch.resolver.sharded import clip_txns_to_shard
 
@@ -1513,6 +1555,9 @@ def replay(items, shard=None):
     for item in items:
         if isinstance(item, str):
             entries.append(ora.entries())
+            continue
+        if isinstance(item, int):
+            ora = ConflictSetCPU(item)
             continue
         v, oldest, batch = item[:3]
         txns = batch.to_txns() if hasattr(batch, "to_txns") else batch
@@ -1996,6 +2041,691 @@ def phase_sharded_cluster(rng, smi: str = "", device=None,
                         "sharded-cluster-storage": "storage"})
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+class RankTap:
+    """The rank-fed kernel (resolver/rankfed.py `_rank_kernel_impl`, torch
+    ops on the set's device) while the block is open: its calls on the card
+    counted (`launches`) and the last call's operands kept (the kernel
+    replaces the version vector and the fused buffer is fresh per batch,
+    so references do)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.captured = {}
+
+    def __enter__(self) -> "RankTap":
+        from foundationdb_tpu_torch.resolver import rankfed
+
+        real = self._real = rankfed._rank_kernel_impl
+
+        def kernel(hv, fused, *, lay):
+            if hv.is_cuda:
+                self.launches += 1
+            self.captured.update(hv=hv, fused=fused, lay=lay)
+            return real(hv, fused, lay=lay)
+
+        rankfed._rank_kernel_impl = kernel
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from foundationdb_tpu_torch.resolver import rankfed
+
+        rankfed._rank_kernel_impl = self._real
+
+
+def rank_kernel_entry(tap: RankTap, launches: int, busy, smi: str) -> dict:
+    """The rank-fed kernel's table entry: its output on the card held
+    against the same torch ops on the CPU (the last main-path operands),
+    the profiled batch's device busy ms and op count, the wall of one
+    synchronized call on the card, and its bytes bound."""
+    import torch
+
+    hv, fused, lay = (tap.captured[k] for k in ("hv", "fused", "lay"))
+    real = tap._real
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real(hv, fused, lay=lay)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    want = real(hv.cpu(), fused.cpu(), lay=lay)
+    err = max(int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    # Least bytes: the version vector and the fused buffer read once, the
+    # new vector and the statuses written once (int32).
+    io_bytes = 4 * (lay.C + lay.total + lay.C + lay.T)
+    bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+    # As built: _build_table writes log2(C) + 1 rows of C int32 (and reads
+    # each one back), phase 3 writes ~8 arrays over the merged C + M slots.
+    built = 4 * lay.C * 2 * lay.C.bit_length() + 4 * 8 * (lay.C + lay.M)
+    ms = busy[0] if busy else None
+    log("rankfed-kernel", smi=json.dumps(smi), C=lay.C, R=lay.R, Wr=lay.Wr,
+        T=lay.T, max_abs_err=err,
+        device_busy_ms=f"{ms:.4f}" if ms else "not measured",
+        device_ops=busy[1] if busy else "not measured",
+        call_wall_ms=f"{sorted(walls)[1]:.4f}",
+        bound_ms=f"{bound_ms:.6f}", bytes=io_bytes,
+        bytes_as_built=built,
+        bound_ms_as_built=f"{built / HBM_BYTES_PER_S * 1e3:.6f}",
+        launches=launches)
+    if err:
+        fail(f"rankfed: the kernel on the card differs from the CPU by {err}")
+    return {"name": "_rank_kernel_impl", "route": "torch",
+            "source": "foundationdb_tpu_torch/resolver/rankfed.py",
+            "replaces": "foundationdb_tpu/resolver/rankfed.py:183",
+            "path": "rankfed", "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": sorted(walls)[1], "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "device_ops": busy[1] if busy else None,
+            "bound_ms_as_built": built / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
+                  n_batches: int = 24, capacity: int = 1 << 23,
+                  full_txns_per_s=None):
+    """BASELINE config 5 through the rank-fed set: ConflictSetRankFed
+    (max_key_bytes 12: the 9-byte end keys fit without a width growth;
+    `capacity` slots) on the card, n_batches of n_txn txns from
+    config5_batch (converted to TxnConflictInfo lists beforehand) through
+    prepare/pack/resolve_async at depth 4, the version 65,536 on per batch
+    and the GC horizon version - 131,072; then one profiled batch and the
+    sync audit's batches. The first 2 batches also run through
+    ConflictSetRankFed(device="cpu"): statuses and the version vector equal
+    bit for bit. A ConflictSetCPU replays every batch in a process of its
+    own: every batch's statuses and the final entries() must equal its.
+    Returns the kernel's table entry (None on the CPU) and the check
+    against the replay, to call once it may wait for it."""
+    import torch
+    from foundationdb_tpu_torch.resolver.rankfed import ConflictSetRankFed
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    step, window, depth, v0 = 65536, 131072, 4, 1_000_000
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+    n_audit = 3
+    n_all = n_batches + 1 + n_audit
+    versions = [v0 + i * step for i in range(n_all)]
+    wires = [config5_batch(rng, n_txn, v) for v in versions]
+    # The oracle has every batch at once: it replays while the batches are
+    # converted and the card runs, and on while the next phases run (the
+    # returned check waits for it).
+    replays = StreamingReplays()
+    with RankTap() as tap:
+        for v, wb in zip(versions, wires):
+            replays.send((v, max(0, v - window), wb))
+        t0 = time.perf_counter()
+        batches = [wb.to_txns() for wb in wires]
+        convert_s = time.perf_counter() - t0
+        del wires
+        kw = dict(max_key_bytes=12, initial_capacity=capacity)
+        rf = ConflictSetRankFed(device=device, **kw)
+        statuses, lat, handles, p2 = [], [], [], []
+        stages = {"prepare_ms": [], "pack_ms": [], "dispatch_ms": []}
+
+        def dispatch(i):
+            v = versions[i]
+            t0 = time.perf_counter()
+            rf.prepare(batches[i])
+            t1 = time.perf_counter()
+            pb = rf.pack(batches[i])
+            t2 = time.perf_counter()
+            h = rf.resolve_async(v, max(0, v - window), pb)
+            t3 = time.perf_counter()
+            for k, x in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+                stages[k].append(x * 1e3)
+            p2.append(h.p2_syncs)
+            return t0, h
+
+        def consume():
+            t0, h = handles.pop(0)
+            statuses.append(h.result())
+            lat.append((time.perf_counter() - t0) * 1e3)
+
+        tap.launches = 0
+        gc0 = rf.gc_rounds
+        sync(dev)
+        for i in range(n_batches):
+            if i == 2:
+                while handles:
+                    consume()
+                twin = ConflictSetRankFed(device="cpu", **kw)
+                for j in range(2):
+                    twin.prepare(batches[j])
+                    st = twin.resolve_packed(
+                        versions[j], max(0, versions[j] - window),
+                        twin.pack(batches[j]))
+                    if not np.array_equal(st, statuses[j]):
+                        fail(f"rankfed: card statuses differ from the CPU "
+                             f"twin at batch {j}")
+                if not (torch.equal(rf.hv.cpu(), twin.hv)
+                        and np.array_equal(rf.mirror, twin.mirror)):
+                    fail("rankfed: the card's version vector or mirror "
+                         "differs from the CPU twin after batch 2")
+                del twin
+                t_steady = time.perf_counter()
+            elif len(handles) >= depth:
+                consume()
+            handles.append(dispatch(i))
+        while handles:
+            consume()
+        sync(dev)
+        t_end = time.perf_counter()
+        launches = tap.launches
+        gc_rounds = rf.gc_rounds - gc0
+        if card and launches != n_batches:
+            fail(f"rankfed: {launches} kernel launches on the card for "
+                 f"{n_batches} batches")
+        steady = (n_batches - 2) * n_txn / (t_end - t_steady)
+        st = np.concatenate(statuses)
+        if st.size != n_txn * n_batches or not np.isin(st, (0, 1, 2)).all():
+            fail("rankfed: malformed statuses")
+        log("rankfed", smi=json.dumps(smi), batches=n_batches,
+            txns_per_batch=n_txn, txns_per_s=f"{steady:.1f}",
+            full_txns_per_s=(f"{full_txns_per_s:.1f}" if full_txns_per_s
+                             else "not measured"),
+            p50_batch_ms=f"{np.percentile(lat, 50):.2f}",
+            p90_batch_ms=f"{np.percentile(lat, 90):.2f}",
+            conflict_rate=f"{float((st == 1).mean()):.4f}",
+            gc_rounds=gc_rounds, capacity=rf.capacity, history=rf.n,
+            key_bytes=rf.max_key_bytes,
+            p2_reads_per_batch=f"{sum(p2) / len(p2):.2f}",
+            launches=launches, cpu_twin_batches=2,
+            convert_s=f"{convert_s:.2f}")
+        log("rankfed-stages", **{
+            f"p50_{k}": f"{np.percentile(x, 50):.2f}"
+            for k, x in stages.items()},
+            max_prepare_ms=f"{max(stages['prepare_ms']):.2f}")
+
+        def run_one(i):
+            statuses.append(dispatch(i)[1].result())
+
+        busy = None
+        if card:
+            busy = profile_batch(lambda: run_one(n_batches),
+                                 batch_ms=1e3 * n_txn / steady,
+                                 phase="rankfed-profile", smi=smi)
+        else:
+            run_one(n_batches)
+        # The sync audit: each resolve_async makes exactly its phase-2
+        # group reads; a GC round makes one read.
+        audit = []
+        for i in range(n_batches + 1, n_all):
+            v = versions[i]
+            rf.prepare(batches[i])
+            pb = rf.pack(batches[i])
+            if card:
+                sites = []
+                h, n = count_syncs(
+                    lambda: rf.resolve_async(v, max(0, v - window), pb),
+                    sites=sites)
+                audit.append((n, h.p2_syncs, sites))
+            else:
+                h = rf.resolve_async(v, max(0, v - window), pb)
+            statuses.append(h.result())
+        if card:
+            _, gc_syncs = count_syncs(rf.gc_round)
+            log("rankfed-sync-audit", dispatches=len(audit),
+                host_syncs=json.dumps([a[0] for a in audit]),
+                phase2_reads=json.dumps([a[1] for a in audit]),
+                gc_round_syncs=gc_syncs)
+            if any(n != k for n, k, _ in audit):
+                fail(f"rankfed: resolve_async's host syncs differ from its "
+                     f"phase-2 group reads: {audit}")
+            if gc_syncs != 1:
+                fail(f"rankfed: a GC round made {gc_syncs} host syncs, 1 "
+                     "expected")
+        entries = rf.entries()
+    entry = rank_kernel_entry(tap, launches, busy, smi) if card else None
+    log("rankfed-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
+
+    def check():
+        """Every batch's statuses and the final entries() against the
+        oracle's replay, once it has finished."""
+        with replays:
+            t0 = time.perf_counter()
+            results = replays.results()
+        check_replays("rankfed", statuses, results)
+        if entries != results[0][1][-1]:
+            fail("rankfed: entries() differ from the oracle's replay")
+        log("rankfed-check", verdicts_equal=True, batches=len(statuses),
+            entries_equal=True, entries=len(entries),
+            replay_wait_s=f"{time.perf_counter() - t0:.2f}")
+
+    return entry, check
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+def watched(cls, on_commit):
+    """A workload class whose commit counter (txns_done) calls
+    on_commit(n) at every commit."""
+
+    class Watched(cls):
+        @property
+        def txns_done(self):
+            return self.__dict__.get("_txns_done", 0)
+
+        @txns_done.setter
+        def txns_done(self, n):
+            self.__dict__["_txns_done"] = n
+            if n:
+                on_commit(n)
+
+    return Watched
+
+
+class GenerationWatch:
+    """A recoverable cluster's generations as they come and go.
+
+    - factory(v) is the cluster's conflict_set_factory: make_conflict_set
+      (the CONFLICT_SET_IMPL knob's set) in a RecordingConflictSet that
+      streams role i's batches to replay process i, which starts a fresh
+      ConflictSetCPU(v) for the generation;
+    - the cluster's _recover is wrapped to stamp each recovery's end and
+      the probe launches so far;
+    - kill() kills the transaction system, reads the dead generation's
+      open verdicts and its entries(), then stamps the time;
+    - committed(n), the workload's commit counter, kills at the counts in
+      `kill_at` and stamps the first commit acknowledged after each
+      recovery; then it collects and checks that no dead generation's
+      conflict set is left.
+
+    Only the records' lists are kept past a generation's end: the sets
+    themselves must become unreachable."""
+
+    def __init__(self, cluster, replays, roles: int, tap, device=None):
+        from foundationdb_tpu_torch.core.runtime import current_loop
+
+        self.cluster, self.replays, self.roles = cluster, replays, roles
+        self.tap, self.device = tap, device
+        self.loop = current_loop()
+        self.gens = []          # one dict per generation
+        self.kills = []         # one dict per kill
+        self.recoveries = []    # one dict per recovery
+        self.kill_at = []
+        self.gc_s, self.collections = 0.0, 0
+        self._live = []         # the live generation's records
+        real = cluster._recover
+
+        def recover():
+            t0 = time.perf_counter()
+            real()
+            self.recoveries.append(dict(
+                gen=cluster.generation, start=t0, end=time.perf_counter(),
+                sim=self.loop.now(), launches=dict(tap.launches)))
+
+        cluster._recover = recover
+
+    def factory(self, v: int):
+        from foundationdb_tpu_torch.resolver.factory import make_conflict_set
+
+        if len(self._live) == self.roles:
+            # A recovery no kill asked for (the controller found the
+            # commit path unhealthy): the roles were stopped just now.
+            self.end_generation()
+        i = len(self._live)
+        if i == 0:
+            self.gens.append(dict(start=v, logs=[], refs=[], entries=None,
+                                  syncs=[], known=[], sites=[], cs=[]))
+        gen = self.gens[-1]
+        cs = (make_conflict_set(v) if self.device is None
+              else make_conflict_set(v, device=self.device))
+        self.replays.sink(i)(v)
+        rec = RecordingConflictSet(cs, self.replays.sink(i))
+        self._live.append(rec)
+        gen["logs"].append(rec.log)
+        gen["refs"].append(weakref.ref(cs))
+        gen["cs"].append(type(cs).__name__)
+        for k in ("syncs", "known", "sites"):
+            gen[k].append(getattr(rec, k))
+        return rec
+
+    def end_generation(self, last: bool = False) -> None:
+        """The live generation's last verdicts and entries(), taken after
+        its roles were stopped (the replays take theirs at a marker, or at
+        their end after the `last` one)."""
+        for rec in self._live:
+            rec.drain()
+        self.gens[-1]["entries"] = [rec.entries() for rec in self._live]
+        self.gens[-1]["stats"] = [(rec.fast_resolves, rec.compactions)
+                                  if hasattr(rec.cs, "fast_resolves")
+                                  else (None, None) for rec in self._live]
+        if not last:
+            for i in range(self.roles):
+                self.replays.sink(i)("entries")
+        self._live = []
+
+    def kill(self) -> None:
+        self.cluster.kill_transaction_system()
+        self.end_generation()
+        # The clock starts after this watch's own reads of the dead
+        # generation (its verdicts and entries()): no simulated time
+        # passes in them, and they are the check's work, not recovery's.
+        self.kills.append(dict(gen=self.cluster.generation,
+                               wall=time.perf_counter(), sim=self.loop.now()))
+
+    def committed(self, n: int) -> None:
+        if self.kill_at and n >= self.kill_at[0]:
+            self.kill_at.pop(0)
+            self.kill()
+            return
+        k = self.kills[-1] if self.kills else None
+        if (k is not None and "first_commit" not in k
+                and self.recoveries[-1]["gen"] > k["gen"]):
+            k["first_commit"] = time.perf_counter()
+            k["first_commit_sim"] = self.loop.now()
+            rec = next(r for r in self.recoveries if r["gen"] > k["gen"])
+            k["recovered"], k["recovered_sim"] = rec["end"], rec["sim"]
+            self.check_collected()
+
+    def check_collected(self) -> None:
+        """No dead generation's conflict set is left: a full collection
+        (seconds over this heap) runs only when one is still referenced."""
+        def alive():
+            return [g + 1 for g, gen in enumerate(self.gens[:-1])
+                    if any(r() is not None for r in gen["refs"])]
+
+        if alive():
+            t0 = time.perf_counter()
+            gc.collect()
+            self.gc_s += time.perf_counter() - t0
+            self.collections += 1
+        if alive():
+            fail(f"generations {alive()}: conflict sets still alive after "
+                 "recovery")
+
+    def recover_times(self) -> list:
+        """Per kill: (generation killed, ms to recovered, ms to the first
+        commit acknowledged after it, the same in simulated s)."""
+        out = []
+        for k in self.kills:
+            if "first_commit" not in k:
+                fail(f"no commit acknowledged after the kill of generation "
+                     f"{k['gen']}")
+            out.append((k["gen"],
+                        round((k["recovered"] - k["wall"]) * 1e3, 2),
+                        round((k["first_commit"] - k["wall"]) * 1e3, 2),
+                        round(k["recovered_sim"] - k["sim"], 4),
+                        round(k["first_commit_sim"] - k["sim"], 4)))
+        return out
+
+    def launches(self) -> list:
+        """Probe launches on each path in each generation: between its
+        recovery and the next one (the last: to now)."""
+        snaps = [r["launches"] for r in self.recoveries]
+        snaps.append(dict(self.tap.launches))
+        return [{p: b[p] - a[p] for p in a} for a, b in zip(snaps, snaps[1:])]
+
+    def check(self, name: str, results) -> None:
+        """Each role's verdicts over every generation against its replay,
+        and each generation's entries() against the replay's at its end."""
+        for i, res in enumerate(results):
+            check_replays(f"{name} role {i}",
+                          [e[3] for gen in self.gens for e in gen["logs"][i]],
+                          [res])
+            if len(res[1]) != len(self.gens):
+                fail(f"{name}: role {i} replayed {len(res[1])} generations "
+                     f"of {len(self.gens)}")
+            for g, (gen, want) in enumerate(zip(self.gens, res[1])):
+                if gen["entries"][i] != want:
+                    fail(f"{name}: generation {g + 1} role {i}'s entries() "
+                         "differ from its replay")
+
+    def audit(self, name: str) -> None:
+        syncs, known, sites = ([x for gen in self.gens for r in gen[k]
+                                for x in r]
+                               for k in ("syncs", "known", "sites"))
+        sync_audit(name, syncs, known, sites)
+
+
+def recovery_summary(name: str, watch: GenerationWatch, smi: str,
+                     card: bool) -> None:
+    ttr = watch.recover_times()
+    launches = watch.launches()
+    log(f"{name}-ttr", smi=json.dumps(smi), kills=len(ttr),
+        to_recovered_ms=json.dumps([t[1] for t in ttr]),
+        to_first_commit_ms=json.dumps([t[2] for t in ttr]),
+        to_recovered_sim_s=json.dumps([t[3] for t in ttr]),
+        to_first_commit_sim_s=json.dumps([t[4] for t in ttr]),
+        p50_to_recovered_ms=f"{np.percentile([t[1] for t in ttr], 50):.2f}",
+        p50_to_first_commit_ms=f"{np.percentile([t[2] for t in ttr], 50):.2f}",
+        recover_call_ms=json.dumps([round((r["end"] - r["start"]) * 1e3, 2)
+                                    for r in watch.recoveries]))
+    log(f"{name}-generations", generations=len(watch.gens),
+        start_versions=json.dumps([g["start"] for g in watch.gens]),
+        conflict_sets=json.dumps(sorted({c for g in watch.gens
+                                         for c in g["cs"]})),
+        batches=json.dumps([[len(x) for x in g["logs"]] for g in watch.gens]),
+        fast_compactions=json.dumps([g["stats"] for g in watch.gens]),
+        probe_launches=json.dumps(launches),
+        dead_sets_collected=True, collections=watch.collections,
+        gc_s=f"{watch.gc_s:.2f}")
+    if card:
+        for g, gl in enumerate(launches):
+            for path, n in gl.items():
+                if n <= 0:
+                    fail(f"{name}: the probe kernel was not launched on the "
+                         f"{path} path in generation {g + 1}")
+
+
+def phase_recovery(rng, smi: str = "", device=None, nodes: int = 1000,
+                   cycle_clients: int = 64, cycle_txns: int = 25,
+                   key_space: int = 1 << 20, load_keys: int = 1 << 18,
+                   loaders: int = 32, clients: int = 1024,
+                   target: int = 10_000):
+    """The recovery tier on the card: the port's RecoverableCluster, two
+    controllers, its resolver recruited every generation through the
+    CONFLICT_SET_IMPL knob ("gpu": ConflictSetGPU at its default size) and
+    its long-lived storage window KeyValueStoreGPU, knobs at their
+    defaults. Cycle (`nodes` nodes, cycle_clients x cycle_txns) with the
+    transaction system killed after 25%, 50% and 75% of the commits; then
+    BASELINE config 1 as in [cluster] (a `load_keys` load, ReadWrite from
+    `clients` clients until `target` commits) with kills at 25%, 50% and
+    75% of `target`. Each generation's submits replay through a fresh
+    ConflictSetCPU at its start version (one process, fed while the
+    cluster runs): statuses and entries() equal; every read reply is held
+    against an independent VersionedMap; after each recovery no dead
+    generation's conflict set is left. Prints the time to recover. Returns
+    the probe's operands and launches on each path."""
+    import torch
+    from foundationdb_tpu_torch.cluster.recovery import RecoverableCluster
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.core.runtime import loop_context, sim_loop
+    from foundationdb_tpu_torch.workloads.cycle import CycleWorkload
+    from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    card = torch.device("cuda" if device is None else device).type == "cuda"
+    loop = sim_loop(seed=SEED + 3)
+    with StreamingReplays() as replays, ProbeTap() as tap:
+        with loop_context(loop):
+            rc = RecoverableCluster(device=device)
+            watch = GenerationWatch(rc, replays, 1, tap, device)
+            rc.conflict_set_factory = watch.factory
+            win = CheckedWindow(rc.storage.data, "recovery")
+            rc.storage.data = win
+            rc.start()
+            rc.start_controller("cc0")
+            rc.start_controller("cc1")
+            db = rc.database()
+            keys = load_key_set(key_space, load_keys)
+            stamps = {}
+
+            async def main():
+                mark = stamper(stamps)
+                total = cycle_clients * cycle_txns
+                watch.kill_at = [total // 4, total // 2, 3 * total // 4]
+                cyc = watched(CycleWorkload, watch.committed)(db, nodes=nodes)
+                await cyc.setup()
+                mark("cycle")
+                await cyc.start(clients=cycle_clients,
+                                txns_per_client=cycle_txns)
+                mark("cycle-end")
+                ok = await cyc.check()
+                gen_cycle = rc.generation
+                await load_through_client(db, keys, loaders)
+                mark("rw")
+                watch.kill_at = [target // 4, target // 2, 3 * target // 4]
+                rw = await read_write_until(
+                    db, key_space, clients, target,
+                    cls=watched(ReadWriteWorkload, watch.committed))
+                mark("end")
+                rc.stop()
+                return ok, cyc, rw, gen_cycle
+
+            ok, cyc, rw, gen_cycle = loop.run(main(), timeout_sim_seconds=1e6)
+            watch.end_generation(last=True)
+        loop.shutdown()
+        t0 = time.perf_counter()
+        results = replays.results()
+        t_replay = time.perf_counter() - t0
+    if not ok:
+        fail("recovery: the Cycle invariant does not hold")
+    if gen_cycle < 4 or rc.generation < 7:
+        fail(f"recovery: generation {gen_cycle} after Cycle and "
+             f"{rc.generation} at the end, 4 and 7 wanted")
+    if rw.txns_done < target:
+        fail(f"recovery: {rw.txns_done} config-1 transactions, {target} "
+             "wanted")
+    wall_cyc = stamps["cycle-end"][0] - stamps["cycle"][0]
+    wall_rw = stamps["end"][0] - stamps["rw"][0]
+    log("recovery-cycle", smi=json.dumps(smi), nodes=nodes,
+        clients=cycle_clients, txns=cyc.txns_done, retries=cyc.retries,
+        check=ok, generation=gen_cycle, wall_s=f"{wall_cyc:.2f}",
+        committed_per_wall_s=f"{cyc.txns_done / wall_cyc:.1f}")
+    log("recovery-config1", smi=json.dumps(smi), clients=clients,
+        committed=rw.txns_done, retries=rw.retries,
+        generation=rc.generation, wall_s=f"{wall_rw:.2f}",
+        committed_per_wall_s=f"{rw.txns_done / wall_rw:.1f}",
+        read_batches=len(win.reads), replies_checked=win.replies,
+        knob=SERVER_KNOBS.CONFLICT_SET_IMPL)
+    recovery_summary("recovery", watch, smi, card)
+    watch.check("recovery", results)
+    if win.eng.entries() != win.ora.entries():
+        fail("recovery: the storage window's entries() differ from the "
+             "independent VersionedMap")
+    log("recovery-check", smi=json.dumps(smi), verdicts_equal=True,
+        entries_equal=True, generations=len(watch.gens),
+        resolve_batches=sum(len(g["logs"][0]) for g in watch.gens),
+        replies_equal=True, replies=win.replies, window_entries_equal=True,
+        replay_wait_s=f"{t_replay:.2f}")
+    if card:
+        watch.audit("recovery")
+    log("recovery-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
+    return tap.paths(**{"recovery-resolver": "resolver",
+                        "recovery-storage": "storage"})
+
+
+# ---------------------------------------------------------------- phase 12
+
+
+def phase_sharded_recovery(rng, smi: str = "", device=None, nodes: int = 1000,
+                           clients: int = 64, txns: int = 25):
+    """The sharded recovery tier on the card: the port's
+    RecoverableShardedCluster(n_storage=4, n_logs=2, replication="double",
+    n_resolvers=4), the storage shards and the resolvers split at the
+    Cycle keys of nodes/4, nodes/2 and 3*nodes/4, each generation's four
+    resolvers recruited through the knob. Cycle over `nodes` nodes
+    (clients x txns) with the transaction system killed after a third and
+    two thirds of the commits. Each generation's four roles replay through
+    their own ConflictSetCPU (four processes); every read reply is held
+    against an independent VersionedMap per storage server; after the run
+    every team member of every shard answers the same get_range. Returns
+    the probe's operands and launches on the resolver path."""
+    import torch
+    from foundationdb_tpu_torch.cluster.interfaces import GetRangeRequest
+    from foundationdb_tpu_torch.cluster.recovery import (
+        RecoverableShardedCluster,
+    )
+    from foundationdb_tpu_torch.core.runtime import loop_context, sim_loop
+    from foundationdb_tpu_torch.kv.keys import KEYSPACE_END
+    from foundationdb_tpu_torch.workloads.cycle import CycleWorkload
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    card = torch.device("cuda" if device is None else device).type == "cuda"
+    bounds = [cycle_key(nodes * i // 4) for i in (1, 2, 3)]
+    loop = sim_loop(seed=SEED + 4)
+    with StreamingReplays(4) as replays, ProbeTap() as tap:
+        with loop_context(loop):
+            c = RecoverableShardedCluster(
+                n_storage=4, n_logs=2, replication="double",
+                shard_boundaries=bounds, n_resolvers=4,
+                resolver_boundaries=bounds, device=device)
+            watch = GenerationWatch(c, replays, 4, tap, device)
+            c.conflict_set_factory = watch.factory
+            wins = []
+            for s in c.inner.storages:
+                s.data = CheckedWindow(s.data, "sharded-recovery")
+                wins.append(s.data)
+            c.start()
+            c.start_controller("cc0")
+            c.start_controller("cc1")
+            db = c.database()
+
+            async def main():
+                total = clients * txns
+                watch.kill_at = [total // 3, 2 * total // 3]
+                cyc = watched(CycleWorkload, watch.committed)(db, nodes=nodes)
+                await cyc.setup()
+                t0 = time.perf_counter()
+                await cyc.start(clients=clients, txns_per_client=txns)
+                wall = time.perf_counter() - t0
+                ok = await cyc.check()
+                # every team member of every shard, through its read path
+                v = max(s.version.get() for s in c.inner.storages)
+                diverged = []
+                for b, e, team in c.shard_map.ranges():
+                    if not team:
+                        continue
+                    e = e if e is not None else KEYSPACE_END
+                    rows = [await c.inner.storages[t].get_range(
+                        GetRangeRequest(begin=b, end=e, version=v))
+                        for t in team]
+                    if any(r != rows[0] for r in rows[1:]):
+                        diverged.append((b, e, team))
+                c.stop()
+                return ok, cyc, wall, diverged
+
+            ok, cyc, wall, diverged = loop.run(main(),
+                                               timeout_sim_seconds=1e6)
+            watch.end_generation(last=True)
+        loop.shutdown()
+        for i, w in enumerate(wins):
+            if w.eng.entries() != w.ora.entries():
+                fail(f"sharded-recovery: storage {i}'s entries() differ "
+                     "from the independent VersionedMap")
+        results = replays.results()
+    if not ok:
+        fail("sharded-recovery: the Cycle invariant does not hold")
+    if diverged:
+        fail(f"sharded-recovery: team members diverge on {diverged}")
+    if c.generation < 3:
+        fail(f"sharded-recovery: generation {c.generation}, 3 wanted")
+    log("sharded-recovery", smi=json.dumps(smi), roles=4, nodes=nodes,
+        clients=clients, txns=cyc.txns_done, retries=cyc.retries, check=ok,
+        generation=c.generation, wall_s=f"{wall:.2f}",
+        committed_per_wall_s=f"{cyc.txns_done / wall:.1f}",
+        replies_checked=sum(w.replies for w in wins),
+        shards_equal_across_teams=True)
+    recovery_summary("sharded-recovery", watch, smi, card)
+    watch.check("sharded-recovery", results)
+    log("sharded-recovery-check", verdicts_equal=True, entries_equal=True,
+        replies_equal=True, window_entries_equal=True)
+    if card:
+        watch.audit("sharded-recovery")
+    log("sharded-recovery-phase",
+        wall_s=f"{time.perf_counter() - t_phase:.2f}")
+    return tap.paths(**{"sharded-recovery-resolver": "resolver"})
+
+
+
 def probe_entries(paths: dict, smi: str, base: dict) -> list:
     """The probe held against its plain version on each path's last
     operands, timed, with its bound: one kernel-table entry each. The
@@ -2075,7 +2805,7 @@ def main() -> int:
     phase_wall("probe")
     phase_narrow(rng)
     phase_wall("narrow")
-    launches, cap = phase_full(rng, card, smi)
+    launches, cap, full_rate = phase_full(rng, card, smi)
     # The probe held against its plain version on the main path's
     # inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
@@ -2118,6 +2848,15 @@ def main() -> int:
                         ("sharded-cluster", phase_sharded_cluster)):
         kernels += probe_entries(phase(rng, smi), smi, base)
         phase_wall(name)
+    entry, rankfed_check = phase_rankfed(rng, smi, full_txns_per_s=full_rate)
+    kernels.append(entry)
+    phase_wall("rankfed")
+    for name, phase in (("recovery", phase_recovery),
+                        ("sharded-recovery", phase_sharded_recovery)):
+        kernels += probe_entries(phase(rng, smi), smi, base)
+        phase_wall(name)
+    rankfed_check()
+    phase_wall("rankfed-check")
     log("smoke", wall_s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,7 +10,9 @@ card). Role boundaries and message types
 mirror the reference's interfaces (fdbclient/MasterProxyInterface.h,
 StorageServerInterface.h, fdbserver/ResolverInterface.h) so that the
 networked/multi-process tier can later swap PromiseStream endpoints for
-real RPC without touching role logic.
+real RPC without touching role logic. The recovery tier
+(recovery.RecoverableCluster, RecoverableShardedCluster) re-recruits the
+transaction system, its resolvers on the card, every generation.
 """
 
 from .cluster import LocalCluster  # noqa: F401

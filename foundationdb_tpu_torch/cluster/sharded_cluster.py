@@ -22,8 +22,9 @@ The port's twin of foundationdb_tpu/cluster/sharded_cluster.py: every
 resolver role's conflict set is ConflictSetGPU and every storage server's
 MVCC window KeyValueStoreGPU (SERVER_KNOBS.STORAGE_ENGINE_IMPL), all on
 `device` (None: the CUDA card, which must be present; "cpu" runs their
-plain torch versions). The durable tier (`datadir`, `engine`) is not
-ported: its modules have no counterpart in the port yet.
+plain torch versions). The durable tier is not ported: its modules have
+no counterpart in the port yet, so there is no `engine` argument, and a
+`datadir` raises NotImplementedError (durable_tier_missing).
 """
 
 from __future__ import annotations
@@ -53,7 +54,6 @@ class ShardedKVCluster:
         conflict_set=None,
         seed: int = 1,
         datadir: Optional[str] = None,
-        engine: str = "memory",
         n_proxies: int = 1,
         n_resolvers: int = 1,
         resolver_boundaries: Optional[Sequence[bytes]] = None,
@@ -92,43 +92,22 @@ class ShardedKVCluster:
         self.replicas = build_replicas(n_storage, topology)
         self.os_layer = os_layer
         # Durable tier (ref: worker.actor.cpp recruiting tlog/storage over
-        # their on-disk files): with a datadir every tlog rides a DiskQueue
-        # (fsync on the commit path) and every storage server flushes into
-        # a recoverable engine — reopening the same datadir cold-boots the
-        # cluster from disk.
-        self.datadir = datadir
+        # their on-disk files): the JAX package rides every tlog on a
+        # DiskQueue and flushes every storage server into a recoverable
+        # engine under a datadir. The port has neither module yet.
         if datadir is not None:
-            import os as _os
-
-            from .durable_tlog import DurableTaggedTLog
-
-            if os_layer is None:
-                _os.makedirs(datadir, exist_ok=True)
-            log_factory = lambda i: DurableTaggedTLog(  # noqa: E731
-                f"{datadir}/log{i}", os_layer=os_layer
-            )
-            remote_log_factory = lambda i: DurableTaggedTLog(  # noqa: E731
-                f"{datadir}/rlog{i}", os_layer=os_layer
-            )
-            engines = [
-                _make_engine(engine, f"{datadir}/storage{i}",
-                             os_layer=os_layer)
-                for i in range(n_storage)
-            ]
-        else:
-            log_factory = None
-            remote_log_factory = None
-            engines = [None] * n_storage
+            raise NotImplementedError(
+                durable_tier_missing("ShardedKVCluster", "datadir"))
+        self.datadir = None
         self.log_system = TagPartitionedLogSystem(
-            n_logs, log_factory=log_factory,
-            log_replication=log_replication, topology=topology,
-            regions=self.regions, remote_log_factory=remote_log_factory,
+            n_logs, log_replication=log_replication, topology=topology,
+            regions=self.regions,
         )
         self.log_routers: list = []
         self._router_tasks: list = []
         self.storages = [
             StorageServer(self.log_system.tag_view(i), 0, tag=i,
-                          engine=engines[i], device=device)
+                          device=device)
             for i in range(n_storage)
         ]
         # -- initial shard layout: boundaries split the keyspace; each
@@ -212,20 +191,6 @@ class ShardedKVCluster:
 
     def start(self) -> "ShardedKVCluster":
         assert not self._started
-        # A REUSED datadir must come back through the recoverable tier: a
-        # standalone start would push from version 0 beneath the recovered
-        # window (the logs would silently swallow — and falsely ack — every
-        # batch), and uneven log tops need the quorum-truncation recovery
-        # only RecoverableShardedCluster runs on boot.
-        if self.datadir is not None and any(
-            log.version.get() > 0 or log.locked_epoch > 0
-            for log in self.log_system.all_logs()
-        ):
-            raise ValueError(
-                "datadir holds recovered log state; reopen it with "
-                "RecoverableShardedCluster (cold boot re-runs the recovery "
-                "sequence there)"
-            )
         self._started = True
         # The metrics plane: every role's instruments land on the
         # per-process registry under stable dotted names (proxy/resolver
@@ -338,8 +303,6 @@ class ShardedKVCluster:
         self.ratekeeper.stop()
         for s in self.storages:
             s.stop()
-        if self.datadir is not None:
-            close_durable_tier(self.storages, self.log_system.all_logs())
         self._started = False
 
     def database(self):
@@ -373,16 +336,6 @@ class ShardedKVCluster:
         # New members need the data: copy the range at the current applied
         # version from an old member (MoveKeys' fetchKeys equivalent is
         # asynchronous; tests use this synchronous stand-in).
-        if self.datadir is not None:
-            from ..core.trace import TraceEvent
-
-            # Topology changes are not yet crash-persistent: cold boot
-            # re-derives the INITIAL layout (see the keyServers follow-up
-            # in multiprocess docstring); flag loudly rather than lose
-            # moved data silently.
-            TraceEvent("ShardMoveNotDurable", severity=30).detail(
-                "Range", repr((r.begin, r.end))
-            ).log()
         # Deterministic donor pick: old_teams is a set, and the donor
         # choice must be a pure function of the seed, not PYTHONHASHSEED.
         donor = self.storages[min(old_teams)[0]]
@@ -403,17 +356,16 @@ class ShardedKVCluster:
         self.shard_map.set_team(r, new_team)
 
 
-def close_durable_tier(storages, logs) -> None:
-    """Final engine flush + file release for an engine-backed fleet —
-    the single shutdown sequence shared by every tier's stop path (clean
-    shutdown shortens the next boot; it is never required for
-    correctness, which rides the tlog fsync alone)."""
-    for s in storages:
-        if s.engine is not None:
-            s._flush_once()
-            s.engine.close()
-    for log in logs:
-        log.close()
+def durable_tier_missing(tier: str, option: str) -> str:
+    """The refusal of a configuration the port cannot run yet: the
+    durable tlog, the storage engines, the simulated disk and the log
+    routers' region failover are not ported (ROADMAP Queue 1 item 7)."""
+    return (
+        f"{tier}({option}=...): the durable tier (durable_tlog, the "
+        "storage engines, the simulated disk and region failover) is not "
+        "ported, see ROADMAP Queue 1 item 7; the port's clusters run in "
+        "memory"
+    )
 
 
 def build_replicas(
@@ -478,26 +430,6 @@ def derive_layout(
             )
         out.append((lo, hi, tuple(sorted(int(r.id) for r in sel))))
     return out
-
-
-def _make_engine(kind: str, path: str, os_layer=None):
-    """IKeyValueStore selection (ref: the ssd/memory storeType knob,
-    worker.actor.cpp openKVStore)."""
-    if kind == "memory":
-        from ..storage_engine.memory_engine import KeyValueStoreMemory
-
-        return KeyValueStoreMemory(path, os_layer=os_layer)
-    if kind == "ssd":
-        from ..storage_engine.ssd_engine import KeyValueStoreSSD
-
-        if os_layer is not None:
-            raise ValueError(
-                "ssd engine does not take a simulated os_layer (the "
-                "native btree does its own IO); use engine='memory' for "
-                "power-loss simulation"
-            )
-        return KeyValueStoreSSD(path + ".btree")
-    raise ValueError(f"unknown storage engine {kind!r}")
 
 
 def _all_false_map():

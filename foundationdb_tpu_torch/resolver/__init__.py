@@ -10,7 +10,12 @@
   `ShardedConflictSetCPU` is its oracle, `shard_key_ranges` and
   `clip_txns_to_shard` the partition helpers both share.
 
-`make_conflict_set` (factory.py) constructs either by name.
+- `ConflictSetRankFed` (rankfed.py): the rank-fed set, whose keys stay in
+  a sorted host mirror and whose device state is one version vector, the
+  port of foundationdb_tpu.resolver.rankfed.ConflictSetRankFed.
+
+Recruitment goes through `make_conflict_set` (factory.py), driven by
+SERVER_KNOBS.CONFLICT_SET_IMPL ("gpu" | "oracle").
 """
 
 from .types import (  # noqa: F401
@@ -22,6 +27,7 @@ from .types import (  # noqa: F401
 )
 from .cpu import ConflictSetCPU  # noqa: F401
 from .factory import make_conflict_set  # noqa: F401
+from .rankfed import ConflictSetRankFed  # noqa: F401
 from .sharded import (  # noqa: F401
     ShardedConflictSetCPU,
     ShardedConflictSetGPU,

@@ -249,31 +249,26 @@ class WireBatch:
 
     def to_txns(self) -> list[TxnConflictInfo]:
         """Decode back into objects (the oracle/native backends' path —
-        they take object batches; the TPU path never calls this)."""
+        they take object batches; the TPU path never calls this). The
+        columns are read as Python lists once: indexing numpy arrays
+        element by element costs several times as much."""
         from ..kv.keys import KeyRange
 
         tob = self.blob.tobytes()
 
-        def key(off, ln):
-            o = int(off)
-            return tob[o : o + int(ln)]
+        def keys(off, lens):
+            return [tob[o:o + n] for o, n in zip(off.tolist(), lens.tolist())]
 
+        rb, re_ = keys(self.rb_off, self.rb_len), keys(self.re_off, self.re_len)
+        wb, we = keys(self.wb_off, self.wb_len), keys(self.we_off, self.we_len)
         out = []
         r_at = w_at = 0
-        for i in range(self.n_txns):
-            nrr = int(self.r_counts[i])
-            nww = int(self.w_counts[i])
-            rr = [
-                KeyRange(key(self.rb_off[r_at + j], self.rb_len[r_at + j]),
-                         key(self.re_off[r_at + j], self.re_len[r_at + j]))
-                for j in range(nrr)
-            ]
-            wr = [
-                KeyRange(key(self.wb_off[w_at + j], self.wb_len[w_at + j]),
-                         key(self.we_off[w_at + j], self.we_len[w_at + j]))
-                for j in range(nww)
-            ]
-            out.append(TxnConflictInfo(int(self.snaps[i]), rr, wr))
+        for snap, nrr, nww in zip(self.snaps[: self.n_txns].tolist(),
+                                  self.r_counts[: self.n_txns].tolist(),
+                                  self.w_counts[: self.n_txns].tolist()):
+            rr = [KeyRange(rb[j], re_[j]) for j in range(r_at, r_at + nrr)]
+            wr = [KeyRange(wb[j], we[j]) for j in range(w_at, w_at + nww)]
+            out.append(TxnConflictInfo(snap, rr, wr))
             r_at += nrr
             w_at += nww
         return out

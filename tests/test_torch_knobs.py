@@ -4,9 +4,10 @@ package's Knobs/ServerKnobs/ClientKnobs registry.
 Every knob the port had before keeps its name and default; attribute
 assignment and set_knob work; the registry matches the JAX package's,
 name for name and default for default, but for the port's recorded
-departures (the storage engine's backends; no probe or conflict-set
-knob); a randomized draw under one seed equals the JAX package's; the
-storage-engine knob rejects "tpu" and unknown names.
+departures (the storage engine's and the conflict set's backends, with
+the card as their default; no probe knob); a randomized draw under one
+seed equals the JAX package's; the storage-engine knob rejects "tpu" and
+unknown names, the conflict-set knob "native", "tpu" and unknown names.
 """
 
 import pytest
@@ -37,11 +38,10 @@ EARLIER_SERVER = {
     "STORAGE_READ_PIPELINE_DEPTH": 2,
 }
 # Where the port's registry differs from the JAX package's, and why: the
-# storage window's backends are the port's (the card is the default); the
-# device picks the probe; only the deployed tiers, not ported, recruit a
-# conflict set by knob.
-DEPARTURES = {"STORAGE_ENGINE_IMPL": "gpu"}
-JAX_ONLY = {"TPU_PROBE_KERNEL", "CONFLICT_SET_IMPL"}
+# storage window's and the conflict set's backends are the port's (the
+# card is the default of both); the device picks the probe.
+DEPARTURES = {"STORAGE_ENGINE_IMPL": "gpu", "CONFLICT_SET_IMPL": "gpu"}
+JAX_ONLY = {"TPU_PROBE_KERNEL"}
 
 
 @pytest.mark.parametrize("name", sorted(EARLIER_SERVER))
@@ -102,9 +102,29 @@ def test_randomized_draw_matches_the_jax_package(seed):
     assert got != ServerKnobs().all()  # the draw moved some knob
 
 
-def test_no_probe_or_conflict_set_knob():
+def test_no_probe_knob():
     for name in JAX_ONLY:
         assert not hasattr(SERVER_KNOBS, name)
+
+
+def test_conflict_set_impl_takes_gpu_or_oracle(monkeypatch):
+    from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
+    from foundationdb_tpu_torch.resolver.factory import (
+        make_conflict_set,
+        validate_conflict_set_impl,
+    )
+    from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+
+    assert ServerKnobs().CONFLICT_SET_IMPL == "gpu"
+    assert isinstance(make_conflict_set(device="cpu"), ConflictSetGPU)
+    monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", "oracle")
+    assert isinstance(make_conflict_set(), ConflictSetCPU)
+    for bad in ("native", "tpu", "rocksdb", ""):
+        with pytest.raises(ValueError):
+            validate_conflict_set_impl(bad)
+        monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", bad)
+        with pytest.raises(ValueError):
+            make_conflict_set(device="cpu")
 
 
 @pytest.mark.parametrize("bad", ["tpu", "TPU", "rocksdb", ""])

@@ -1,7 +1,8 @@
 """The port's oracle ConflictSetCPU against the JAX package's copy.
 
 The port's copy keeps phase 2's committed writes as a union of disjoint
-intervals instead of a list it scans per read; verdicts and entries()
+intervals instead of a list it scans per read, and merges phase 3's
+committed writes into the history in one pass; verdicts and entries()
 must be those of the JAX copy on the same numpy-seeded batches: ranges
 that nest, overlap, touch end to begin, repeat, are empty, abort chains
 and tooOld waves.
@@ -51,7 +52,8 @@ def txns(raw, jax_side: bool):
             for s, rr, wr in raw]
 
 
-@pytest.mark.parametrize("space,n", [(40, 60), (200, 150), (2000, 300)])
+@pytest.mark.parametrize("space,n", [(40, 60), (200, 150), (2000, 300),
+                                     (16, 200)])
 def test_port_oracle_matches_jax_oracle(space, n):
     rng = np.random.default_rng(space + n)
     want, got = JOracle(), POracle()

@@ -119,6 +119,25 @@ def test_wire_and_object_paths_agree_in_the_port():
     )
 
 
+def test_to_txns_decodes_like_the_jax_package():
+    """WireBatch.to_txns (the oracle's decode) gives the txns the JAX
+    package's gives for the same wire bytes, and a chunk of a batch
+    decodes to the matching slice."""
+    rng = np.random.default_rng(13)
+    jt, pt = both(raw_batch(rng, 90, 3000))
+    data = jwire.WireBatch.from_txns(jt).to_bytes()
+    jwb = jwire.WireBatch.from_bytes(data)
+    pwb = pwire.WireBatch.from_bytes(data)
+    want = jwb.to_txns()
+    got = pwb.to_txns()
+    assert [(t.read_snapshot, [(r.begin, r.end) for r in t.read_ranges],
+             [(w.begin, w.end) for w in t.write_ranges]) for t in got] == [
+        (t.read_snapshot, [(r.begin, r.end) for r in t.read_ranges],
+         [(w.begin, w.end) for w in t.write_ranges]) for t in want]
+    assert all(type(t.read_snapshot) is int for t in got)
+    assert pwb.slice(30, 55).to_txns() == got[30:55]
+
+
 def test_block_state_helpers_identical():
     for n_words, NB, B in ((2, 8, 8), (3, 16, 32)):
         for a, b in zip(jpack.empty_block_state(n_words, NB, B, 77),

@@ -1,11 +1,11 @@
 """The port's pipeline-sync rule, checked on the source (AST).
 
 The submit/verdicts contract: a dispatch (ConflictSetGPU.submit /
-resolve_async, ShardedConflictSetGPU.submit, KeyValueStoreGPU.submit_reads)
-enqueues device work and returns without waiting for the card; the
-consumption call (verdicts / read_verdicts) is where the host waits. So
-in resolver/gpu.py, resolver/sharded.py and storage_engine/gpu_engine.py
-a host-sync call
+resolve_async, ShardedConflictSetGPU.submit, KeyValueStoreGPU.submit_reads,
+ConflictSetRankFed.resolve_async) enqueues device work and returns without
+waiting for the card; the consumption call (verdicts / read_verdicts /
+result) is where the host waits. So in resolver/gpu.py, resolver/sharded.py,
+storage_engine/gpu_engine.py and resolver/rankfed.py a host-sync call
 (`.item()`, `.cpu()`, `.tolist()`, `torch.cuda.synchronize()`, an event's
 `.synchronize()`, a handle's `.wait()`, or `torch.tensor(host data,
 device=...)`, a copy from pageable memory) may stand only in
@@ -17,7 +17,11 @@ device=...)`, a copy from pageable memory) may stand only in
   `.item()` per round group, `_refresh_mirror`'s one fence/count readback
   per compaction, and `_grow_width`'s host re-pack when a longer key
   arrives (sharded.py has its own `_refresh_mirror` and `_grow_width`,
-  and runs gpu.py's phase 2 once per shard).
+  and runs gpu.py's phase 2 once per shard); in rankfed.py its own
+  `_phase2_fixed_point`'s one `.item()` per round group, and
+  `_canonical`'s one read of the version vector, which a GC round makes
+  (resolve() runs the GC rule before it packs, so it is analysed as a
+  dispatch too).
 
 sharded.py calls the kernels of gpu.py, so its analysis sees gpu.py's
 functions too, its own taking precedence where a name is in both.
@@ -48,6 +52,11 @@ MODULES = {
         "dispatch": {"submit_reads"},
         "consume": {"read_verdicts"},
         "departures": set(),
+    },
+    "resolver/rankfed.py": {
+        "dispatch": {"resolve_async", "resolve"},
+        "consume": {"result"},
+        "departures": {"_phase2_fixed_point", "_canonical"},
     },
 }
 
@@ -144,8 +153,8 @@ def test_recorded_departures_are_on_the_path_and_sync(rel):
         assert any(sync_calls(fn) for fn in fns[name]), name
 
 
-def test_phase2_makes_one_item_per_round_group():
-    _, fns, _, _ = analyse("resolver/gpu.py")
+def one_read_per_group(rel):
+    _, fns, _, _ = analyse(rel)
     (fn,) = fns["_phase2_fixed_point"]
     calls = sync_calls(fn)
     assert [t for _, t in calls if t.endswith(".item()")] == [
@@ -155,6 +164,29 @@ def test_phase2_makes_one_item_per_round_group():
     loops = [n for n in ast.walk(fn) if isinstance(n, (ast.For, ast.While))]
     assert any(calls[0][0] in {getattr(m, "lineno", None)
                                for m in ast.walk(loop)} for loop in loops)
+
+
+def test_phase2_makes_one_item_per_round_group():
+    one_read_per_group("resolver/gpu.py")
+
+
+def test_rankfed_phase2_makes_one_item_per_round_group():
+    one_read_per_group("resolver/rankfed.py")
+
+
+def test_rankfed_gc_round_reads_the_version_vector_once():
+    """A GC round reads the device once, through `_canonical`; the
+    dispatch reads nothing else but phase 2's groups."""
+    spec, fns, reach, _ = analyse("resolver/rankfed.py")
+    (canon,) = fns["_canonical"]
+    assert [t for _, t in sync_calls(canon)] == [
+        "self.hv[:self.n].cpu()"]
+    (gc_round,) = fns["gc_round"]
+    assert callees(gc_round, fns) >= {"_canonical"}
+    assert not sync_calls(gc_round)
+    (dispatch,) = fns["resolve_async"]
+    assert "_canonical" not in closure({"resolve_async"}, fns)
+    assert not sync_calls(dispatch)
 
 
 @pytest.mark.parametrize("stray", [
