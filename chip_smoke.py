@@ -79,8 +79,8 @@ Phases (each prints one line; any failure exits nonzero):
 
 10. `[rankfed]`: BASELINE config 5 as in phase 4 through
    ConflictSetRankFed (keys in a sorted host mirror, one int32 version
-   vector of 2^23 slots on the card, the kernel as torch ops): 24 batches
-   of 65,536 txns (converted to TxnConflictInfo lists first) through
+   vector of 2^23 slots on the card, the kernel as torch ops): 12 batches
+   (cut from 24 to keep the whole run near 900 s) of 65,536 txns (converted to TxnConflictInfo lists first) through
    prepare/pack/resolve_async at depth 4, one GC round on the cadence;
    the first 2 also through ConflictSetRankFed(device="cpu"), statuses
    and the version vector equal; a ConflictSetCPU replays every batch,
@@ -102,6 +102,16 @@ Phases (each prints one line; any failure exits nonzero):
    keys of nodes 250, 500 and 750; Cycle over 1,000 nodes with 2 kills;
    each generation's four roles replayed per role, every team member of
    every shard answering the same get_range after the run.
+13. `[sim]`: the deterministic simulator (sim/, workloads/tester.py):
+   the 24 seeds of SIM_SEEDS from sim/config.generate_config as drawn
+   (cluster shape, knobs, workload mix, buggify) through run_randomized
+   on the card, ConflictSetGPU and KeyValueStoreGPU recruited wherever a
+   seed draws them or keeps their "gpu" default; every seed replayed in
+   a CPU worker process with the host backends pinned (ok, checks,
+   metrics and fingerprint equal), 4 seeds rerun (fingerprint and
+   coverage signature equal), specs/chaos_topology.json at seed 7 with
+   both device backends forced, one seed profiled; each seed's device
+   objects collected and device memory back in a band after it.
 
 Every run drives every phase, and logs each one's wall time
 (`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
@@ -113,8 +123,9 @@ shards by check_replays.
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
 cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage,
-recovery-resolver, recovery-storage, sharded-recovery-resolver; and the
-rank-fed kernel, route "torch"), the card's name and power limit,
+recovery-resolver, recovery-storage, sharded-recovery-resolver,
+sim-resolver, sim-storage; and the rank-fed kernel, route "torch"), the
+card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
 """
@@ -128,6 +139,7 @@ import subprocess
 import sys
 import time
 import weakref
+from pathlib import Path
 
 import numpy as np
 
@@ -140,6 +152,13 @@ INT32_MIN = -(2**31)
 # which full collections took about a sixth of a cluster phase's wall time
 # (the CPU at a 2^17-key load). Young cycles are still collected.
 GC_THRESHOLDS = (100_000, 50, 100)
+# The [sim] phase's seeds: the first 24 of sim/config.generate_config that
+# need no unported tier (unported_needs) and that the JAX package passes
+# on the CPU with the host backends pinned; 5 and 25 fail there
+# (ROADMAP Queue 3). tests/test_torch_sim_differential*.py hold each of
+# these seeds' port run equal to the JAX package's on the CPU.
+SIM_SEEDS = (3, 11, 14, 17, 19, 21, 26, 29, 30, 33, 34, 38, 43, 46, 51, 53,
+             54, 55, 62, 63, 66, 67, 69, 71)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -406,19 +425,23 @@ def audit_syncs(cs, wb, version: int, window: int) -> None:
 
 
 def profile_batch(run, batch_ms: float, phase: str = "full-profile",
-                  smi: str = ""):
+                  smi: str = "", host_ops: bool = True):
     """One synchronous batch, run(), under torch.profiler: device busy
     time, kernel launches and the kernels that take the most device time;
     the idle share is against the pipelined run's mean batch time
-    `batch_ms`. Returns (device busy ms, device ops), or None when the
-    trace holds no device time."""
+    `batch_ms`. `host_ops=False` traces the device only (a run of
+    seconds of host work records too many host ops to sum quickly).
+    Returns (device busy ms, device ops), or None when the trace holds no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies): the CPU ops that launched
@@ -1210,6 +1233,16 @@ class ProbeTap:
         return {name: dict(self.captured[path],
                            launches=self.launches[path])
                 for name, path in names.items()}
+
+    def to_host(self) -> None:
+        """Move the operands captured so far to host memory, so that the
+        tap holds no device memory when a reading of it is taken."""
+        import torch
+
+        for cap in self.captured.values():
+            for k, t in cap.items():
+                if isinstance(t, torch.Tensor):
+                    cap[k] = t.cpu()
 
 
 def load_key_set(key_space: int, load_keys: int) -> list[bytes]:
@@ -2124,7 +2157,7 @@ def rank_kernel_entry(tap: RankTap, launches: int, busy, smi: str) -> dict:
 
 
 def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
-                  n_batches: int = 24, capacity: int = 1 << 23,
+                  n_batches: int = 12, capacity: int = 1 << 23,
                   full_txns_per_s=None):
     """BASELINE config 5 through the rank-fed set: ConflictSetRankFed
     (max_key_bytes 12: the 9-byte end keys fit without a width growth;
@@ -2726,6 +2759,260 @@ def phase_sharded_recovery(rng, smi: str = "", device=None, nodes: int = 1000,
 
 
 
+# ---------------------------------------------------------------- phase 13
+
+# [sim]: seeds rerun on the card for the determinism check (each draws the
+# device backends: the recoverable tier with and without a machine
+# topology, Attrition and MachineAttrition, and the sharded tier), the
+# wall-clock limit of one seed's run, and the band device memory must stay
+# in after each seed.
+SIM_DETERMINISM_SEEDS = (17, 38, 46, 71)
+SIM_WALL_LIMIT = 120.0
+SIM_MEM_BAND = 1 << 20
+
+
+class RecruitTap:
+    """Counts the ConflictSetGPU and KeyValueStoreGPU built while the block
+    is open (each backend recruited by a seed's clusters: per resolver per
+    generation, per storage server, per re-home) and keeps a weak
+    reference to each, so a seed's device objects can be shown collected
+    once it ends."""
+
+    def __init__(self):
+        self.built = {"ConflictSetGPU": 0, "KeyValueStoreGPU": 0}
+        self.refs = []
+
+    def _counting(self, cls):
+        real = cls.__init__
+
+        def init(obj, *a, **kw):
+            real(obj, *a, **kw)
+            self.built[cls.__name__] += 1
+            self.refs.append(weakref.ref(obj))
+
+        return real, init
+
+    def __enter__(self) -> "RecruitTap":
+        from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+        from foundationdb_tpu_torch.storage_engine.gpu_engine import (
+            KeyValueStoreGPU,
+        )
+
+        self._classes = (ConflictSetGPU, KeyValueStoreGPU)
+        self._real = []
+        for cls in self._classes:
+            real, init = self._counting(cls)
+            self._real.append(real)
+            cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, real in zip(self._classes, self._real):
+            cls.__init__ = real
+
+    def live(self) -> int:
+        return sum(r() is not None for r in self.refs)
+
+
+def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
+              det_seeds=SIM_DETERMINISM_SEEDS,
+              limit: float = SIM_WALL_LIMIT):
+    """The deterministic simulator on the card: every seed of `seeds`
+    through sim/config.run_randomized(device=device), as drawn (cluster
+    shape, knobs, workload mix, buggify) — ConflictSetGPU and
+    KeyValueStoreGPU recruited through CONFLICT_SET_IMPL and
+    STORAGE_ENGINE_IMPL wherever the seed draws them or leaves them at
+    their "gpu" default — each under a wall-clock limit. A CPU worker
+    process (sim/sweep.CpuReplays) replays every seed with the host
+    backends pinned while the card runs: ok, the error, the SevError
+    count, every workload's check result and metrics and the fingerprint
+    must be equal. Then `det_seeds` rerun on the card (the fingerprint and
+    the coverage signature must repeat), one seed runs under the profiler
+    (device busy against its wall), and specs/chaos_topology.json at seed
+    7 (MachineAttrition over 3 x 2 machines) with both device backends
+    forced, against its own CPU replay. After each seed its device
+    objects must be collected and device memory back in a band of
+    SIM_MEM_BAND above the phase's start (the probe tap's operands are
+    moved to the host before each reading).
+    Returns the probe's paths for probe_entries: its launches over the
+    sweep and its last operands in the sweep (taken before the reruns and
+    the chaos spec)."""
+    import torch
+    from foundationdb_tpu_torch.sim.config import (
+        coverage_signature,
+        generate_config,
+        run_randomized,
+        unported_needs,
+    )
+    from foundationdb_tpu_torch.sim.sweep import (
+        CpuReplays,
+        determinism_mismatch,
+        mismatches,
+        outcome,
+        pin_knobs,
+        run_seed,
+        seed_passed,
+    )
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+    specs = {seed: generate_config(seed) for seed in seeds}
+    for seed, spec in specs.items():
+        if unported_needs(spec):
+            fail(f"sim: seed {seed} needs {unported_needs(spec)}")
+    with open(Path(__file__).resolve().parent / "specs"
+              / "chaos_topology.json") as f:
+        chaos = json.load(f)
+    chaos = pin_knobs(dict(chaos, seed=7), {
+        "server:CONFLICT_SET_IMPL": "gpu",
+        "server:STORAGE_ENGINE_IMPL": "gpu"})
+    replays = CpuReplays(limit)
+    for seed in seeds:
+        replays.send(seed, specs[seed])
+    replays.send("chaos", chaos)
+
+    def memory() -> int:
+        gc.collect()
+        return torch.cuda.memory_allocated(dev) if card else 0
+
+    mem0 = memory()
+    results, mems, walls, cpu_walls = {}, [], [], []
+
+    runs = []   # (name, the card's outcome and wall, its counts)
+
+    def settle(name, res, tap, rec, seen) -> None:
+        """The card-side checks after one run: it passed, its device
+        objects are collected and memory is back in the band. Its outcome
+        is held against its CPU replay by compare(), once the phase's card
+        work is done (the worker is never waited on in between)."""
+        tap.to_host()
+        mem = memory()
+        mems.append(mem)
+        counts = [rec.built["ConflictSetGPU"], rec.built["KeyValueStoreGPU"],
+                  tap.launches["resolver"], tap.launches["storage"]]
+        live = rec.live()
+        runs.append((name, outcome(res), res["wall_s"], mem, live,
+                     [c - s0 for c, s0 in zip(counts, seen)]))
+        seen[:] = counts
+        if name in specs:
+            walls.append(res["wall_s"])
+        if not seed_passed(res):
+            fail(f"sim: seed {name} failed on the card: "
+                 f"{res.get('error') or res.get('sev_error_events')}")
+        if live:
+            fail(f"sim: {live} device objects outlived seed {name}")
+        if card and mem > mem0 + SIM_MEM_BAND:
+            fail(f"sim: device memory {mem} after seed {name}, over "
+                 f"{mem0} + {SIM_MEM_BAND}")
+
+    def compare() -> None:
+        """Each card run against its CPU replay: ok, the error, the
+        SevError count, every workload's check and metrics, and the
+        fingerprint equal."""
+        for name, out, wall, mem, live, counts in runs:
+            cpu, cpu_wall = replays.result(name, timeout=4 * limit)
+            bad = mismatches(out, cpu)
+            spec = specs.get(name, chaos)
+            knobs = spec.get("knobs", {})
+            log("sim-seed", seed=name, kind=spec["cluster"]["kind"],
+                conflict_set=knobs.get("server:CONFLICT_SET_IMPL", "gpu"),
+                storage=knobs.get("server:STORAGE_ENGINE_IMPL", "gpu"),
+                ok=out["ok"], sev_errors=out["sev_errors"],
+                fingerprint=str(out["fingerprint"])[:16],
+                conflict_sets_gpu=counts[0], windows_gpu=counts[1],
+                probe_resolver=counts[2], probe_storage=counts[3],
+                memory_allocated=mem, live_device_objects=live,
+                wall_s=f"{wall:.2f}", cpu_wall_s=f"{cpu_wall:.2f}",
+                equal_to_cpu=not bad)
+            if name in specs:
+                cpu_walls.append(cpu_wall)
+            if bad:
+                fail(f"sim: seed {name} on the card differs from its CPU "
+                     f"replay in {bad}")
+
+    try:
+        with ProbeTap() as tap, RecruitTap() as rec:
+            seen = [0, 0, 0, 0]
+
+            def on_result(seed, spec, res):
+                results[seed] = res
+                settle(seed, res, tap, rec, seen)
+
+            t0 = time.perf_counter()
+            run_randomized(seeds, log=lambda m: None, device=device,
+                           limit=limit, on_result=on_result)
+            sweep_s = time.perf_counter() - t0
+            launches = dict(tap.launches)
+            built = dict(rec.built)
+            # the last operands of the sweep, on the host since its last
+            # seed's reading
+            paths = tap.paths(**{"sim-resolver": "resolver",
+                                 "sim-storage": "storage"})
+            t0 = time.perf_counter()
+            for seed in det_seeds:
+                again = run_seed(specs[seed], device=device, limit=limit)
+                why = (determinism_mismatch(specs[seed], results[seed], again)
+                       if seed_passed(again) else "the rerun failed")
+                log("sim-determinism", seed=seed,
+                    fingerprint=str(again.get("fingerprint"))[:16],
+                    coverage_signature=coverage_signature(specs[seed], again),
+                    equal=why is None, wall_s=f"{again['wall_s']:.2f}")
+                if why:
+                    fail(f"sim: seed {seed} on the card: {why}")
+                del again
+            det_s = time.perf_counter() - t0
+            seen[:] = [rec.built["ConflictSetGPU"],
+                       rec.built["KeyValueStoreGPU"],
+                       tap.launches["resolver"], tap.launches["storage"]]
+            res = run_seed(chaos, device=device, limit=limit)
+            settle("chaos", res, tap, rec, seen)
+            del res
+        compare()
+        sweep_cpu_s = sum(cpu_walls)
+    except AssertionError as e:
+        fail(f"sim: {e}")
+    finally:
+        replays.close()
+    if card:
+        for path in ("resolver", "storage"):
+            if launches[path] == 0:
+                fail(f"sim: the probe never launched on the {path} path "
+                     "over the sweep")
+    # One seed under the profiler: the device's busy time against the
+    # seed's wall (the simulator drives the card from one host thread).
+    prof_seed = det_seeds[0]
+    busy = None
+    t0 = time.perf_counter()
+    if card:
+        busy = profile_batch(
+            lambda: run_seed(specs[prof_seed], device=device, limit=limit),
+            batch_ms=1e3 * walls[seeds.index(prof_seed)],
+            phase="sim-profile", smi=smi, host_ops=False)
+    log("sim", smi=json.dumps(smi), seeds=len(seeds),
+        seeds_per_min=f"{60 * len(seeds) / sweep_s:.3f}",
+        cpu_seeds_per_min=f"{60 * len(seeds) / sweep_cpu_s:.3f}",
+        sweep_s=f"{sweep_s:.2f}", cpu_replay_s=f"{sweep_cpu_s:.2f}",
+        conflict_sets_gpu=built["ConflictSetGPU"],
+        windows_gpu=built["KeyValueStoreGPU"],
+        probe_resolver=launches["resolver"],
+        probe_storage=launches["storage"],
+        determinism_reruns=len(det_seeds), memory_start=mem0,
+        memory_max=max(mems), memory_min=min(mems),
+        memory_band=SIM_MEM_BAND,
+        profiled_seed=prof_seed,
+        device_busy_ms=f"{busy[0]:.3f}" if busy else "not measured",
+        determinism_s=f"{det_s:.2f}",
+        profile_s=f"{time.perf_counter() - t0:.2f}",
+        phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    for cap in paths.values():
+        for k, t in cap.items():
+            if isinstance(t, torch.Tensor):
+                cap[k] = t.to(dev)
+    return paths
+
+
 def probe_entries(paths: dict, smi: str, base: dict) -> list:
     """The probe held against its plain version on each path's last
     operands, timed, with its bound: one kernel-table entry each. The
@@ -2857,6 +3144,8 @@ def main() -> int:
         phase_wall(name)
     rankfed_check()
     phase_wall("rankfed-check")
+    kernels += probe_entries(phase_sim(rng, smi), smi, base)
+    phase_wall("sim")
     log("smoke", wall_s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -30,6 +30,17 @@ what turns the batch-scaled kernel into a batch-scaled pipeline
 to the synchronous path because neither the dispatch order nor the
 per-batch device program changes — only WHEN the host blocks.
 
+ONE SCHEDULE ON EVERY BACKEND (the port's departure from the JAX
+package, whose role yields before each readback so that the successors
+its version bump woke dispatch first). The role never suspends between a
+window's dispatch and its readback, so a window takes the steps of the
+event loop that the synchronous path takes, and a simulated seed replays
+to the same schedule and fingerprint whichever backend
+CONFLICT_SET_IMPL draws. The price: under the cooperative event loop a
+window's dispatch and readback fall in one step, so one batch is in
+flight at a time. The split still times the stages, and the two chains
+and the depth gate stay as the contract above states them.
+
 Batches may arrive as wire bytes (resolver/wire.py columnar batches,
 SERVER_KNOBS.RESOLVER_WIRE_BATCH): device backends pack them with the
 vectorized encoder, object backends decode once.
@@ -402,13 +413,8 @@ class ResolverRole:
         # the dispatch sequence, so the chain may advance before verdicts
         # are read back.
         self.version.set(req.version)
-        # Yield before blocking on verdicts: successor windows just made
-        # runnable by the version bump must get their dispatch enqueued
-        # FIRST — the readback below blocks the host, and batches overlap
-        # on device only if their dispatches precede it.
-        from ..core.runtime import TaskPriority, current_loop
-
-        await current_loop().yield_(TaskPriority.RESOLVER)
+        # No yield before the readback (see ONE SCHEDULE in the module
+        # docstring): the successors just woken run after this step.
         await self._consumed.when_at_least(req.prev_version)
         try:
             statuses = self.cs.verdicts(handle)

@@ -99,6 +99,9 @@ class ShardedKVCluster:
             raise NotImplementedError(
                 durable_tier_missing("ShardedKVCluster", "datadir"))
         self.datadir = None
+        # Where the storage windows live; a storage server rebuilt later
+        # (sim/topology.py's re-homes) is built on the same device.
+        self.device = device
         self.log_system = TagPartitionedLogSystem(
             n_logs, log_replication=log_replication, topology=topology,
             regions=self.regions,

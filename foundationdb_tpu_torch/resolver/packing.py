@@ -406,11 +406,15 @@ def incr_packed_keys(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     packed image of begin+1 in the integer key space). Returns (words,
     overflowed) — overflow means +1 is not representable at this width."""
     raw = (words.view(np.int32).view(np.uint32) ^ BIAS).copy()
-    carry = np.ones(len(raw), dtype=bool)
-    for j in range(raw.shape[1] - 1, -1, -1):
-        raw[:, j] += carry.astype(np.uint32)
-        carry &= raw[:, j] == 0
-    return (raw ^ BIAS).view(np.int32), carry
+    # The carry into word j: every word after it is all ones (a fixed
+    # number of numpy passes at any width, where a word loop takes 2 a
+    # word).
+    full = raw == np.uint32(0xFFFFFFFF)
+    ones = np.logical_and.accumulate(full[:, ::-1], axis=1)[:, ::-1]
+    carry_in = np.concatenate(
+        [ones, np.ones((len(raw), 1), dtype=bool)], axis=1)[:, 1:]
+    raw += carry_in.astype(np.uint32)
+    return (raw ^ BIAS).view(np.int32), full.all(axis=1)
 
 
 @dataclass

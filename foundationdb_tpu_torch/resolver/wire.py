@@ -344,13 +344,14 @@ def _lex_lt(aw: np.ndarray, al: np.ndarray,
             bw: np.ndarray, bl: np.ndarray) -> np.ndarray:
     """(a_words, a_len) < (b_words, b_len) per row — equals byte order of
     the underlying keys (packing is order-preserving at admitted widths)."""
-    n = len(al)
-    lt = np.zeros(n, dtype=bool)
-    eq = np.ones(n, dtype=bool)
-    for j in range(aw.shape[1]):
-        lt |= eq & (aw[:, j] < bw[:, j])
-        eq &= aw[:, j] == bw[:, j]
-    return lt | (eq & (al < bl))
+    # Decided at the first differing word: word j counts while every
+    # word before it is equal (a fixed number of passes at any width).
+    same = aw == bw
+    before = np.concatenate(
+        [np.ones((len(al), 1), dtype=bool),
+         np.logical_and.accumulate(same, axis=1)], axis=1)[:, :-1]
+    lt = ((aw < bw) & before).any(axis=1)
+    return lt | (same.all(axis=1) & (al < bl))
 
 
 def pack_batch_wire(

@@ -481,9 +481,12 @@ def sync_reference(windows):
 
 
 def test_role_pipeline_depth_measured(knob):
-    """Concurrent windows through the ResolverRole overlap on
-    ConflictSetGPU (measured in-flight depth >= 3), with verdicts equal to
-    the oracle and replies in commit-version order."""
+    """Concurrent windows through the ResolverRole on ConflictSetGPU, with
+    verdicts equal to the oracle and replies in commit-version order. The
+    port's role does not yield between a window's dispatch and its
+    readback (the JAX package's does, and measures depth >= 3 here): each
+    window keeps the synchronous path's schedule, so the measured
+    in-flight depth is exactly 1."""
     from foundationdb_tpu_torch.cluster.interfaces import (
         ResolveTransactionBatchRequest,
     )
@@ -524,10 +527,10 @@ def test_role_pipeline_depth_measured(knob):
     loop.shutdown()
     assert [list(map(int, r)) for r in results] == expected
     assert reply_order == sorted(reply_order)
-    assert role.max_inflight >= 3, role.max_inflight
-    assert cs.max_inflight >= 3, cs.max_inflight
+    assert role.max_inflight == 1, role.max_inflight
+    assert cs.max_inflight == 1, cs.max_inflight
     ps = role.pipeline_status()
-    assert ps["max_in_flight_measured"] >= 3
+    assert ps["max_in_flight_measured"] == 1
     assert ps["stages"]["pack_ms"]["samples"] >= 8
     assert ps["stages"]["device_ms"]["p50"] is not None
 
@@ -622,6 +625,70 @@ def test_role_parked_dispatch_refuses_superseded_window(knob):
     loop.shutdown()
     assert role.cs.entries() == ConflictSetCPU(0).entries()  # untouched
 
+
+
+@pytest.mark.parametrize("first", ["skip", "window"])
+def test_role_skip_window_against_a_waiting_window(knob, first):
+    """A proxy's skip_window(P, V) and the lost request for (P, V] both
+    wait on the chain at P. Whichever waited first moves the chain at P;
+    the other finds it moved (the window is refused, the skip is a
+    no-op). The pipelined role on ConflictSetGPU ends with the same
+    verdicts and the same conflict set as the synchronous role on the
+    oracle: a refused window merges nothing."""
+    from foundationdb_tpu_torch.cluster.interfaces import (
+        ResolveTransactionBatchRequest,
+    )
+    from foundationdb_tpu_torch.cluster.resolver_role import ResolverRole
+    from foundationdb_tpu_torch.core.errors import OperationFailed
+    from foundationdb_tpu_torch.core.runtime import current_loop
+
+    (v1, t1), (v2, t2), (v3, t3) = gen_windows(31, n_batches=3, batch=30)
+
+    def run(cs, depth):
+        knob("TPU_PIPELINE_DEPTH", depth)
+        loop = sim_loop(seed=12)
+        with loop_context(loop):
+            role = ResolverRole(cs, init_version=1000)
+
+            def request(prev, v, txns):
+                return role.resolve_batch(ResolveTransactionBatchRequest(
+                    prev_version=prev, version=v,
+                    last_receive_version=prev, transactions=txns))
+
+            async def refused(prev, v, txns):
+                try:
+                    await request(prev, v, txns)
+                except OperationFailed:
+                    return None
+                raise AssertionError(f"window ({prev}, {v}] not refused")
+
+            async def main():
+                if first == "skip":
+                    skip = spawn(role.skip_window(v1, v2), name="skip")
+                    await current_loop().delay(0.1)
+                    lost = spawn(refused(v1, v2, t2), name="lost")
+                else:
+                    lost = spawn(request(v1, v2, t2), name="lost")
+                    await current_loop().delay(0.1)
+                    skip = spawn(role.skip_window(v1, v2), name="skip")
+                await current_loop().delay(0.1)
+                got = [await request(1000, v1, t1)]
+                got.append(await lost.done)
+                await skip.done
+                got.append(await request(v2, v3, t3))
+                assert role.version.get() == role._consumed.get() == v3
+                return [None if r is None else list(map(int, r.statuses))
+                        for r in got]
+
+            got = loop.run(main(), timeout_sim_seconds=1e5)
+        loop.shutdown()
+        return got, cs.entries()
+
+    gpu = run(ConflictSetGPU(max_key_bytes=8, initial_capacity=64,
+                             device="cpu"), 4)
+    oracle = run(ConflictSetCPU(), 1)
+    assert (gpu[0][1] is None) == (first == "skip")
+    assert gpu == oracle
 
 def test_status_json_pipeline_block(knob):
     """cluster_status() exposes the resolver's per-stage breakdown and

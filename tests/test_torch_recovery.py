@@ -15,8 +15,9 @@ every generation, with coordination, leader election and discovery.
   Cycle with two kills of the transaction system, must give identical
   check results, commits, retries, generations, keyspace and trace
   digest (oracles on both sides; and ConflictSetTPU + KeyValueStoreTPU
-  with the Pallas probe in interpret mode against the port's device
-  back ends);
+  with the Pallas probe in interpret mode, on the synchronous resolver
+  path, against the port's device back ends at their default pipeline
+  depth);
 - a dead generation's conflict set is collected;
 - the durable tier's options are refused with a clear error, and the
   entry points raise without a card.
@@ -704,6 +705,11 @@ def test_same_seed_differential_against_jax_package(backend_pair,
         monkeypatch.setattr(JKNOBS, "CONFLICT_SET_IMPL", "tpu")
         monkeypatch.setattr(JKNOBS, "STORAGE_ENGINE_IMPL", "tpu")
         monkeypatch.setattr(JKNOBS, "TPU_PROBE_KERNEL", "pallas")
+        # The port's pipelined resolver role does not yield before its
+        # readback, so it keeps the synchronous path's schedule (a seed's
+        # device and host backends replay alike); the JAX package's role
+        # yields there, so its device side runs the synchronous path.
+        monkeypatch.setattr(JKNOBS, "TPU_PIPELINE_DEPTH", 1)
         monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", "gpu")
         monkeypatch.setattr(SERVER_KNOBS, "STORAGE_ENGINE_IMPL", "gpu")
     want = _recovery_run("foundationdb_tpu", seed=21)

@@ -14,7 +14,8 @@ replicated storage teams and tag-partitioned logs, on the CPU.
   sim_loop(seed), must give identical check results, retries, conflict
   counts per resolver, final keyspace and trace digest (oracles on both
   sides; ConflictSetTPU + KeyValueStoreTPU with the Pallas probe in
-  interpret mode against the port's device backends).
+  interpret mode, on the synchronous resolver path, against the port's
+  device backends at their default pipeline depth).
 """
 
 import hashlib
@@ -497,6 +498,11 @@ def test_same_seed_differential_against_jax_package(backend_pair,
         monkeypatch.setattr(JKNOBS, "STORAGE_ENGINE_IMPL", "tpu")
         monkeypatch.setattr(JKNOBS, "TPU_PROBE_KERNEL", "pallas")
         monkeypatch.setattr(SERVER_KNOBS, "STORAGE_ENGINE_IMPL", "gpu")
+        # The port's pipelined resolver role does not yield before its
+        # readback, so it keeps the synchronous path's schedule (a seed's
+        # device and host backends replay alike); the JAX package's role
+        # yields there, so its device side runs the synchronous path.
+        monkeypatch.setattr(JKNOBS, "TPU_PIPELINE_DEPTH", 1)
     want = _sharded_run("foundationdb_tpu", seed=11)
     got = _sharded_run("foundationdb_tpu_torch", seed=11)
     ok, retries = got["result"][:2]
