@@ -112,6 +112,23 @@ Phases (each prints one line; any failure exits nonzero):
    coverage signature equal), specs/chaos_topology.json at seed 7 with
    both device backends forced, one seed profiled; each seed's device
    objects collected and device memory back in a band after it.
+14. `[durable]`: the durable tier, BASELINE config 4's cluster shape
+   (RecoverableShardedCluster, 4 storage, 2 logs, double log and storage
+   replication, 4 resolvers) over a temporary datadir: on the memory
+   engine, 2^16 of config 1's keys loaded (cut from 2^18, PERF.md),
+   ReadWrite to 2,000 commits, a clean stop and a cold boot; a crash leg
+   (500 commits, the incarnation abandoned without close) and a cold
+   boot; then the crash leg on the ssd engine. Every cold boot: each
+   restored KeyValueStoreGPU window's entries() equal a VersionedMap
+   restored from its engine's rows, one compaction per window, every key
+   read back through the client equal to an independent record of the
+   acknowledged writes; prints the boot's times to fully_recovered and
+   to the first commit, rows restored, bytes on disk and device bytes.
+15. `[sim-durable]`: as [sim], the 17 seeds of SIM_DURABLE_SEEDS (memory
+   and ssd engines on temporary datadirs, regions, both sharded kinds)
+   and three restart specs (specs/restart_cycle.json, specs/
+   upgrade_cycle.json, a power-loss restart over the simulated disk),
+   each against its CPU replay, 2 seeds rerun, one profiled.
 
 Every run drives every phase, and logs each one's wall time
 (`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
@@ -124,7 +141,9 @@ Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
 cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage,
 recovery-resolver, recovery-storage, sharded-recovery-resolver,
-sim-resolver, sim-storage; and the rank-fed kernel, route "torch"), the
+sim-resolver, sim-storage, durable-resolver, durable-storage,
+sim-durable-resolver, sim-durable-storage; and the rank-fed kernel,
+route "torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
@@ -159,6 +178,15 @@ GC_THRESHOLDS = (100_000, 50, 100)
 # these seeds' port run equal to the JAX package's on the CPU.
 SIM_SEEDS = (3, 11, 14, 17, 19, 21, 26, 29, 30, 33, 34, 38, 43, 46, 51, 53,
              54, 55, 62, 63, 66, 67, 69, 71)
+# The [sim-durable] phase's seeds: the first 16 of generate_config that
+# draw the durable tier (a memory or ssd storage engine on a datadir, or
+# regions), need no unported tier and pass on the JAX package on the CPU
+# with the host backends pinned (0, 60 and 70 fail there: ROADMAP Queue
+# 3), and 168, the first that draws the memory engine with regions.
+# tests/test_torch_sim_durable*.py hold each seed's port run equal to the
+# JAX package's on the CPU.
+SIM_DURABLE_SEEDS = (1, 6, 10, 12, 15, 18, 27, 35, 39, 42, 44, 45, 50, 58,
+                     59, 65, 168)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -2759,6 +2787,305 @@ def phase_sharded_recovery(rng, smi: str = "", device=None, nodes: int = 1000,
 
 
 
+# ---------------------------------------------------------------- phase 14
+
+# [durable]: the keys loaded (of config 1's 2^20), the ReadWrite commits
+# before the clean stop, and those of the incarnation a crash abandons.
+# The load is cut from the 2^18 of [cluster] to 2^16: on an H100 80GB
+# HBM3 at 700 W the memory engine's leg took ~145 s at 2^18 (a boot's
+# construction 34-37 s, ~64 us per restored row, its files 4.4 GB) and
+# the phase 258 s; at 2^16, 86 s (PERF.md §4).
+DURABLE_LOAD_KEYS = 1 << 16
+DURABLE_TARGET = 2000
+DURABLE_CRASH_TARGET = 500
+
+
+def acked_read_write(writes: list):
+    """ReadWriteWorkload (config 1's mix) whose every committed write is
+    also appended to `writes` as (commit version, order, key, value): the
+    independent record of the acknowledged writes. It draws from the
+    loop's random stream exactly as ReadWriteWorkload does."""
+    from foundationdb_tpu_torch.core.runtime import current_loop
+    from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
+
+    class AckedReadWrite(ReadWriteWorkload):
+        async def _one(self) -> None:
+            loop = current_loop()
+            rng = loop.random
+            t0 = loop.now()
+            tr = self.db.create_transaction()
+            while True:
+                try:
+                    for _ in range(self.reads_per_txn):
+                        await tr.get(self._key(rng))
+                    sets = []
+                    for _ in range(self.writes_per_txn):
+                        k = self._key(rng)
+                        v = b"v%d" % rng.random_int(0, 1 << 20)
+                        tr.set(k, v)
+                        sets.append((k, v))
+                    version = await tr.commit()
+                    break
+                except BaseException as e:  # noqa: BLE001 - as the base
+                    self.retries += 1
+                    await tr.on_error(e)
+            writes.extend((version, len(writes) + i, k, v)
+                          for i, (k, v) in enumerate(sets))
+            self.txns_done += 1
+            self.latency.add_sample(loop.now() - t0)
+
+    return AckedReadWrite
+
+
+def acked_state(loaded: list, writes: list) -> dict:
+    """The state the acknowledged writes leave: the loaded keys, then
+    every committed write in commit order."""
+    out = {k: b"v%d" % len(k) for k in loaded}
+    for _, _, k, v in sorted(writes):
+        out[k] = v
+    return out
+
+
+def window_bytes(w) -> int:
+    """Device bytes of a KeyValueStoreGPU window's tensors."""
+    return sum(t.numel() * t.element_size() for t in (
+        w._d_hmat, w._d_slots, w._d_next, w._d_fences, w._d_dmat,
+        w._d_dslots, w._d_dnext))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_durable(rng, smi: str = "", device=None,
+                  key_space: int = 1 << 20,
+                  load_keys: int = DURABLE_LOAD_KEYS,
+                  loaders: int = 32, clients: int = 1024,
+                  target: int = DURABLE_TARGET,
+                  crash_target: int = DURABLE_CRASH_TARGET):
+    """The durable tier on the card: BASELINE config 4's cluster shape,
+    RecoverableShardedCluster(n_storage=4, n_logs=2, log_replication=
+    "double", replication="double", n_resolvers=4, storage shards and
+    resolvers split at rw_key of key_space/4, /2 and 3/4) over a datadir
+    (a temporary directory, removed at the end), its storage windows
+    KeyValueStoreGPU on `device`, knobs at their defaults.
+
+    - memory engine: load `load_keys` of config 1's keys through the
+      client, ReadWrite (5 reads, 2 writes) until `target` commits, stop
+      cleanly; cold boot a fresh incarnation from the datadir;
+    - crash leg: an incarnation runs `crash_target` more commits and is
+      abandoned without stop or close (as a killed process), then a cold
+      boot;
+    - engine="ssd": its own load and `target` commits with a clean stop,
+      then the crash leg.
+
+    Every cold boot: each storage window's entries() equal a VersionedMap
+    restored from the same engine rows (taken before the cluster starts:
+    the window rebuilds once, not once per row), then start, one commit,
+    and every key read back through the client in 64 range reads, equal
+    to the state the acknowledged writes (an independent record) leave.
+    Prints each boot's times (construction: the engines' recovery and the
+    windows' restore; the windows' one rebuild; start to fully_recovered
+    and to the first acknowledged commit), rows restored, compactions,
+    bytes on disk and the windows' device bytes. Dead incarnations'
+    windows must be collected. Returns the probe's paths over the cold
+    boots."""
+    import shutil
+    import tempfile
+
+    import torch
+    from foundationdb_tpu_torch.cluster.recovery import (
+        RecoverableShardedCluster,
+    )
+    from foundationdb_tpu_torch.core.runtime import loop_context, sim_loop
+    from foundationdb_tpu_torch.kv.versioned_map import VersionedMap
+    from foundationdb_tpu_torch.storage_engine.gpu_engine import (
+        KeyValueStoreGPU,
+    )
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+    bounds = [rw_key(key_space * i // 4) for i in (1, 2, 3)]
+    keys = load_key_set(key_space, load_keys)
+    refs = []          # weak references to every incarnation's windows
+    boot_launches = {"resolver": 0, "storage": 0}
+    seeds = iter(range(SEED + 10, SEED + 100))
+
+    def cluster(datadir, engine):
+        c = RecoverableShardedCluster(
+            n_storage=4, n_logs=2, log_replication="double",
+            replication="double", shard_boundaries=bounds, n_resolvers=4,
+            resolver_boundaries=bounds, datadir=datadir, engine=engine,
+            device=device)
+        refs.extend(weakref.ref(s.data) for s in c.inner.storages)
+        return c
+
+    def load_and_write(datadir, engine, n, writes, stop: bool):
+        """An incarnation on `datadir`: the load (when `writes` is empty,
+        the datadir being new), ReadWrite until n commits, then a clean
+        stop or an abandoned process."""
+        loop = sim_loop(seed=next(seeds))
+        with loop_context(loop):
+            c = cluster(datadir, engine).start()
+            db = c.database()
+
+            async def main():
+                t0 = time.perf_counter()
+                if not writes:
+                    await load_through_client(db, keys, loaders)
+                t1 = time.perf_counter()
+                rw = await read_write_until(db, key_space, clients, n,
+                                            cls=acked_read_write(writes))
+                if stop:
+                    c.stop()
+                return t1 - t0, time.perf_counter() - t1, rw.txns_done
+
+            out = loop.run(main(), timeout_sim_seconds=1e6)
+        loop.shutdown()
+        return out
+
+    def cold_boot(datadir, engine, writes, tap, leg):
+        """A fresh incarnation on `datadir`: the restored windows checked,
+        the boot timed, every key read back; then a clean stop."""
+        want = acked_state(keys, writes)
+        loop = sim_loop(seed=next(seeds))
+        launches0 = dict(tap.launches)
+        with loop_context(loop):
+            mem0 = torch.cuda.memory_allocated(dev) if card else 0
+            t0 = time.perf_counter()
+            c = cluster(datadir, engine)
+            t1 = time.perf_counter()
+            rows, comps, rebuild_ms, wbytes = [], [], 0.0, 0
+            for i, s in enumerate(c.inner.storages):
+                w = s.data
+                if card and not isinstance(w, KeyValueStoreGPU):
+                    fail(f"durable: storage {i}'s window is {type(w)}")
+                restored = VersionedMap()
+                dv = s.engine_durable
+                n = 0
+                for k, v in s.engine.get_range(b"", b"\xff\xff"):
+                    restored.set_snapshot(k, v, dv)
+                    n += 1
+                n0 = w.c_compactions.total
+                if w.entries() != restored.entries():
+                    fail(f"durable {leg}: storage {i}'s window differs from "
+                         "a VersionedMap restored from its engine's rows")
+                comps.append(w.c_compactions.total - n0)
+                if comps[-1] != (1 if n else 0):
+                    fail(f"durable {leg}: storage {i} compacted "
+                         f"{comps[-1]} times restoring {n} rows")
+                if comps[-1]:
+                    rebuild_ms += w.last_rebuild_ms + w.last_upload_ms
+                rows.append(n)
+                wbytes += window_bytes(w)
+            mem_windows = (torch.cuda.memory_allocated(dev) - mem0
+                           if card else 0)
+            t2 = time.perf_counter()
+            c.start()
+            t3 = time.perf_counter()
+            if c.recovery_state != "fully_recovered":
+                fail(f"durable {leg}: {c.recovery_state} after start")
+            db = c.database()
+
+            async def main():
+                await db.set(b"durable/boot", leg.encode())
+                t4 = time.perf_counter()
+                got = []
+                ks = sorted(want)
+                edges = [b"rw/"] + ks[len(ks) // 64::len(ks) // 64][:63] + [
+                    b"rw0"]
+                for b, e in zip(edges, edges[1:]):
+                    async def body(tr, b=b, e=e):
+                        return await tr.get_range(b, e)
+
+                    got += await db.transact(body)
+                t5 = time.perf_counter()
+                c.stop()
+                return t4, t5, got
+
+            t4, t5, got = loop.run(main(), timeout_sim_seconds=1e6)
+        loop.shutdown()
+        if got != sorted(want.items()):
+            bad = sum(1 for k, v in got if want.get(k) != v)
+            fail(f"durable {leg}: the read-back differs from the "
+                 f"acknowledged writes ({len(got)} rows read, "
+                 f"{len(want)} wanted, {bad} values differ)")
+        for p in boot_launches:
+            boot_launches[p] += tap.launches[p] - launches0[p]
+        construct_ms = (t1 - t0) * 1e3
+        log("durable-boot", smi=json.dumps(smi), leg=leg, engine=engine,
+            rows_restored=json.dumps(rows),
+            compactions_per_window=json.dumps(comps),
+            construct_ms=f"{construct_ms:.2f}",
+            rebuild_ms=f"{rebuild_ms:.2f}",
+            start_to_recovered_ms=f"{(t3 - t2) * 1e3:.2f}",
+            start_to_first_commit_ms=f"{(t4 - t2) * 1e3:.2f}",
+            to_recovered_ms=f"{construct_ms + rebuild_ms + (t3 - t2) * 1e3:.2f}",
+            to_first_commit_ms=f"{construct_ms + rebuild_ms + (t4 - t2) * 1e3:.2f}",
+            check_ms=f"{(t2 - t1) * 1e3 - rebuild_ms:.2f}",
+            read_back_rows=len(got), read_back_s=f"{t5 - t4:.2f}",
+            read_back_equal=True, windows_entries_equal=True,
+            disk_bytes=dir_bytes(datadir), window_device_bytes=wbytes,
+            memory_allocated_delta=mem_windows,
+            probe_storage=tap.launches["storage"] - launches0["storage"],
+            probe_resolver=tap.launches["resolver"] - launches0["resolver"])
+        if card and tap.launches["storage"] == launches0["storage"]:
+            fail(f"durable {leg}: the probe never launched on the restored "
+                 "windows")
+
+    dirs = []
+    try:
+        with ProbeTap() as tap:
+            for engine in ("memory", "ssd"):
+                d = tempfile.mkdtemp(prefix=f"fdbtpu_durable_{engine}_")
+                dirs.append(d)
+                writes = []
+                load_s, rw_s, n = load_and_write(d, engine, target, writes,
+                                                 stop=True)
+                log("durable-load", smi=json.dumps(smi), engine=engine,
+                    keys=len(keys), load_s=f"{load_s:.2f}",
+                    keys_per_wall_s=f"{len(keys) / load_s:.1f}",
+                    committed=n, rw_s=f"{rw_s:.2f}",
+                    committed_per_wall_s=f"{n / rw_s:.1f}",
+                    disk_bytes=dir_bytes(d))
+                if engine == "memory":
+                    cold_boot(d, engine, writes, tap, "clean")
+                _, rw_s, n = load_and_write(d, engine, crash_target, writes,
+                                            stop=False)
+                gc.collect()
+                log("durable-crash", smi=json.dumps(smi), engine=engine,
+                    committed=n, rw_s=f"{rw_s:.2f}", disk_bytes=dir_bytes(d),
+                    abandoned=True)
+                cold_boot(d, engine, writes, tap,
+                          "crash" if engine == "memory" else "ssd-crash")
+            paths = tap.paths(**{"durable-resolver": "resolver",
+                                 "durable-storage": "storage"})
+            tap.to_host()
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    live = sum(r() is not None for r in refs)
+    if live:
+        fail(f"durable: {live} windows of ended incarnations outlived them")
+    for path, cap in paths.items():
+        cap["launches"] = boot_launches[path.split("-")[1]]
+        if card and cap["launches"] <= 0:
+            fail(f"durable: the probe never launched on the {path} path of "
+                 "the cold boots")
+        for k, t in cap.items():
+            if isinstance(t, torch.Tensor):
+                cap[k] = t.to(dev)
+    log("durable", smi=json.dumps(smi), load_keys=load_keys,
+        key_space=key_space, windows_collected=len(refs),
+        memory_allocated=torch.cuda.memory_allocated(dev) if card else 0,
+        phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    return paths
+
+
 # ---------------------------------------------------------------- phase 13
 
 # [sim]: seeds rerun on the card for the determinism check (each draws the
@@ -2816,7 +3143,8 @@ class RecruitTap:
 
 def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
               det_seeds=SIM_DETERMINISM_SEEDS,
-              limit: float = SIM_WALL_LIMIT):
+              limit: float = SIM_WALL_LIMIT, extras=None,
+              name: str = "sim"):
     """The deterministic simulator on the card: every seed of `seeds`
     through sim/config.run_randomized(device=device), as drawn (cluster
     shape, knobs, workload mix, buggify) — ConflictSetGPU and
@@ -2828,9 +3156,11 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
     count, every workload's check result and metrics and the fingerprint
     must be equal. Then `det_seeds` rerun on the card (the fingerprint and
     the coverage signature must repeat), one seed runs under the profiler
-    (device busy against its wall), and specs/chaos_topology.json at seed
-    7 (MachineAttrition over 3 x 2 machines) with both device backends
-    forced, against its own CPU replay. After each seed its device
+    (device busy against its wall), and each spec of `extras` ({name:
+    spec}; by default specs/chaos_topology.json at seed 7, MachineAttrition
+    over 3 x 2 machines, with both device backends forced) runs against
+    its own CPU replay. `name` prefixes the phase's lines and its probe
+    paths. After each seed its device
     objects must be collected and device memory back in a band of
     SIM_MEM_BAND above the phase's start (the probe tap's operands are
     moved to the host before each reading).
@@ -2859,19 +3189,21 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
     dev = torch.device("cuda" if device is None else device)
     card = dev.type == "cuda"
     specs = {seed: generate_config(seed) for seed in seeds}
-    for seed, spec in specs.items():
+    if extras is None:
+        with open(Path(__file__).resolve().parent / "specs"
+                  / "chaos_topology.json") as f:
+            chaos = json.load(f)
+        extras = {"chaos": pin_knobs(dict(chaos, seed=7), {
+            "server:CONFLICT_SET_IMPL": "gpu",
+            "server:STORAGE_ENGINE_IMPL": "gpu"})}
+    for seed, spec in list(specs.items()) + list(extras.items()):
         if unported_needs(spec):
-            fail(f"sim: seed {seed} needs {unported_needs(spec)}")
-    with open(Path(__file__).resolve().parent / "specs"
-              / "chaos_topology.json") as f:
-        chaos = json.load(f)
-    chaos = pin_knobs(dict(chaos, seed=7), {
-        "server:CONFLICT_SET_IMPL": "gpu",
-        "server:STORAGE_ENGINE_IMPL": "gpu"})
+            fail(f"{name}: {seed} needs {unported_needs(spec)}")
     replays = CpuReplays(limit)
     for seed in seeds:
         replays.send(seed, specs[seed])
-    replays.send("chaos", chaos)
+    for key, spec in extras.items():
+        replays.send(key, spec)
 
     def memory() -> int:
         gc.collect()
@@ -2882,7 +3214,7 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
 
     runs = []   # (name, the card's outcome and wall, its counts)
 
-    def settle(name, res, tap, rec, seen) -> None:
+    def settle(run, res, tap, rec, seen) -> None:
         """The card-side checks after one run: it passed, its device
         objects are collected and memory is back in the band. Its outcome
         is held against its CPU replay by compare(), once the phase's card
@@ -2893,30 +3225,33 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
         counts = [rec.built["ConflictSetGPU"], rec.built["KeyValueStoreGPU"],
                   tap.launches["resolver"], tap.launches["storage"]]
         live = rec.live()
-        runs.append((name, outcome(res), res["wall_s"], mem, live,
+        runs.append((run, outcome(res), res["wall_s"], mem, live,
                      [c - s0 for c, s0 in zip(counts, seen)]))
         seen[:] = counts
-        if name in specs:
+        if run in specs:
             walls.append(res["wall_s"])
         if not seed_passed(res):
-            fail(f"sim: seed {name} failed on the card: "
+            fail(f"{name}: seed {run} failed on the card: "
                  f"{res.get('error') or res.get('sev_error_events')}")
         if live:
-            fail(f"sim: {live} device objects outlived seed {name}")
+            fail(f"{name}: {live} device objects outlived seed {run}")
         if card and mem > mem0 + SIM_MEM_BAND:
-            fail(f"sim: device memory {mem} after seed {name}, over "
+            fail(f"{name}: device memory {mem} after seed {run}, over "
                  f"{mem0} + {SIM_MEM_BAND}")
 
     def compare() -> None:
         """Each card run against its CPU replay: ok, the error, the
         SevError count, every workload's check and metrics, and the
         fingerprint equal."""
-        for name, out, wall, mem, live, counts in runs:
-            cpu, cpu_wall = replays.result(name, timeout=4 * limit)
+        for run, out, wall, mem, live, counts in runs:
+            cpu, cpu_wall = replays.result(run, timeout=4 * limit)
             bad = mismatches(out, cpu)
-            spec = specs.get(name, chaos)
+            spec = specs[run] if run in specs else extras[run]
             knobs = spec.get("knobs", {})
-            log("sim-seed", seed=name, kind=spec["cluster"]["kind"],
+            cluster = spec["cluster"]
+            log(f"{name}-seed", seed=run, kind=cluster["kind"],
+                engine=cluster.get("engine"),
+                regions=bool(cluster.get("regions")),
                 conflict_set=knobs.get("server:CONFLICT_SET_IMPL", "gpu"),
                 storage=knobs.get("server:STORAGE_ENGINE_IMPL", "gpu"),
                 ok=out["ok"], sev_errors=out["sev_errors"],
@@ -2926,10 +3261,10 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
                 memory_allocated=mem, live_device_objects=live,
                 wall_s=f"{wall:.2f}", cpu_wall_s=f"{cpu_wall:.2f}",
                 equal_to_cpu=not bad)
-            if name in specs:
+            if run in specs:
                 cpu_walls.append(cpu_wall)
             if bad:
-                fail(f"sim: seed {name} on the card differs from its CPU "
+                fail(f"{name}: seed {run} on the card differs from its CPU "
                      f"replay in {bad}")
 
     try:
@@ -2948,37 +3283,38 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
             built = dict(rec.built)
             # the last operands of the sweep, on the host since its last
             # seed's reading
-            paths = tap.paths(**{"sim-resolver": "resolver",
-                                 "sim-storage": "storage"})
+            paths = tap.paths(**{f"{name}-resolver": "resolver",
+                                 f"{name}-storage": "storage"})
             t0 = time.perf_counter()
             for seed in det_seeds:
                 again = run_seed(specs[seed], device=device, limit=limit)
                 why = (determinism_mismatch(specs[seed], results[seed], again)
                        if seed_passed(again) else "the rerun failed")
-                log("sim-determinism", seed=seed,
+                log(f"{name}-determinism", seed=seed,
                     fingerprint=str(again.get("fingerprint"))[:16],
                     coverage_signature=coverage_signature(specs[seed], again),
                     equal=why is None, wall_s=f"{again['wall_s']:.2f}")
                 if why:
-                    fail(f"sim: seed {seed} on the card: {why}")
+                    fail(f"{name}: seed {seed} on the card: {why}")
                 del again
             det_s = time.perf_counter() - t0
-            seen[:] = [rec.built["ConflictSetGPU"],
-                       rec.built["KeyValueStoreGPU"],
-                       tap.launches["resolver"], tap.launches["storage"]]
-            res = run_seed(chaos, device=device, limit=limit)
-            settle("chaos", res, tap, rec, seen)
-            del res
+            for key, spec in extras.items():
+                seen[:] = [rec.built["ConflictSetGPU"],
+                           rec.built["KeyValueStoreGPU"],
+                           tap.launches["resolver"], tap.launches["storage"]]
+                res = run_seed(spec, device=device, limit=limit)
+                settle(key, res, tap, rec, seen)
+                del res
         compare()
         sweep_cpu_s = sum(cpu_walls)
     except AssertionError as e:
-        fail(f"sim: {e}")
+        fail(f"{name}: {e}")
     finally:
         replays.close()
     if card:
         for path in ("resolver", "storage"):
             if launches[path] == 0:
-                fail(f"sim: the probe never launched on the {path} path "
+                fail(f"{name}: the probe never launched on the {path} path "
                      "over the sweep")
     # One seed under the profiler: the device's busy time against the
     # seed's wall (the simulator drives the card from one host thread).
@@ -2989,8 +3325,8 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
         busy = profile_batch(
             lambda: run_seed(specs[prof_seed], device=device, limit=limit),
             batch_ms=1e3 * walls[seeds.index(prof_seed)],
-            phase="sim-profile", smi=smi, host_ops=False)
-    log("sim", smi=json.dumps(smi), seeds=len(seeds),
+            phase=f"{name}-profile", smi=smi, host_ops=False)
+    log(name, smi=json.dumps(smi), seeds=len(seeds), specs=len(extras),
         seeds_per_min=f"{60 * len(seeds) / sweep_s:.3f}",
         cpu_seeds_per_min=f"{60 * len(seeds) / sweep_cpu_s:.3f}",
         sweep_s=f"{sweep_s:.2f}", cpu_replay_s=f"{sweep_cpu_s:.2f}",
@@ -3011,6 +3347,53 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
             if isinstance(t, torch.Tensor):
                 cap[k] = t.to(dev)
     return paths
+
+
+# ---------------------------------------------------------------- phase 15
+
+# [sim-durable]: the seeds rerun on the card for the determinism check
+# (regions, and the ssd engine on the recoverable tier); the first is also
+# profiled.
+SIM_DURABLE_DETERMINISM_SEEDS = (58, 6)
+
+
+def restart_specs() -> dict:
+    """[sim-durable]'s restart specs: the two checked in
+    (specs/restart_cycle.json on the ssd engine, specs/upgrade_cycle.json
+    on the memory engine from durable format 2 to 3) and a power-loss
+    restart on the memory engine over the simulated disk (the first
+    incarnation ends by power loss, seeded spec.seed * 7919 + 13)."""
+    root = Path(__file__).resolve().parent / "specs"
+    out = {}
+    for name in ("restart_cycle", "upgrade_cycle"):
+        with open(root / f"{name}.json") as f:
+            out[name] = json.load(f)
+    cycle = {"name": "Cycle", "nodes": 8, "clients": 2, "txns": 8}
+    out["power_loss"] = {
+        "seed": 31, "buggify": True,
+        "cluster": {"kind": "restart", "n_storage": 4, "n_logs": 2,
+                    "replication": "double", "engine": "memory"},
+        "datadir": "ndsim",
+        "phases": [{"workloads": [cycle], "power_loss": True},
+                   {"workloads": [cycle]}],
+    }
+    return out
+
+
+def phase_sim_durable(rng, smi: str = "", device=None,
+                      seeds=SIM_DURABLE_SEEDS,
+                      det_seeds=SIM_DURABLE_DETERMINISM_SEEDS,
+                      limit: float = SIM_WALL_LIMIT):
+    """The simulator's durable tier on the card, as [sim] runs: every seed
+    of SIM_DURABLE_SEEDS (the memory and ssd engines on a temporary
+    datadir each, regions, the sharded and recoverable_sharded kinds) and
+    the restart specs of restart_specs(), each against its CPU replay on
+    the host backends (ok, checks, metrics, each phase's, fingerprint),
+    device objects collected and device memory back in the band after
+    each, `det_seeds` rerun. Returns the probe's paths."""
+    return phase_sim(rng, smi, device, seeds=seeds, det_seeds=det_seeds,
+                     limit=limit, extras=restart_specs(),
+                     name="sim-durable")
 
 
 def probe_entries(paths: dict, smi: str, base: dict) -> list:
@@ -3146,6 +3529,10 @@ def main() -> int:
     phase_wall("rankfed-check")
     kernels += probe_entries(phase_sim(rng, smi), smi, base)
     phase_wall("sim")
+    kernels += probe_entries(phase_durable(rng, smi), smi, base)
+    phase_wall("durable")
+    kernels += probe_entries(phase_sim_durable(rng, smi), smi, base)
+    phase_wall("sim-durable")
     log("smoke", wall_s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -32,9 +32,10 @@ ConflictSetGPU on `device`, None meaning the CUDA card, which must be
 present; "cpu" runs its plain torch version), and the storage windows are
 KeyValueStoreGPU (SERVER_KNOBS.STORAGE_ENGINE_IMPL) on the same device.
 A dead generation's roles are dropped whole, so its conflict set and the
-device memory behind it are released. The sharded tier runs in memory:
-the durable tier, the simulated disk and region failover are not ported,
-and asking for them raises NotImplementedError.
+device memory behind it are released. With a datadir the sharded tier
+is durable (the DiskQueue tlogs, the storage engines, FileCoordinatorRegister
+coordinators): a new incarnation over the same datadir cold-boots, its
+storage windows restored from their engines onto `device`.
 """
 
 from __future__ import annotations
@@ -390,20 +391,44 @@ class RecoverableShardedCluster(_RecoveryStateRecorder):
     """
 
     def __init__(self, conflict_set_factory=None, n_coordinators: int = 3,
-                 device=None, **sharded_kw):
-        from .sharded_cluster import ShardedKVCluster, durable_tier_missing
+                 coordinators=None, device=None, **sharded_kw):
+        from .sharded_cluster import ShardedKVCluster
 
-        for option in ("datadir", "os_layer", "regions"):
-            if sharded_kw.get(option):
-                raise NotImplementedError(durable_tier_missing(
-                    "RecoverableShardedCluster", option))
         self.conflict_set_factory = conflict_set_factory or (
             lambda v: make_conflict_set(v, device=device)
         )
         self.inner = ShardedKVCluster(device=device, **sharded_kw)
-        self.coordinators = [
-            CoordinatorRegister(f"coord{i}") for i in range(n_coordinators)
-        ]
+        datadir = sharded_kw.get("datadir")
+        if sharded_kw.get("os_layer") is not None:
+            # Simulated-disk clusters (sim/topology.py power-loss tests):
+            # the NonDurableOS holds the log/engine files; coordinator
+            # registers stay in-memory — they model a separate, protected
+            # failure domain there (sim2's protectedAddresses).
+            datadir = None
+        if coordinators is not None:
+            # Pre-built register servers (the power-loss restart runner
+            # carries them across incarnations: the quorum is a separate,
+            # protected failure domain, same model as the os_layer note
+            # above — the generation fence must survive the reboot).
+            self.coordinators = list(coordinators)
+        elif datadir is not None:
+            # Durable coordinators ride the same datadir: the generation
+            # counter and its fencing promises must survive a process kill
+            # (a cold boot IS a recovery — it bumps the durable generation
+            # and fences the recovered logs with it).
+            from .coordination import FileCoordinatorRegister
+
+            self.coordinators = [
+                FileCoordinatorRegister(
+                    f"coord{i}", f"{datadir}/coord{i}.json"
+                )
+                for i in range(n_coordinators)
+            ]
+        else:
+            self.coordinators = [
+                CoordinatorRegister(f"coord{i}")
+                for i in range(n_coordinators)
+            ]
         self.cstate = CoordinatedState(self.coordinators, key="generation")
         self.election = LeaderElection(
             CoordinatedState(self.coordinators, key="leader"),
@@ -448,6 +473,11 @@ class RecoverableShardedCluster(_RecoveryStateRecorder):
         self.inner._router_tasks = []
         for s in self.inner.storages:
             s.stop()
+        if self.inner.datadir is not None:
+            from .sharded_cluster import close_durable_tier
+
+            close_durable_tier(self.inner.storages,
+                               self.inner.log_system.all_logs())
 
     def database(self):
         from ..client.connection import ShardedConnection

@@ -4,9 +4,9 @@ arsenal that drives workload tests (ref: fdbrpc/sim2.actor.cpp +
 fdbrpc/simulator.h; SURVEY §4 tier 2 — "the backbone").
 
 The port's copy of foundationdb_tpu/sim/ (network, harness, topology,
-config): the simulated clusters recruit the port's device backends on
-the CUDA card unless the caller passes device="cpu". The simulated disk
-(nondurable.py) belongs to the durable tier, not ported yet.
+config, nondurable): the simulated clusters recruit the port's device
+backends on the CUDA card unless the caller passes device="cpu";
+nondurable.py is the simulated disk and its power loss.
 """
 
 from .network import RemoteStream, SimNetwork, SimProcess  # noqa: F401

@@ -28,9 +28,9 @@ weights, and only the backend names of the two device knobs are the
 port's (CONFLICT_SET_IMPL: the JAX package's "native" and "tpu" draw
 "gpu"; STORAGE_ENGINE_IMPL: "tpu" draws "gpu"), so seed N yields the JAX
 package's spec N with those two names mapped. `unported_needs` names what
-a spec needs that the port does not have yet (the durable tier, region
-failover, the backup tier); `run_randomized` runs only the seeds that
-need nothing, on `device`, and logs every other seed with its reason.
+a spec needs that the port does not have yet (the backup tier);
+`run_randomized` runs only the seeds that need nothing, on `device`, and
+logs every other seed with its reason.
 """
 
 from __future__ import annotations
@@ -582,20 +582,13 @@ _BACKUP_WORKLOADS = ("BackupRestore", "BackupAttrition")
 
 def unported_needs(spec: dict) -> list[str]:
     """Each thing `spec` needs that the port does not have yet, as the
-    refusal that names its ROADMAP Queue 1 item: a durable engine,
-    datadir, os_layer, regions or a restart spec (item 7, the durable
-    tier), a backup workload (item 9, the backup tier). Empty when the
-    port can run the spec; workloads/tester.run_spec raises the first."""
-    from ..cluster.sharded_cluster import durable_tier_missing
+    refusal that names its ROADMAP Queue 1 item: a backup workload (item
+    9, the backup tier), in a spec's workloads or a restart spec's
+    phases. Empty when the port can run the spec; workloads/tester.run_spec
+    and run_restart_spec raise the first."""
     from ..workloads.more import backup_tier_missing
 
-    cluster = spec.get("cluster", {})
     needs = []
-    if cluster.get("kind") == "restart":
-        needs.append(durable_tier_missing("run_restart_spec", "datadir"))
-    for option in ("engine", "datadir", "os_layer", "regions"):
-        if cluster.get(option):
-            needs.append(durable_tier_missing("run_spec", option))
     stanzas = list(spec.get("workloads", []))
     for phase in spec.get("phases", []):
         stanzas.extend(phase.get("workloads", []))

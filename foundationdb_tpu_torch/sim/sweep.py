@@ -11,7 +11,7 @@ seeds nightly, each failure reproducible from its seed alone).
 
 --seeds takes "lo:hi" (half-open), a comma list, or a count N (== 0:N).
 A seed whose spec needs what the port does not have yet
-(sim/config.unported_needs: the durable tier, regions, the backup tier)
+(sim/config.unported_needs: the backup tier)
 is not run; its line names the reason. Every seed that runs is held to
 a wall-clock limit (--wall-limit seconds): an overrun fails the seed, as
 a crash, a SevError or a failed check does.
@@ -127,14 +127,24 @@ def seed_passed(res: dict) -> bool:
 def outcome(res: dict) -> dict[str, Any]:
     """What two backends must agree on for one seed: ok, the error, the
     SevError count, the fingerprint, and every workload's entry (its
-    check result and metrics: commit, retry and move counts). Coverage is
-    left out: the device backends register metrics of their own."""
+    check result and metrics: commit, retry and move counts); for a
+    restart spec, each phase's workload entries, power-loss havoc and
+    carried state, as "phase<i>.<name>". Coverage is left out: the device
+    backends register metrics of their own."""
     out = {key: res.get(key)
            for key in ("ok", "error", "sev_errors", "fingerprint")}
     out["workloads"] = {
         key: value for key, value in res.items()
         if isinstance(value, dict) and key != "coverage"
     }
+    for i, phase in enumerate(res.get("phases") or []):
+        for key, value in phase.items():
+            if isinstance(value, dict) and key != "coverage":
+                out["workloads"][f"phase{i}.{key}"] = value
+        out["workloads"][f"phase{i}.state"] = {
+            key: phase.get(key) for key in ("ok", "state_carried",
+                                            "refused_incompatible",
+                                            "sev_errors")}
     # One JSON form for both sides of a process boundary.
     return json.loads(json.dumps(out, sort_keys=True, default=str))
 

@@ -50,12 +50,10 @@ STATE loss is exercised by the power-loss reboots here and the
 destroyed-datadir tests of the log-replication tier.
 
 The port's copy of foundationdb_tpu/sim/topology.py. A re-homed storage
-server is rebuilt on the cluster's device (`cluster.device`: its window is
-the knob-chosen KeyValueStoreGPU or VersionedMap, as at boot). The durable
-tier is not ported: a cluster with a datadir never reaches this module
-(the clusters refuse one), and the durable branches of the log and
-storage rebuilds and of the power-loss reboot raise NotImplementedError
-naming ROADMAP Queue 1 item 7.
+server, and one rebuilt after a power loss, is built on the cluster's
+device (`cluster.device`: its window is the knob-chosen KeyValueStoreGPU
+or VersionedMap, as at boot), its window restored from its engine when
+the cluster is durable.
 """
 
 from __future__ import annotations
@@ -70,7 +68,6 @@ from ..cluster.recruitment import (
     select_replacement_hosts,
     select_workers,
 )
-from ..cluster.sharded_cluster import durable_tier_missing
 from ..core.actors import ActorCollection
 from ..core.errors import OperationFailed
 from ..core.knobs import SERVER_KNOBS
@@ -559,8 +556,14 @@ class MachineTopology:
     def _build_replacement_log(self, index: int, target: SimMachine):
         cluster = self.cluster
         if getattr(cluster, "datadir", None):
-            raise NotImplementedError(
-                durable_tier_missing("MachineTopology", "datadir"))
+            from ..cluster.durable_tlog import DurableTaggedTLog
+
+            self._rehomes += 1
+            path = f"{cluster.datadir}/log{index}.r{self._rehomes}"
+            self._log_paths[index] = path
+            return DurableTaggedTLog(
+                path, os_layer=getattr(cluster, "os_layer", None)
+            )
         from ..cluster.log_system import TaggedTLog
 
         return TaggedTLog(0)
@@ -622,7 +625,7 @@ class MachineTopology:
             self._rehome_storage(t, m)
 
     def _rehome_storage(self, tag: int, dead: SimMachine) -> None:
-        from ..cluster.sharded_cluster import _all_false_map
+        from ..cluster.sharded_cluster import _all_false_map, _make_engine
         from ..cluster.storage import StorageServer
 
         cluster = self.cluster
@@ -652,11 +655,17 @@ class MachineTopology:
         target = next(m for m in self.machines
                       if m.name == got[0].worker_id)
         old = cluster.storages[tag]
+        engine = None
         if getattr(cluster, "datadir", None):
-            raise NotImplementedError(
-                durable_tier_missing("MachineTopology", "datadir"))
+            self._rehomes += 1
+            path = f"{cluster.datadir}/storage{tag}.r{self._rehomes}"
+            self._storage_paths[tag] = path
+            engine = _make_engine(self.engine_kind, path,
+                                  os_layer=getattr(cluster, "os_layer",
+                                                   None))
         fresh = StorageServer(cluster.log_system.tag_view(tag), 0,
-                              tag=tag, device=cluster.device)
+                              tag=tag, engine=engine,
+                              device=cluster.device)
         # Clients keep their endpoint (the reference's interface tokens
         # survive role restarts); ownership starts EMPTY — DD's move_keys
         # seeds data in with a proper fence+snapshot fetch when a team
@@ -886,11 +895,68 @@ class MachineTopology:
         return True
 
     def _power_loss(self, m: SimMachine) -> None:
-        """Power loss resolves the machine's un-fsynced pages on the
-        simulated disk and rebuilds its durable tlog and storage engines:
-        the durable tier, which the port does not have yet."""
-        raise NotImplementedError(
-            durable_tier_missing("MachineTopology", "power_loss"))
+        cluster = self.cluster
+        datadir = cluster.datadir
+        # Re-homed slots live under their replacement incarnation's path.
+        s_path = lambda t: self._storage_paths.get(  # noqa: E731
+            t, f"{datadir}/storage{t}")
+        l_path = lambda i: self._log_paths.get(  # noqa: E731
+            i, f"{datadir}/log{i}")
+        prefixes = [s_path(t) for t in m.storage_tags]
+        prefixes += [l_path(i) for i in m.log_ids]
+        prefixes += [f"{datadir}/rlog{i}" for i in m.remote_log_ids]
+        stats = self.disk.kill(prefixes=prefixes)
+        TraceEvent("SimPowerLoss", severity=30).detail(
+            "Machine", m.name
+        ).detail("Dropped", stats["dropped"]).detail(
+            "Corrupted", stats["corrupted"]
+        ).detail("Kept", stats["kept"]).log()
+
+        from ..cluster.durable_tlog import DurableTaggedTLog
+        from ..cluster.sharded_cluster import _make_engine
+        from ..cluster.storage import StorageServer
+
+        log_sets = cluster.log_system.log_sets
+        rebuilt = [(log_sets[0], i, l_path(i)) for i in m.log_ids]
+        if len(log_sets) > 1:
+            rebuilt += [(log_sets[1], i, f"{datadir}/rlog{i}")
+                        for i in m.remote_log_ids]
+        for log_set, i, prefix in rebuilt:
+            old = log_set[i]
+            # stop (not close): close would flush through fds the disk
+            # kill already invalidated; the dead incarnation just drops.
+            old.stop()
+            fresh = DurableTaggedTLog(prefix, os_layer=self.disk)
+            # The machine is still dark (restore_machine flips the NEW
+            # object back via log_sets).
+            fresh.reachable = False
+            log_set[i] = fresh
+        for t in m.storage_tags:
+            old = cluster.storages[t]  # already stopped by the kill
+            engine = _make_engine(self.engine_kind, s_path(t),
+                                  os_layer=self.disk)
+            fresh = StorageServer(cluster.log_system.tag_view(t), 0,
+                                  tag=t, engine=engine,
+                                  device=cluster.device)
+            # Clients keep their endpoint: the rebooted server serves the
+            # same stream (the reference's interface tokens survive role
+            # restarts the same way).
+            fresh.read_stream = old.read_stream
+            # Shard assignment is cluster metadata, not machine state —
+            # carried over as a stand-in for the reference's re-derivation
+            # from the recovered txnStateStore.
+            fresh.owned = old.owned
+            fresh.assigned = old.assigned
+            cluster.storages[t] = fresh
+        # Rebuilt logs replay only the POP records the disk kept: re-pin
+        # every tag's discard floor or a lost pop record would let peers'
+        # future pops eat a behind tag's prefix.
+        if hasattr(cluster.log_system, "reregister_tags"):
+            cluster.log_system.reregister_tags()
+        # The rebuilt tlog's durable top is wherever its last fsync
+        # reached: fence + truncate the quorum to the new minimum before
+        # anything trusts the old frontier (a cold boot IS a recovery).
+        cluster._recover()
 
     def kill_datacenter(self, dc: SimDatacenter) -> list[SimMachine]:
         """Blackout every non-protected machine of one DC at one instant

@@ -20,13 +20,13 @@ concurrently, then every check phase; the result carries per-workload
 metrics and the final ConsistencyCheck verdict. Deterministic per seed.
 
 The port's copy of foundationdb_tpu/workloads/tester.py. `run_spec(spec,
-device=None)` builds every cluster on `device` (None: the CUDA card, which
-must be present; "cpu" runs the device backends' plain torch versions),
-so the knob-chosen ConflictSetGPU and KeyValueStoreGPU are recruited on
-the card. What the port does not have yet is refused before anything
-runs, with NotImplementedError naming its ROADMAP item: restart specs,
-durable engines, datadirs, os layers and regions (Queue 1 item 7, the
-durable tier) and the backup workloads (Queue 1 item 9).
+device=None)` and `run_restart_spec(spec, device=None)` build every
+cluster on `device` (None: the CUDA card, which must be present; "cpu"
+runs the device backends' plain torch versions), so the knob-chosen
+ConflictSetGPU and KeyValueStoreGPU are recruited on the card, durable
+clusters' windows restored there from disk. What the port does not have
+yet is refused before anything runs, with NotImplementedError naming its
+ROADMAP item: the backup workloads (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -598,15 +598,188 @@ def _apply_knobs(overrides: dict):
     return undo
 
 
-def run_restart_spec(spec: dict) -> dict[str, Any]:
+def run_restart_spec(spec: dict, device=None) -> dict[str, Any]:
     """tests/restarting/ analogue: phase 1 runs its workloads on a
     DURABLE cluster over a datadir, the incarnation shuts down, and
-    phase 2 boots a FRESH incarnation from the preserved datadir. The
-    durable tier is not ported (ROADMAP Queue 1 item 7): this raises."""
-    from ..cluster.sharded_cluster import durable_tier_missing
+    phase 2 boots a FRESH incarnation (new loop, new cluster object —
+    the restarted-binary seam) from the preserved datadir. The runner
+    fingerprints the full keyspace at the end of phase 1 and verifies
+    the rebooted cluster serves the identical state before phase 2's
+    workloads mutate it.
 
-    raise NotImplementedError(
-        durable_tier_missing("run_restart_spec", "datadir"))
+    Spec: {"seed", "buggify", "cluster": {"kind": "restart", "engine",
+    "n_storage", ...}, "datadir": path, "phases": [{"workloads": [...]},
+    {"workloads": [...]}]}.
+
+    Upgrade seams (ref: the reference's restart tests booting old-format
+    state into new binaries under IncludeVersion, flow/serialize.h:195):
+
+    - a phase may carry "format_version": N — that incarnation runs with
+      the DURABLE format lattice at revision N (readers accept N-1), so
+      phase 2 at a bumped revision is 'the upgraded binary' reading phase
+      1's stamped state bit-for-bit, and a phase at an OLDER revision
+      than the stamps on disk refuses cleanly: the phase records
+      refused_incompatible instead of corrupting, and later phases are
+      skipped (specs/upgrade_cycle.json runs both directions);
+    - a phase may carry "power_loss": true — it ends by POWER LOSS over
+      a simulated disk (sim/nondurable.py page havoc; fsynced state
+      survives, pending state is dropped/kept/corrupted by seeded coin
+      flip) instead of a clean shutdown; the coordinator quorum is
+      carried across incarnations as a separate protected failure
+      domain. Requires the default memory engine.
+
+    Every incarnation's cluster is built on `device` (None: the CUDA card,
+    which must be present; "cpu" runs the device backends' plain torch
+    versions): its storage windows are restored from disk onto it.
+    """
+    import hashlib
+    import tempfile
+
+    from ..core.errors import IncompatibleProtocolVersion
+    from ..core.serialize import durable_format_override
+    from ..device import resolve_device
+
+    resolve_device(device)
+    _refuse_unported(spec)
+
+    ckw = {k: v for k, v in spec.get("cluster", {}).items()
+           if k != "kind"}
+    if "shard_boundaries" in ckw:
+        # JSON specs carry boundaries as strings (same as run_spec).
+        ckw["shard_boundaries"] = [
+            b.encode() if isinstance(b, str) else b
+            for b in ckw["shard_boundaries"]
+        ]
+    phases = spec.get("phases", [])
+    nondurable = any(p.get("power_loss") for p in phases)
+    osl = None
+    if nondurable:
+        if ckw.get("engine", "memory") != "memory":
+            raise SpecError("power_loss phases need the memory engine "
+                            "(the simulated disk runs the Python tier)")
+        from ..core.rand import DeterministicRandom
+        from ..sim.nondurable import NonDurableOS
+
+        osl = NonDurableOS(
+            DeterministicRandom(spec.get("seed", 1) * 7919 + 13)
+        )
+        ckw["os_layer"] = osl
+    owns_datadir = not spec.get("datadir") and osl is None
+    datadir = spec.get("datadir") or tempfile.mkdtemp(prefix="fdbtpu_rs_")
+    results: dict[str, Any] = {"datadir": datadir, "phases": []}
+    fingerprint: list = [None]
+    carried_coords: list = []  # power-loss runs: the protected quorum
+
+    async def _fingerprint(db) -> str:
+        async def read_all(tr):
+            return await tr.get_range(b"", b"\xff")
+
+        rows = await db.transact(read_all)
+        h = hashlib.sha256()
+        for k, v in rows:
+            # BOTH fields length-prefixed: the encoding must be injective
+            # or two different states could fingerprint identically.
+            h.update(b"%d:%b=%d:%b;" % (len(k), k, len(v), v))
+        return h.hexdigest()
+
+    for phase_idx, phase in enumerate(phases):
+        import gc
+
+        from ..core.trace import TraceSink, set_global_sink
+
+        gc.collect()  # same isolation contract as run_spec
+        set_global_sink(TraceSink())
+        undo_knobs = _apply_knobs(spec.get("knobs"))
+        # The per-incarnation 'binary version': durable readers/stampers
+        # run at this phase's revision for the phase's whole lifetime.
+        undo_format = (durable_format_override(phase["format_version"])
+                       if phase.get("format_version") else None)
+        power_loss = bool(phase.get("power_loss"))
+        loop = sim_loop(seed=spec.get("seed", 1) * 1000 + phase_idx,
+                        buggify=spec.get("buggify", False))
+        refused = False
+        with loop_context(loop):
+            async def main():
+                from ..cluster.recovery import RecoverableShardedCluster
+
+                kw = dict(ckw)
+                if carried_coords:
+                    kw["coordinators"] = carried_coords[0]
+                cluster = RecoverableShardedCluster(
+                    datadir=datadir, device=device, **kw
+                ).start()
+                if osl is not None and not carried_coords:
+                    carried_coords.append(cluster.coordinators)
+                db = cluster.database()
+                carried_ok = True
+                if phase_idx > 0:
+                    # The restarted incarnation must serve the previous
+                    # incarnation's durable state bit-for-bit BEFORE any
+                    # new mutation.
+                    carried_ok = (await _fingerprint(db)) == fingerprint[0]
+                res = await _run_workloads(
+                    cluster, db, {"workloads": phase.get("workloads", [])}
+                )
+                fingerprint[0] = await _fingerprint(db)
+                if not power_loss:
+                    # Power loss deliberately SKIPS the clean close: no
+                    # final flush, no engine close — the disk keeps only
+                    # what fsyncs covered (the havoc lands below, after
+                    # the loop is torn down).
+                    cluster.stop()
+                res["state_carried"] = carried_ok
+                return res
+
+            try:
+                pres = loop.run(main(), timeout_sim_seconds=3600)
+            except IncompatibleProtocolVersion as e:
+                # Downgrade refusal IS the contract: the incarnation
+                # refuses to decode a newer on-disk format and leaves the
+                # state untouched for a correctly-versioned binary.
+                refused = True
+                pres = {"ok": False, "refused_incompatible": True,
+                        "state_carried": False,
+                        "error": f"{type(e).__name__}: {e}"}
+            finally:
+                loop.shutdown()
+                if undo_format is not None:
+                    undo_format()
+                undo_knobs()
+        if power_loss and not refused:
+            pres["power_loss"] = osl.kill()  # the page havoc, seeded
+        pres["sev_errors"] = global_sink().error_count
+        pres["sev_error_events"] = list(global_sink().error_events[:50])
+        results["phases"].append(pres)
+        if refused:
+            break  # later phases would boot over state we refused to read
+
+    results["ok"] = all(
+        p.get("ok") and p.get("state_carried") and not p.get("sev_errors")
+        for p in results["phases"]
+    ) and len(results["phases"]) == len(phases)
+    results["refused_incompatible"] = any(
+        p.get("refused_incompatible") for p in results["phases"]
+    )
+    results["fingerprint"] = fingerprint[0]  # determinism-sweep contract
+    results["sev_errors"] = sum(p["sev_errors"] for p in results["phases"])
+    results["sev_error_events"] = [
+        e for p in results["phases"] for e in p.get("sev_error_events", [])
+    ][:50]
+    # Coverage union across incarnations: the restart spec's signature
+    # reflects everything ANY phase reached (phases that refused to boot
+    # contribute nothing, which is itself signature-visible).
+    results["coverage"] = {
+        key: sorted({v for p in results["phases"]
+                     for v in p.get("coverage", {}).get(key, ())})
+        for key in ("trace_event_types", "recovery_states", "metric_names")
+    }
+    if owns_datadir:
+        # Sweep hygiene: a datadir nobody named is a per-run scratch
+        # disk (each rerun cold-boots a fresh one by construction).
+        import shutil
+
+        shutil.rmtree(datadir, ignore_errors=True)
+    return results
 
 
 def _refuse_unported(spec: dict) -> None:
@@ -682,7 +855,7 @@ def run_spec(spec: dict, device=None) -> dict[str, Any]:
 
     resolve_device(device)
     if spec.get("cluster", {}).get("kind") == "restart":
-        return run_restart_spec(spec)
+        return run_restart_spec(spec, device=device)
     _refuse_unported(spec)
 
     # Flush pending garbage BEFORE the deterministic run starts: suspended
@@ -697,12 +870,23 @@ def run_spec(spec: dict, device=None) -> dict[str, Any]:
     undo_knobs = _apply_knobs(spec.get("knobs"))
     loop = sim_loop(seed=spec.get("seed", 1),
                     buggify=spec.get("buggify", False))
+    auto_datadir = None
     with loop_context(loop):
         async def main():
+            nonlocal auto_datadir
             ckind = spec.get("cluster", {}).get("kind", "local")
             ckw = {k: v for k, v in spec.get("cluster", {}).items()
                    if k != "kind"}
             ckw["device"] = device
+            if ckw.get("datadir") == "auto":
+                # Engine-randomized configs (sim/config.py) run durably
+                # over a per-RUN tmpdir: the printed spec stays the
+                # repro, and a determinism rerun gets a fresh disk
+                # instead of cold-booting the first run's files.
+                import tempfile
+
+                auto_datadir = tempfile.mkdtemp(prefix="fdbtpu_sim_")
+                ckw["datadir"] = auto_datadir
             if "shard_boundaries" in ckw:
                 # JSON specs carry boundaries as strings (same contract as
                 # the multiprocess cluster file, _spec_kw).
@@ -745,6 +929,10 @@ def run_spec(spec: dict, device=None) -> dict[str, Any]:
         finally:
             loop.shutdown()
             undo_knobs()
+            if auto_datadir is not None:
+                import shutil
+
+                shutil.rmtree(auto_datadir, ignore_errors=True)
     # EXACT SevError accounting (TraceSink keeps a trim-immune record):
     # the count can no longer silently shrink on long runs whose event
     # window trimmed, and the events themselves ride the result so

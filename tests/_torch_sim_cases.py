@@ -2,7 +2,8 @@
 (tests/test_torch_sim_differential*.py, tests/test_torch_sim_backends*.py).
 
 A seed of sim/config.generate_config runs through each package's
-run_spec on the CPU:
+run_spec on the CPU (a durable seed on a temporary datadir of its own,
+removed after the run):
 
 - `jax_run(seed)`: the JAX package, the host backends pinned (its
   CONFLICT_SET_IMPL=oracle, STORAGE_ENGINE_IMPL=memory);
@@ -24,7 +25,10 @@ from functools import lru_cache
 import pytest
 import torch
 
-from chip_smoke import SIM_SEEDS  # noqa: F401 - re-exported for the tests
+from chip_smoke import (  # noqa: F401 - re-exported for the tests
+    SIM_DURABLE_SEEDS,
+    SIM_SEEDS,
+)
 
 HOST = {"server:CONFLICT_SET_IMPL": "oracle",
         "server:STORAGE_ENGINE_IMPL": "memory"}
@@ -32,13 +36,31 @@ DEVICE = {"server:CONFLICT_SET_IMPL": "gpu",
           "server:STORAGE_ENGINE_IMPL": "gpu"}
 # Seeds the port runs (no unported needs) that the JAX package itself
 # fails on the CPU with the host backends pinned, and how (ROADMAP Queue
-# 3, "To settle"). The [sim] seeds are the first 24 runnable seeds
-# without these.
+# 3, "To settle"): the exception it raises, or "check:<workload>" for a
+# run that ends with that workload's check failed. The [sim] seeds are
+# the first 24 runnable in-memory seeds without these, the [sim-durable]
+# seeds the first 16 runnable durable ones (a storage engine or regions)
+# and seed 168.
 REFERENCE_SIDE_FAILURES = {
+    0: "check:Serializability",
     5: "TypeError: a bytes-like object is required, not 'NoneType'",
     25: "RuntimeError: livelock: 10000001 steps without time advancing "
         "(t=0.9423813990189756)",
+    60: "OSError: dq_push failed (record too large?)",
+    70: "check:ConsistencyCheck",
+    93: "OSError: dq_push failed (record too large?)",
+    100: "OSError: dq_push failed (record too large?)",
+    137: "check:LowLatency",
+    149: "OperationFailed: coordination quorum unavailable for write",
+    163: "TypeError: a bytes-like object is required, not 'NoneType'",
 }
+
+
+def is_durable(spec: dict) -> bool:
+    """A seed of the durable tier: a storage engine (on a datadir) or
+    regions."""
+    cluster = spec.get("cluster", {})
+    return bool(cluster.get("engine") or cluster.get("regions"))
 
 
 @pytest.fixture(autouse=True)
@@ -106,3 +128,30 @@ def assert_device_equals_host(seed: int) -> None:
     assert host["ok"] and not host["sev_errors"], host
     assert mismatches(outcome(device), outcome(host)) == [], seed
     assert device["fingerprint"] == host["fingerprint"]
+
+
+def assert_fails_the_same_way(seed: int) -> None:
+    """A reference-side failure: the JAX package's run fails as recorded,
+    the port's run with the host backends pinned gives the same whole
+    result (the same exception and message, or the same failed check
+    with every other entry), and its device backends the same outcome."""
+    from foundationdb_tpu_torch.sim.config import generate_config
+    from foundationdb_tpu_torch.sim.sweep import mismatches, outcome
+    from foundationdb_tpu_torch.workloads.tester import failure_summary
+
+    how = REFERENCE_SIDE_FAILURES[seed]
+    want, got = jax_run(seed), port_run(seed, "host")
+    device = port_run(seed, "device")
+    if how.startswith("check:"):
+        assert "raised" not in want, want
+        assert not want["ok"]
+        assert failure_summary(generate_config(seed), want)["class"] == how
+        assert set(got) == set(want), sorted(set(got) ^ set(want))
+        for key in sorted(want):
+            assert got[key] == want[key], (seed, key)
+        assert "raised" not in device, device
+        assert mismatches(outcome(device), outcome(got)) == [], seed
+    else:
+        assert want == {"raised": how}
+        assert got == want
+        assert device == want

@@ -19,8 +19,8 @@ every generation, with coordination, leader election and discovery.
   path, against the port's device back ends at their default pipeline
   depth);
 - a dead generation's conflict set is collected;
-- the durable tier's options are refused with a clear error, and the
-  entry points raise without a card.
+- the entry points raise without a card. (The durable tier's options run:
+  tests/test_torch_durable_cluster.py and test_torch_regions.py.)
 """
 
 import gc
@@ -42,7 +42,6 @@ from foundationdb_tpu_torch.cluster.recovery import (
     RecoverableCluster,
     RecoverableShardedCluster,
 )
-from foundationdb_tpu_torch.cluster.sharded_cluster import ShardedKVCluster
 from foundationdb_tpu_torch.core import delay, loop_context, sim_loop, spawn
 from foundationdb_tpu_torch.core.errors import (
     FdbError,
@@ -599,20 +598,6 @@ def test_dead_generation_conflict_set_is_collected(backend):
         alive = loop.run(main(), timeout_sim_seconds=1e6)
     loop.shutdown()
     assert alive == [False, False, False]
-
-
-@pytest.mark.parametrize("option,value", [("datadir", "unused"),
-                                          ("os_layer", object()),
-                                          ("regions", True)])
-def test_durable_tier_options_are_refused(option, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        RecoverableShardedCluster(device="cpu", **{option: value})
-
-
-def test_sharded_cluster_datadir_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="durable tier"):
-        ShardedKVCluster(datadir=str(tmp_path), device="cpu")
-    assert not any(tmp_path.iterdir())
 
 
 def test_without_a_card_it_raises(monkeypatch):

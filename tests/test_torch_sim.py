@@ -3,9 +3,9 @@ every case of tests/test_sim_faults.py (SimulatedCluster under clogs,
 blackouts and partitions, with the port's default device backends,
 ConflictSetGPU and KeyValueStoreGPU, behind it) and every case of
 tests/test_tester_specs.py (run_spec's compound specs), plus the port's
-own refusals: specs that need the durable or backup tier raise
-NotImplementedError naming their ROADMAP item, and without a card every
-entry point raises unless the caller asked for the CPU.
+own refusals: specs that need the backup tier raise NotImplementedError
+naming its ROADMAP item, and without a card every entry point raises
+unless the caller asked for the CPU.
 """
 
 import hashlib
@@ -225,20 +225,6 @@ def test_watches_spec_on_sharded_cluster():
 
 
 # ------------------------------------------------------ the port's refusals
-
-
-@pytest.mark.parametrize("option", ["engine", "datadir", "os_layer",
-                                    "regions"])
-def test_durable_tier_specs_raise_naming_item_7(option):
-    spec = {"cluster": {"kind": "recoverable_sharded", option: "auto"},
-            "workloads": [{"name": "Cycle"}]}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cpu_spec(spec)
-
-
-def test_restart_spec_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        cpu_spec({"cluster": {"kind": "restart"}, "phases": []})
 
 
 @pytest.mark.parametrize("name", ["BackupRestore", "BackupAttrition"])

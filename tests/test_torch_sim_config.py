@@ -98,45 +98,46 @@ def test_coverage_facets_signature_and_buckets_agree(chunk):
 
 
 def expected_needs(spec: dict) -> bool:
-    cluster = spec["cluster"]
     names = {w["name"] for w in spec["workloads"]}
-    return bool(cluster.get("engine") or cluster.get("regions")
-                or names & {"BackupRestore", "BackupAttrition"})
+    return bool(names & {"BackupRestore", "BackupAttrition"})
 
 
 def test_unported_needs_flags_exactly_engine_regions_and_backups():
-    runnable = []
+    """Since the durable tier is ported, only the backup workloads are
+    flagged: a durable engine, a datadir and regions run."""
+    runnable, durable = [], []
     for seed in SEEDS:
         spec = pcfg.generate_config(seed)
         needs = pcfg.unported_needs(spec)
         assert bool(needs) == expected_needs(spec), (seed, needs)
         cluster = spec["cluster"]
-        item7 = [n for n in needs if "Queue 1 item 7" in n]
         item9 = [n for n in needs if "Queue 1 item 9" in n]
-        assert bool(item7) == bool(cluster.get("engine")
-                                   or cluster.get("regions")), seed
         assert len(item9) == sum(
             w["name"] in ("BackupRestore", "BackupAttrition")
             for w in spec["workloads"]), seed
-        assert len(item7) + len(item9) == len(needs)
+        assert len(item9) == len(needs)
+        assert not any("Queue 1 item 7" in n for n in needs), seed
         if not needs:
             runnable.append(seed)
+            if cluster.get("engine") or cluster.get("regions"):
+                durable.append(seed)
     # The seeds the port runs, in order (the smoke's [sim] list is taken
-    # from these).
-    assert runnable[:12] == [3, 5, 11, 14, 17, 19, 21, 25, 26, 29, 30, 33]
-    assert 60 <= len(runnable) <= 90, len(runnable)
+    # from the in-memory ones, its [sim-durable] list from the durable).
+    assert runnable[:12] == [0, 1, 3, 5, 6, 10, 11, 12, 14, 15, 17, 18]
+    assert durable[:8] == [0, 1, 6, 10, 12, 15, 18, 27]
+    assert 100 <= len(runnable) <= 140, len(runnable)
 
 
 def test_unported_needs_of_hand_written_specs():
     assert pcfg.unported_needs({"cluster": {"kind": "local"},
                                 "workloads": [{"name": "Cycle"}]}) == []
-    assert len(pcfg.unported_needs(
+    (need,) = pcfg.unported_needs(
         {"cluster": {"kind": "restart"}, "phases": [
-            {"workloads": [{"name": "BackupRestore"}]}]})) == 2
+            {"workloads": [{"name": "BackupRestore"}]}]})
+    assert "ROADMAP Queue 1 item 9" in need
     for option in ("engine", "datadir", "os_layer", "regions"):
-        (need,) = pcfg.unported_needs(
-            {"cluster": {"kind": "recoverable_sharded", option: "x"}})
-        assert "ROADMAP Queue 1 item 7" in need and option in need
+        assert pcfg.unported_needs(
+            {"cluster": {"kind": "recoverable_sharded", option: "x"}}) == []
 
 
 @pytest.mark.parametrize("chunk", range(2))
@@ -170,10 +171,11 @@ def test_runnable_draws_apply_on_the_port_knobs(chunk):
 
 def test_run_randomized_logs_every_seed_it_does_not_run():
     lines = []
-    # Seeds 0-2 all need an unported tier: nothing runs, each is logged
-    # with its reason, and no device is touched.
-    assert pcfg.run_randomized([0, 1, 2], log=lines.append,
+    # Seeds 2, 4 and 7 all need an unported tier (the backup workloads):
+    # nothing runs, each is logged with its reason, and no device is
+    # touched.
+    assert pcfg.run_randomized([2, 4, 7], log=lines.append,
                                device="cpu") == []
     skipped = [ln for ln in lines if "not run: needs" in ln]
     assert len(skipped) == 3
-    assert all("ROADMAP Queue 1 item" in ln for ln in skipped)
+    assert all("ROADMAP Queue 1 item 9" in ln for ln in skipped)
