@@ -20,8 +20,8 @@ Phases (each prints one line; any failure exits nonzero):
 4. full width, BASELINE config 5 (sliding MVCC window): uniform 8-byte
    keys over 2^20, 5 point reads + 2 point writes per txn, 65,536 txns per
    batch, version step 65,536, GC horizon version - 131,072, a 2^21-slot
-   state. 16 batches through submit/verdicts at depth 4 (cut from 24 to
-   keep the whole run near 600 s); the first 2 also through
+   state. 12 batches (FULL_BATCHES; 24, then 16, before) through
+   submit/verdicts at depth 4; the first 2 also through
    ConflictSetGPU(device="cpu"), statuses and entries() equal. The
    probe's launch count is reset just before and read just after this run
    and must be positive. Prints txns/s, p50/p90 batch latency and more.
@@ -71,7 +71,8 @@ Phases (each prints one line; any failure exits nonzero):
 9. `[sharded-cluster]`: ShardedKVCluster(n_storage=4, n_logs=2,
    replication="double", n_resolvers=4), storage shards and resolvers
    split at rw_key(2^18), rw_key(2^19) and rw_key(3 * 2^18), under
-   config 1 at full width (a 2^20-key load, then ReadWrite from 1,024
+   config 1 (a 2^18-key load, SHARDED_CLUSTER_LOAD_KEYS, 2^20 until PR
+   9, then ReadWrite from 1,024
    clients until 10,000 txns commit); each role's submits replayed
    through its own ConflictSetCPU (four processes), every read reply held
    against an independent VersionedMap per storage server, every
@@ -79,8 +80,9 @@ Phases (each prints one line; any failure exits nonzero):
 
 10. `[rankfed]`: BASELINE config 5 as in phase 4 through
    ConflictSetRankFed (keys in a sorted host mirror, one int32 version
-   vector of 2^23 slots on the card, the kernel as torch ops): 12 batches
-   (cut from 24 to keep the whole run near 900 s) of 65,536 txns (converted to TxnConflictInfo lists first) through
+   vector of 2^23 slots on the card, the kernel as torch ops): 8 batches
+   (RANKFED_BATCHES; 24, then 12, before) of 65,536 txns (converted to
+   TxnConflictInfo lists first) through
    prepare/pack/resolve_async at depth 4, one GC round on the cadence;
    the first 2 also through ConflictSetRankFed(device="cpu"), statuses
    and the version vector equal; a ConflictSetCPU replays every batch,
@@ -103,12 +105,13 @@ Phases (each prints one line; any failure exits nonzero):
    each generation's four roles replayed per role, every team member of
    every shard answering the same get_range after the run.
 13. `[sim]`: the deterministic simulator (sim/, workloads/tester.py):
-   the 24 seeds of SIM_SEEDS from sim/config.generate_config as drawn
+   the 12 seeds of SIM_CHIP_SEEDS (the first 12 of SIM_SEEDS; 24 until
+   PR 9) from sim/config.generate_config as drawn
    (cluster shape, knobs, workload mix, buggify) through run_randomized
    on the card, ConflictSetGPU and KeyValueStoreGPU recruited wherever a
    seed draws them or keeps their "gpu" default; every seed replayed in
    a CPU worker process with the host backends pinned (ok, checks,
-   metrics and fingerprint equal), 4 seeds rerun (fingerprint and
+   metrics and fingerprint equal), 2 seeds rerun (fingerprint and
    coverage signature equal), specs/chaos_topology.json at seed 7 with
    both device backends forced, one seed profiled; each seed's device
    objects collected and device memory back in a band after it.
@@ -124,11 +127,30 @@ Phases (each prints one line; any failure exits nonzero):
    read back through the client equal to an independent record of the
    acknowledged writes; prints the boot's times to fully_recovered and
    to the first commit, rows restored, bytes on disk and device bytes.
-15. `[sim-durable]`: as [sim], the 17 seeds of SIM_DURABLE_SEEDS (memory
+15. `[sim-durable]`: as [sim], the 8 seeds of SIM_DURABLE_CHIP_SEEDS
+   (of SIM_DURABLE_SEEDS' 17 until PR 9; memory
    and ssd engines on temporary datadirs, regions, both sharded kinds)
    and three restart specs (specs/restart_cycle.json, specs/
    upgrade_cycle.json, a power-loss restart over the simulated disk),
    each against its CPU replay, 2 seeds rerun, one profiled.
+16. `[multiprocess]`: the deployed tier (cluster/multiprocess.py over
+   net/), BASELINE config 4's cluster shape as `configure double ssd`
+   (4 storage, double replication, ssd engine; 2 logs on 2 log hosts,
+   double log replication; 4 resolvers; shards and resolvers split at
+   rw_key(2^18), rw_key(2^19), rw_key(3 * 2^18)), every role host a
+   process of its own started as `server.py -r fdbd -c <class>` with its
+   own CUDA context, this script the client over multiprocess.connect.
+   Leg A: a 2^18-key load, config 1's ReadWrite from 256 clients to
+   2,000 acknowledged commits, a stale-snapshot pair, the C wire client;
+   every key read back against a VersionedMap of the acknowledged
+   writes; each process's device memory (nvidia-smi) and probe launches
+   (scraped over the metrics plane). Leg B: the resolver host's process
+   group SIGKILLed under traffic and a fresh one started, then the
+   storage host, whose windows cold-boot onto the card from the ssd
+   engine; every acknowledged write read back after each. Leg C: the
+   storage and resolver hosts in this process (the launch tap captures
+   the probe's operands), the logs and txn host as processes. Leg D: no
+   resolver class, the txn host's own conflict set on the card.
 
 Every run drives every phase, and logs each one's wall time
 (`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
@@ -142,7 +164,8 @@ storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
 cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage,
 recovery-resolver, recovery-storage, sharded-recovery-resolver,
 sim-resolver, sim-storage, durable-resolver, durable-storage,
-sim-durable-resolver, sim-durable-storage; and the rank-fed kernel,
+sim-durable-resolver, sim-durable-storage, multiprocess-resolver,
+multiprocess-storage; and the rank-fed kernel,
 route "torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -153,6 +176,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -178,6 +202,11 @@ GC_THRESHOLDS = (100_000, 50, 100)
 # these seeds' port run equal to the JAX package's on the CPU.
 SIM_SEEDS = (3, 11, 14, 17, 19, 21, 26, 29, 30, 33, 34, 38, 43, 46, 51, 53,
              54, 55, 62, 63, 66, 67, 69, 71)
+# The seeds the card runs since [multiprocess] joined the smoke: the first
+# 12 (cut from 24 to keep the whole run near 1,000 s; the CPU tests still
+# hold all 24), two of them rerun.
+SIM_CHIP_SEEDS = SIM_SEEDS[:12]
+SIM_CHIP_DETERMINISM_SEEDS = (17, 38)
 # The [sim-durable] phase's seeds: the first 16 of generate_config that
 # draw the durable tier (a memory or ssd storage engine on a datadir, or
 # regions), need no unported tier and pass on the JAX package on the CPU
@@ -187,6 +216,19 @@ SIM_SEEDS = (3, 11, 14, 17, 19, 21, 26, 29, 30, 33, 34, 38, 43, 46, 51, 53,
 # JAX package's on the CPU.
 SIM_DURABLE_SEEDS = (1, 6, 10, 12, 15, 18, 27, 35, 39, 42, 44, 45, 50, 58,
                      59, 65, 168)
+# The card's durable seeds since [multiprocess] joined the smoke (cut
+# from 17 for the run's time; the CPU tests still hold all 17): every ssd
+# seed (6, 39, 42), both sharded ones (27, 59) and three with regions (1,
+# 58, 168, the last on the memory engine).
+SIM_DURABLE_CHIP_SEEDS = (1, 6, 27, 39, 42, 58, 59, 168)
+# Depth cuts since [multiprocess] joined the smoke (PR 9): the whole run
+# took 886.42 s on one H100 80GB HBM3 at 700 W and 1,144.58 s, of its
+# 1,200 s limit, on another of the same card whose host ran every phase
+# slower (PERF.md). [full] ran 16 batches before, [rankfed] 12, and
+# [sharded-cluster] loaded 2^20 keys.
+FULL_BATCHES = 12
+RANKFED_BATCHES = 8
+SHARDED_CLUSTER_LOAD_KEYS = 1 << 18
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -2800,11 +2842,19 @@ DURABLE_TARGET = 2000
 DURABLE_CRASH_TARGET = 500
 
 
-def acked_read_write(writes: list):
+def acked_read_write(writes: list, timing: dict | None = None,
+                     maybe: list | None = None):
     """ReadWriteWorkload (config 1's mix) whose every committed write is
     also appended to `writes` as (commit version, order, key, value): the
     independent record of the acknowledged writes. It draws from the
-    loop's random stream exactly as ReadWriteWorkload does."""
+    loop's random stream exactly as ReadWriteWorkload does. With `timing`
+    ({"grv_ms": [], "commit_ms": [], "starts": [], "acks": []}) each
+    committed transaction's GRV and commit wall ms, and the wall instants
+    of its last attempt's start and of its acknowledgement, are recorded;
+    with `maybe`, the writes of an attempt whose commit ended in any error
+    but not_committed (1020) are appended as (key, value): such a commit
+    may or may not have committed, as when a killed process took its
+    reply (commit_unknown_result, 1021)."""
     from foundationdb_tpu_torch.core.runtime import current_loop
     from foundationdb_tpu_torch.workloads.read_write import ReadWriteWorkload
 
@@ -2815,22 +2865,38 @@ def acked_read_write(writes: list):
             t0 = loop.now()
             tr = self.db.create_transaction()
             while True:
+                sets = []
+                committing = False
                 try:
+                    if timing is not None:
+                        g0 = time.perf_counter()
+                        await tr.get_read_version()
+                        g1 = time.perf_counter()
                     for _ in range(self.reads_per_txn):
                         await tr.get(self._key(rng))
-                    sets = []
                     for _ in range(self.writes_per_txn):
                         k = self._key(rng)
                         v = b"v%d" % rng.random_int(0, 1 << 20)
                         tr.set(k, v)
                         sets.append((k, v))
+                    c0 = time.perf_counter()
+                    committing = True
                     version = await tr.commit()
                     break
                 except BaseException as e:  # noqa: BLE001 - as the base
+                    if (maybe is not None and committing
+                            and getattr(e, "code", 0) != 1020):
+                        maybe.extend(sets)
                     self.retries += 1
                     await tr.on_error(e)
             writes.extend((version, len(writes) + i, k, v)
                           for i, (k, v) in enumerate(sets))
+            if timing is not None:
+                c1 = time.perf_counter()
+                timing["grv_ms"].append((g1 - g0) * 1e3)
+                timing["commit_ms"].append((c1 - c0) * 1e3)
+                timing["starts"].append(g0)
+                timing["acks"].append(c1)
             self.txns_done += 1
             self.latency.add_sample(loop.now() - t0)
 
@@ -2838,12 +2904,20 @@ def acked_read_write(writes: list):
 
 
 def acked_state(loaded: list, writes: list) -> dict:
-    """The state the acknowledged writes leave: the loaded keys, then
-    every committed write in commit order."""
-    out = {k: b"v%d" % len(k) for k in loaded}
-    for _, _, k, v in sorted(writes):
-        out[k] = v
-    return out
+    """The state the acknowledged writes leave, through an independent
+    VersionedMap: the loaded keys, then every acknowledged write at its
+    commit version, read at the last version."""
+    from foundationdb_tpu_torch.kv.versioned_map import VersionedMap
+
+    vm = VersionedMap()
+    for k in loaded:
+        vm.set(k, b"v%d" % len(k), 1)
+    top = 1
+    for version, _, k, v in sorted(writes):
+        vm.set(k, v, version)
+        top = max(top, version)
+    keys = set(loaded) | {k for _, _, k, _ in writes}
+    return {k: vm.get(k, top) for k in sorted(keys)}
 
 
 def window_bytes(w) -> int:
@@ -3396,6 +3470,737 @@ def phase_sim_durable(rng, smi: str = "", device=None,
                      name="sim-durable")
 
 
+# ---------------------------------------------------------------- phase 16
+
+# [multiprocess]: the leg sizes. Leg A loads 2^18 of config 1's keys (as
+# [cluster]) in 1,000-key transactions, MP_LOADERS at a time, and runs
+# config 1's traffic from 256 clients to 2,000 acknowledged commits; each
+# leg-B run kills its class at MP_KILL_AT of MP_KILL_TARGET commits. The
+# load runs 4 transactions at a time: a batch of more makes the
+# controller's 0.6 s health probe (cluster/recovery.py) time out and
+# recover, and each recovery holds the load's in-flight commits for
+# COMMIT_TIMEOUT (20 s); multiprocess_load_bench.py measures the load by
+# concurrency (its times on an H100 are in PERF.md).
+MP_LOAD_KEYS = 1 << 18
+MP_LOADERS = 4
+MP_CLIENTS = 256
+MP_TARGET = 2000
+MP_KILL_TARGET = 500
+MP_KILL_AT = 150
+MP_C_LOAD_KEYS = 1 << 16
+MP_C_TARGET = 500
+MP_D_LOAD_KEYS = 1 << 14
+MP_D_TARGET = 300
+MP_C_CLIENT_SETS = 100
+MP_BOOT_S = 300.0
+MP_CLASSES = ("log0", "log1", "storage", "resolver", "txn")
+
+
+def mp_spec(key_space: int, ports: dict) -> dict:
+    """BASELINE config 4's cluster shape deployed as FoundationDB documents
+    a production cluster, `configure double ssd` (redundancy and storage
+    engine, documentation/sphinx/source/configuration.rst): 4 storage
+    servers in double replication on the ssd engine, 2 logs on 2 log hosts
+    with double log replication, 4 resolvers; storage shards and resolvers
+    split at rw_key of key_space/4, /2 and 3/4."""
+    bounds = [rw_key(key_space * q // 4).decode() for q in (1, 2, 3)]
+    return {"n_storage": 4, "replication": "double", "engine": "ssd",
+            "n_logs": 2, "n_log_hosts": 2, "log_replication": "double",
+            "n_resolvers": 4, "shard_boundaries": bounds,
+            "resolver_boundaries": bounds, "seed": 1, "ports": ports}
+
+
+def mp_free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class RoleHosts:
+    """The role hosts of one deployment as OS processes: `python -m
+    foundationdb_tpu_torch.server -r fdbd -c <class> --device <dev>`, each
+    in a session of its own (its process group is its machine: a kill
+    takes the group), its output in <root>/<class>.log."""
+
+    def __init__(self, root: Path, spec: dict, device):
+        from foundationdb_tpu_torch.cluster.multiprocess import (
+            write_cluster_file,
+        )
+
+        self.root = root
+        self.cf = str(root / "cluster.json")
+        self.device = "cuda" if device is None else str(device)
+        self.procs: dict = {}
+        write_cluster_file(self.cf, {"spec": spec})
+
+    def start(self, cls: str):
+        with open(self.root / f"{cls}.log", "ab") as out:
+            self.procs[cls] = subprocess.Popen(
+                [sys.executable, "-m", "foundationdb_tpu_torch.server",
+                 "-r", "fdbd", "-c", cls, "-C", self.cf,
+                 "-d", str(self.root / "data" / cls),
+                 "--device", self.device],
+                cwd=str(Path(__file__).resolve().parent), stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        return self.procs[cls]
+
+    def tail(self, cls: str) -> str:
+        return (self.root / f"{cls}.log").read_text(errors="replace")[-3000:]
+
+    def info(self) -> dict:
+        from foundationdb_tpu_torch.cluster.multiprocess import (
+            read_cluster_file,
+        )
+
+        return read_cluster_file(self.cf) or {}
+
+    def wait_for(self, keys, timeout_s: float = MP_BOOT_S) -> dict:
+        """The cluster file once every key in `keys` is there; fails if a
+        host exits first or the deadline passes."""
+        deadline = time.perf_counter() + timeout_s
+        while True:
+            info = self.info()
+            if all(k in info for k in keys):
+                return info
+            for cls, p in self.procs.items():
+                if p.poll() is not None:
+                    fail(f"multiprocess: the {cls} host exited "
+                         f"rc={p.returncode}:\n{self.tail(cls)}")
+            if time.perf_counter() > deadline:
+                fail(f"multiprocess: {sorted(set(keys) - set(info))} not "
+                     f"up after {timeout_s:.0f} s")
+            time.sleep(0.1)
+
+    def kill(self, cls: str) -> None:
+        """SIGKILL of the class's process group: the machine dies."""
+        import signal
+
+        p = self.procs[cls]
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait(timeout=60)
+
+    def stop(self) -> None:
+        import signal
+
+        for p in self.procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGTERM)
+            except (ProcessLookupError, PermissionError):
+                pass
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+
+
+def device_used_mib() -> float:
+    """The card's memory in use, MiB, over every process (nvidia-smi
+    --query-gpu=memory.used); 0 where there is no card."""
+    import shutil
+
+    if shutil.which("nvidia-smi") is None:
+        return 0.0
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+    return float(out[0]) if out else 0.0
+
+
+def await_device_freed(before: float, least_mib: float,
+                       timeout_s: float = 10.0) -> float:
+    """The card's memory in use once it is `least_mib` below `before`
+    (a killed process's context released), or at the deadline."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        now = device_used_mib()
+        if before - now >= least_mib or time.perf_counter() > deadline:
+            return now
+        time.sleep(0.05)
+
+
+async def mp_rpc(transport, addr: str, token: int, req,
+                 timeout_s: float = 30.0):
+    """One request to a role host's well-known endpoint."""
+    from foundationdb_tpu_torch.core.actors import timeout_error
+
+    transport.remote_stream(addr, token).send(req)
+    return await timeout_error(req.reply.future, timeout_s)
+
+
+async def mp_metric(transport, addrs: dict, name: str) -> dict:
+    """{class: [(labels, value)]} of the metric `name` in each host's
+    MetricRegistry, scraped over WLTOKEN_METRICS."""
+    from foundationdb_tpu_torch.cluster.multiprocess import (
+        WLTOKEN_METRICS,
+        MetricsRequest,
+    )
+
+    out = {}
+    for cls, addr in addrs.items():
+        rep = await mp_rpc(transport, addr, WLTOKEN_METRICS,
+                           MetricsRequest(pattern=name))
+        out[cls] = [(m["labels"], m["value"]) for m in rep["metrics"]
+                    if m["name"] == name]
+    return out
+
+
+async def mp_device(transport, addrs: dict) -> dict:
+    """{class: (CUDA contexts, caching-allocator bytes reserved)} of each
+    host's process, from its device gauges."""
+    ctx = await mp_metric(transport, addrs, "device.contexts_count")
+    res = await mp_metric(transport, addrs, "device.memory_reserved_bytes")
+    return {cls: (int(sum(v for _, v in ctx[cls])),
+                  int(sum(v for _, v in res[cls]))) for cls in addrs}
+
+
+async def mp_launches(transport, addrs: dict) -> dict:
+    """The probe's launches in each host's process (its gauge
+    probe.launches_total, the kernel wrapper's count)."""
+    got = await mp_metric(transport, addrs, "probe.launches_total")
+    return {cls: int(sum(v for _, v in vals)) for cls, vals in got.items()}
+
+
+async def mp_traffic(db, key_space: int, clients: int, target: int,
+                     writes: list, timing: dict, maybe: list, during=None):
+    """Config 1's ReadWrite from `clients` clients until `target`
+    acknowledged commits, acknowledged writes into `writes`; `during(rw)`
+    runs beside it; a transaction that cannot reach a host is run again
+    (counted in rw.connection_failures). Returns (workload, wall s)."""
+    from foundationdb_tpu_torch.core.errors import ConnectionFailed
+    from foundationdb_tpu_torch.core.runtime import current_loop, spawn
+
+    rw = acked_read_write(writes, timing, maybe)(
+        db, key_space=key_space, reads_per_txn=5, writes_per_txn=2)
+
+    async def client():
+        while rw.txns_done < target:
+            try:
+                await rw._one()
+            except ConnectionFailed:
+                # the client library does not retry a host it cannot
+                # reach (a killed storage host): the application does
+                rw.connection_failures += 1
+                await current_loop().delay(0.05)
+
+    t0 = time.perf_counter()
+    rw.connection_failures = 0
+    tasks = [spawn(client(), name=f"mp_client_{i}") for i in range(clients)]
+    if during is not None:
+        tasks.append(spawn(during(rw), name="mp_during"))
+    for t in tasks:
+        await t.done
+    return rw, time.perf_counter() - t0
+
+
+async def mp_read_back(db, want: dict, maybe: list, leg: str,
+                       parts: int = 64) -> tuple:
+    """Every key of `want` read over the wire in `parts` range reads
+    (plus the C client's keys) and held against it; a key a
+    commit_unknown_result attempt wrote may also hold that attempt's
+    value. Returns (rows, seconds, keys a maybe-write touched)."""
+    t0 = time.perf_counter()
+    ks = sorted(want)
+    step = max(1, len(ks) // parts)
+    edges = sorted({b"" , *ks[step::step]}) + [b"\xff"]
+    got = []
+    for b, e in zip(edges, edges[1:]):
+        async def body(tr, b=b, e=e):
+            return await tr.get_range(b, e)
+
+        got += await db.transact(body)
+    secs = time.perf_counter() - t0
+    alt: dict = {}
+    for k, v in maybe:
+        alt.setdefault(k, set()).add(v)
+    have = dict(got)
+    bad = [k for k in set(have) | set(want)
+           if have.get(k) != want.get(k)
+           and not (k in alt and have.get(k) in alt[k])]
+    if bad:
+        k = sorted(bad)[0]
+        fail(f"multiprocess {leg}: {len(bad)} keys differ from the "
+             f"acknowledged writes ({len(got)} rows read, {len(want)} "
+             f"wanted; first {k!r}: read {have.get(k)!r}, acked "
+             f"{want.get(k)!r})")
+    return len(got), secs, len(set(alt) & set(have))
+
+
+def phase_multiprocess(rng, smi: str = "", device=None,
+                       key_space: int = 1 << 20,
+                       load_keys: int = MP_LOAD_KEYS,
+                       loaders: int = MP_LOADERS,
+                       clients: int = MP_CLIENTS, target: int = MP_TARGET,
+                       kill_target: int = MP_KILL_TARGET,
+                       kill_at: int = MP_KILL_AT,
+                       c_load_keys: int = MP_C_LOAD_KEYS,
+                       c_target: int = MP_C_TARGET,
+                       d_load_keys: int = MP_D_LOAD_KEYS,
+                       d_target: int = MP_D_TARGET):
+    """The deployed multi-process tier (cluster/multiprocess.py over
+    net/): mp_spec's deployment, every role host a CUDA context of its own
+    on the card, the smoke the client over multiprocess.connect on a
+    real-clock loop of its own. Datadirs under a temporary directory,
+    removed at the end; every host process stopped.
+
+    - leg A: log0, log1, storage, resolver and txn as OS processes.
+      `load_keys` of config 1's keys loaded in 1,000-key transactions,
+      ReadWrite from `clients` clients to `target` acknowledged commits, a
+      stale-snapshot pair (the second must conflict), then the C wire
+      client against the txn host (100 sets committed, then read back).
+      Every loaded and acknowledged key read back over the wire against a
+      VersionedMap of the acknowledged writes. Prints commits per wall
+      second, client-side commit and GRV latency p50/p99, the proxy's
+      stages (TxnStatusRequest), each remote resolver's pipeline
+      (ResolverStatusRequest), and each process's device use from its
+      gauges over the metrics plane: its CUDA context and caching-
+      allocator bytes (the storage, resolver and txn processes hold
+      some, the logs none) and its probe launches (probe.launches_total,
+      before and after the traffic); and the card's memory in use before
+      and after the hosts start (nvidia-smi inside a container does not
+      map memory to processes).
+    - leg B, the same cluster: ReadWrite to `kill_target` commits with the
+      resolver host's process group SIGKILLed at `kill_at` and a fresh
+      one started (ms from the kill to the first acknowledged commit of
+      a transaction begun after it; the card's memory the kill returned);
+      then again with the storage host killed and restarted on its
+      datadir, its four windows cold-booted from the ssd engine onto the
+      card (ms to its first served read, rows restored, compactions per
+      window). Every acknowledged write read back after each.
+    - leg C, a new cluster: log0, log1 and txn as OS processes, the
+      storage and resolver hosts in this process on its loop and
+      transport, registered and published as run_role_host does;
+      `c_load_keys` loaded, `c_target` commits, read back. The launch tap
+      captures the probe's last operands on both.
+    - leg D, a new cluster with no resolver class (log0, log1, storage,
+      txn): the txn host recruits its conflict set in its own process;
+      `d_load_keys`, `d_target` commits, read back; the txn process's
+      probe launches during the traffic must be positive.
+
+    Returns the probe's paths (multiprocess-resolver, multiprocess-
+    storage), with leg A's launches in the resolver and storage processes
+    during the traffic."""
+    import shutil
+    import tempfile
+
+    import torch
+    from foundationdb_tpu_torch.cluster import multiprocess as mp
+    from foundationdb_tpu_torch.core.errors import NotCommitted
+    from foundationdb_tpu_torch.core.runtime import current_loop, loop_context
+    from foundationdb_tpu_torch.net.transport import real_loop_with_transport
+    from foundationdb_tpu_torch.storage_engine import _native
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+    keys = load_key_set(key_space, load_keys)
+    tmp = Path(tempfile.mkdtemp(prefix="fdbtpu_multiprocess_"))
+    hosts_all = []
+
+    def new_hosts(name: str, classes, extra_ports=None) -> RoleHosts:
+        root = tmp / name
+        root.mkdir()
+        ports = dict(zip(classes, mp_free_ports(len(classes))))
+        ports.update(extra_ports or {})
+        h = RoleHosts(root, mp_spec(key_space, ports), device)
+        hosts_all.append(h)
+        return h
+
+    try:
+        # ---------------------------------------------------- leg A
+        hosts = new_hosts("a", MP_CLASSES)
+        used0 = device_used_mib()
+        t0 = time.perf_counter()
+        for cls in MP_CLASSES:
+            hosts.start(cls)
+        info = hosts.wait_for(MP_CLASSES)
+        boot_s = time.perf_counter() - t0
+        used_up = device_used_mib()
+        addrs = {c: info[c] for c in MP_CLASSES}
+        writes, maybe = [], []
+        timing = {"grv_ms": [], "commit_ms": [], "starts": [],
+                  "acks": []}
+        loop, transport = real_loop_with_transport()
+        with loop_context(loop):
+            db = mp.connect(transport, hosts.cf)
+
+            async def leg_a():
+                t0 = time.perf_counter()
+                await load_through_client(db, keys, loaders)
+                load_s = time.perf_counter() - t0
+                l0 = await mp_launches(transport, addrs)
+                rw, rw_s = await mp_traffic(db, key_space, clients, target,
+                                            writes, timing, maybe)
+                l1 = await mp_launches(transport, addrs)
+                k = rw_key(key_space // 2 + 1)
+                tr1, tr2 = db.create_transaction(), db.create_transaction()
+                await tr1.get(k)
+                await tr2.get(k)
+                tr1.set(k, b"stale/1")
+                v = await tr1.commit()
+                writes.append((v, len(writes), k, b"stale/1"))
+                tr2.set(k, b"stale/2")
+                try:
+                    await tr2.commit()
+                    fail("multiprocess: a stale-snapshot commit committed")
+                except NotCommitted:
+                    pass
+                pipes = [
+                    (await mp_rpc(transport, addrs["resolver"],
+                                  mp.WLTOKEN_RESOLVER_BASE,
+                                  mp.ResolverStatusRequest(i)))[2]
+                    for i in range(4)
+                ]
+                st = await mp_rpc(transport, addrs["txn"],
+                                  mp.WLTOKEN_TXN_STATUS,
+                                  mp.TxnStatusRequest())
+                devs = await mp_device(transport, addrs)
+                health = {}
+                for c, a in addrs.items():
+                    evs = (await mp_rpc(transport, a, mp.WLTOKEN_TRACE,
+                                        mp.TraceEventsRequest(
+                                            min_severity=30)))["events"]
+                    health[c] = {
+                        "sev40": sum(e.get("Severity", 0) >= 40
+                                     for e in evs),
+                        "slow_tasks": sum(e["Type"] == "SlowTask"
+                                          for e in evs),
+                        "sev30": len(evs)}
+                return load_s, rw, rw_s, l0, l1, pipes, st, devs, health
+
+            load_s, rw, rw_s, l0, l1, pipes, st, devs, health = loop.run(
+                leg_a(), timeout_sim_seconds=1800)
+            # The C wire client: no Python on its side of the socket.
+            lib = _native.load_c_client()
+            host, port = addrs["txn"].rsplit(":", 1)
+            h = lib.fdbc_connect(host.encode(), int(port))
+            if not h:
+                fail("multiprocess: the C client could not connect")
+            import ctypes
+
+            t_c = time.perf_counter()
+            try:
+                for i in range(MP_C_CLIENT_SETS):
+                    ck, cval = b"cc/%03d" % i, b"c%d" % (i * 7)
+                    rv = lib.fdbc_get_read_version(h)
+                    lib.fdbc_tr_set(h, ck, len(ck), cval, len(cval))
+                    cv = lib.fdbc_commit(h, rv, None, 0)
+                    if rv < 0 or cv <= 0:
+                        fail(f"multiprocess: C client commit {i}: rv {rv} "
+                             f"cv {cv} error {lib.fdbc_last_error(h)}")
+                    writes.append((cv, len(writes), ck, cval))
+                rv = lib.fdbc_get_read_version(h)
+                out, ln = ctypes.c_void_p(), ctypes.c_uint32()
+                for i in range(MP_C_CLIENT_SETS):
+                    ck = b"cc/%03d" % i
+                    st_c = lib.fdbc_get(h, ck, len(ck), rv,
+                                        ctypes.byref(out), ctypes.byref(ln))
+                    if st_c != 1 or ctypes.string_at(out, ln.value) != \
+                            b"c%d" % (i * 7):
+                        fail(f"multiprocess: C client read {i}: {st_c}")
+            finally:
+                lib.fdbc_destroy(h)
+            c_s = time.perf_counter() - t_c
+            want = acked_state(keys, writes)
+            n_rows, rb_s, n_maybe = loop.run(
+                mp_read_back(db, want, maybe, "A"), timeout_sim_seconds=600)
+        pids = {c: hosts.procs[c].pid for c in MP_CLASSES}
+        launches = {c: l1[c] - l0[c] for c in MP_CLASSES}
+        stages = (st.get("proxy") or {}).get("commit_pipeline", {})
+        log("multiprocess-a", smi=json.dumps(smi), boot_s=f"{boot_s:.2f}",
+            keys=len(keys), load_s=f"{load_s:.2f}",
+            keys_per_wall_s=f"{len(keys) / load_s:.1f}",
+            committed=rw.txns_done, retries=rw.retries, rw_s=f"{rw_s:.2f}",
+            committed_per_wall_s=f"{rw.txns_done / rw_s:.1f}",
+            commit_ms_p50=pct(timing["commit_ms"], 50),
+            commit_ms_p99=pct(timing["commit_ms"], 99),
+            grv_ms_p50=pct(timing["grv_ms"], 50),
+            grv_ms_p99=pct(timing["grv_ms"], 99),
+            c_client_sets=MP_C_CLIENT_SETS, c_client_s=f"{c_s:.2f}",
+            read_back_rows=n_rows, read_back_s=f"{rb_s:.2f}",
+            read_back_equal=True, maybe_committed_keys=n_maybe)
+        # SIGPROF (the role hosts' sampling profiler, every 20 ms) inside
+        # processes that hold a CUDA context: errors and slow tasks per
+        # host, and interrupted system calls in their output
+        interrupted = {
+            c: (hosts.root / f"{c}.log").read_text(errors="replace").count(
+                "Interrupted system call") for c in MP_CLASSES}
+        log("multiprocess-a-health", smi=json.dumps(smi),
+            trace=json.dumps(health), eintr=json.dumps(interrupted))
+        log("multiprocess-a-proxy", smi=json.dumps(smi),
+            stages=json.dumps(stages.get("stages")),
+            max_in_flight=stages.get("max_in_flight_measured"))
+        for i, pipe in enumerate(pipes):
+            log("multiprocess-a-resolver", smi=json.dumps(smi), idx=i,
+                stages=json.dumps(pipe.get("stages")),
+                max_in_flight=pipe.get("max_in_flight_measured"))
+        log("multiprocess-a-processes", smi=json.dumps(smi),
+            pids=json.dumps(pids),
+            cuda_contexts=json.dumps({c: d[0] for c, d in devs.items()}),
+            reserved_mib=json.dumps({c: round(d[1] / 2**20, 3)
+                                     for c, d in devs.items()}),
+            hosts_device_mib=f"{used_up - used0:.0f}",
+            device_used_mib=f"{used_up:.0f}",
+            probe_launches=json.dumps(launches))
+        if card:
+            for c in ("storage", "resolver", "txn"):
+                if devs[c][0] != 1 or devs[c][1] <= 0:
+                    fail(f"multiprocess: the {c} process holds no device "
+                         f"memory: {devs[c]}")
+            for c in ("log0", "log1"):
+                if devs[c] != (0, 0):
+                    fail(f"multiprocess: the {c} process holds device "
+                         f"memory: {devs[c]}")
+            if used_up - used0 < 3 * 100:
+                fail(f"multiprocess: the hosts hold {used_up - used0} MiB "
+                     "of the card")
+            for c in ("storage", "resolver"):
+                if launches[c] <= 0:
+                    fail(f"multiprocess: the probe never launched in the {c}"
+                         " process during the traffic")
+
+        # ---------------------------------------------------- leg B
+        def leg_b(kill_cls: str):
+            stamps = {}
+            timing_b = {"grv_ms": [], "commit_ms": [], "starts": [],
+                  "acks": []}
+
+            async def during(rw):
+                while rw.txns_done < kill_at:
+                    await current_loop().delay(0.01)
+                stamps["used_before"] = device_used_mib()
+                stamps["kill"] = time.perf_counter()
+                stamps["kill_wall"] = time.time()
+                hosts.kill(kill_cls)
+                stamps["used_killed"] = (await_device_freed(
+                    stamps["used_before"], 100.0) if card else 0.0)
+                hosts.start(kill_cls)
+                stamps["spawn"] = time.perf_counter()
+                if kill_cls == "storage":
+                    from foundationdb_tpu_torch.core.errors import (
+                        ConnectionFailed,
+                    )
+
+                    while True:
+                        try:
+                            await db.get(keys[0])
+                            break
+                        except ConnectionFailed:
+                            await current_loop().delay(0.01)
+                    stamps["first_read"] = time.perf_counter()
+
+            loop, transport = real_loop_with_transport()
+            with loop_context(loop):
+                db = mp.connect(transport, hosts.cf)
+                n0 = len(writes)
+                rw, rw_s = loop.run(mp_traffic(
+                    db, key_space, clients, kill_target, writes, timing_b,
+                    maybe, during), timeout_sim_seconds=1800)
+                want = acked_state(keys, writes)
+                n_rows, rb_s, n_maybe = loop.run(
+                    mp_read_back(db, want, maybe, f"B-{kill_cls}"),
+                    timeout_sim_seconds=600)
+                extra = {}
+                if kill_cls == "storage":
+                    saddr = {"storage": addrs["storage"]}
+                    restored = loop.run(mp_rpc(
+                        transport, addrs["storage"], mp.WLTOKEN_TRACE,
+                        mp.TraceEventsRequest(
+                            event_type="StorageDurableRestored")),
+                        timeout_sim_seconds=60)["events"]
+                    comps = loop.run(mp_metric(
+                        transport, saddr, "storage.gpu.compactions"),
+                        timeout_sim_seconds=60)["storage"]
+                    rows = {e["Tag"]: e["Rows"] for e in restored}
+                    # the window's first compaction is its construction's
+                    per_window = {lbl.get("tag"): int(v) - 1
+                                  for lbl, v in comps}
+                    extra = dict(
+                        kill_to_first_read_ms=f"{(stamps['first_read'] - stamps['kill']) * 1e3:.2f}",
+                        spawn_to_first_read_ms=f"{(stamps['first_read'] - stamps['spawn']) * 1e3:.2f}",
+                        rows_restored=json.dumps(rows),
+                        compactions_per_window=json.dumps(per_window))
+                    if len(rows) != 4 or sum(rows.values()) == 0:
+                        fail(f"multiprocess: storage restored {rows}")
+                    if card and any(c < 1 for c in per_window.values()):
+                        fail("multiprocess: a restored window never "
+                             f"rebuilt: {per_window}")
+                # the first commit of a transaction begun after the kill
+                devs_b = loop.run(mp_device(transport, addrs),
+                                  timeout_sim_seconds=60)
+                # the txn host's first recovery completed after the kill
+                # (trace times are wall-clock UNIX times on real loops)
+                recovered = [e["Time"] for e in loop.run(mp_rpc(
+                    transport, addrs["txn"], mp.WLTOKEN_TRACE,
+                    mp.TraceEventsRequest(event_type="RecoveryComplete")),
+                    timeout_sim_seconds=60)["events"]
+                    if e["Time"] > stamps["kill_wall"]]
+                acks = sorted(a for g, a in zip(timing_b["starts"],
+                                                timing_b["acks"])
+                              if g > stamps["kill"])
+                if not acks:
+                    fail(f"multiprocess: no commit after the {kill_cls} "
+                         "kill")
+            freed = stamps["used_before"] - stamps["used_killed"]
+            log("multiprocess-b", smi=json.dumps(smi), killed=kill_cls,
+                committed=rw.txns_done, retries=rw.retries,
+                connection_failures=rw.connection_failures,
+                rw_s=f"{rw_s:.2f}",
+                kill_to_recovered_ms=(
+                    f"{(min(recovered) - stamps['kill_wall']) * 1e3:.2f}"
+                    if recovered else "none"),
+                kill_to_next_commit_ms=f"{(acks[0] - stamps['kill']) * 1e3:.2f}",
+                spawn_to_next_commit_ms=f"{(acks[0] - stamps['spawn']) * 1e3:.2f}",
+                writes_acked=len(writes) - n0, read_back_rows=n_rows,
+                read_back_s=f"{rb_s:.2f}", read_back_equal=True,
+                maybe_committed_keys=n_maybe, **extra,
+                device_used_before_kill_mib=f"{stamps['used_before']:.0f}",
+                device_freed_by_kill_mib=f"{freed:.0f}",
+                device_used_after_mib=f"{device_used_mib():.0f}",
+                new_process=json.dumps(devs_b[kill_cls]))
+            if card and freed < 100:
+                fail(f"multiprocess: the {kill_cls} kill returned {freed} "
+                     "MiB to the card")
+            if card and (devs_b[kill_cls][0] != 1
+                         or devs_b[kill_cls][1] <= 0):
+                fail(f"multiprocess: the new {kill_cls} process holds no "
+                     f"device memory: {devs_b[kill_cls]}")
+
+        leg_b("resolver")
+        leg_b("storage")
+        hosts.stop()
+
+        # ---------------------------------------------------- leg C
+        loop, transport = real_loop_with_transport()
+        port_c = int(transport.local_address.rsplit(":", 1)[1])
+        hosts = new_hosts("c", ("log0", "log1", "txn"),
+                          {"storage": port_c, "resolver": port_c})
+        spec = hosts.info()["spec"]
+        for cls in ("log0", "log1", "txn"):
+            hosts.start(cls)
+        info = hosts.wait_for(("log0", "log1"))
+        c_keys = load_key_set(key_space, c_load_keys)
+        writes_c, maybe_c = [], []
+        timing_c = {"grv_ms": [], "commit_ms": [], "starts": [],
+                  "acks": []}
+        with loop_context(loop), ProbeTap() as tap:
+            stopped = []
+            storage = mp.StorageHost(
+                transport, str(hosts.root / "data" / "storage"), spec,
+                [info["log0"], info["log1"]], cluster_file=hosts.cf,
+                device=device)
+            resolver = mp.ResolverHost(transport, spec, device=device)
+            regs = [mp.start_worker_registration(
+                transport, hosts.cf, cls, cls, lambda: bool(stopped))
+                for cls in ("storage", "resolver")]
+            mp.write_cluster_file(hosts.cf, {
+                "storage": transport.local_address,
+                "resolver": transport.local_address})
+
+            async def leg_c():
+                deadline = time.perf_counter() + MP_BOOT_S
+                while "txn" not in hosts.info():
+                    if time.perf_counter() > deadline:
+                        fail("multiprocess C: the txn host never recovered")
+                    await current_loop().delay(0.1)
+                db = mp.connect(transport, hosts.cf)
+                await load_through_client(db, c_keys, loaders)
+                rw, rw_s = await mp_traffic(db, key_space, clients,
+                                            c_target, writes_c, timing_c,
+                                            maybe_c)
+                got = await mp_read_back(
+                    db, acked_state(c_keys, writes_c), maybe_c, "C")
+                return rw, rw_s, got
+
+            rw, rw_s, (n_rows, rb_s, n_maybe) = loop.run(
+                leg_c(), timeout_sim_seconds=1800)
+            stopped.append(True)
+            for r in regs:
+                r.cancel()
+            storage.stop()
+            resolver.stop()
+            paths = tap.paths(**{"multiprocess-resolver": "resolver",
+                                 "multiprocess-storage": "storage"})
+            tap.to_host()
+            tap_launches = dict(tap.launches)
+        transport.close()
+        loop.shutdown()
+        log("multiprocess-c", smi=json.dumps(smi), keys=len(c_keys),
+            committed=rw.txns_done, rw_s=f"{rw_s:.2f}",
+            committed_per_wall_s=f"{rw.txns_done / rw_s:.1f}",
+            read_back_rows=n_rows, read_back_equal=True,
+            maybe_committed_keys=n_maybe,
+            probe_resolver=tap_launches["resolver"],
+            probe_storage=tap_launches["storage"])
+        if card and min(tap_launches.values()) <= 0:
+            fail(f"multiprocess C: the probe launches {tap_launches}")
+        hosts.stop()
+
+        # ---------------------------------------------------- leg D
+        classes_d = ("log0", "log1", "storage", "txn")
+        hosts = new_hosts("d", classes_d)
+        for cls in classes_d:
+            hosts.start(cls)
+        info = hosts.wait_for(classes_d)
+        d_keys = load_key_set(key_space, d_load_keys)
+        writes_d, maybe_d = [], []
+        timing_d = {"grv_ms": [], "commit_ms": [], "starts": [],
+                  "acks": []}
+        addrs_d = {c: info[c] for c in classes_d}
+        loop, transport = real_loop_with_transport()
+        with loop_context(loop):
+            db = mp.connect(transport, hosts.cf)
+
+            async def leg_d():
+                await load_through_client(db, d_keys, loaders)
+                l0 = await mp_launches(transport, addrs_d)
+                rw, rw_s = await mp_traffic(db, key_space, clients,
+                                            d_target, writes_d, timing_d,
+                                            maybe_d)
+                l1 = await mp_launches(transport, addrs_d)
+                got = await mp_read_back(
+                    db, acked_state(d_keys, writes_d), maybe_d, "D")
+                return rw, rw_s, l0, l1, got
+
+            rw, rw_s, l0, l1, (n_rows, _, _) = loop.run(
+                leg_d(), timeout_sim_seconds=1800)
+        transport.close()
+        loop.shutdown()
+        launches_d = {c: l1[c] - l0[c] for c in classes_d}
+        log("multiprocess-d", smi=json.dumps(smi),
+            committed=rw.txns_done, rw_s=f"{rw_s:.2f}",
+            committed_per_wall_s=f"{rw.txns_done / rw_s:.1f}",
+            read_back_rows=n_rows, read_back_equal=True,
+            probe_launches=json.dumps(launches_d))
+        if card and launches_d["txn"] <= 0:
+            fail("multiprocess D: the probe never launched in the txn "
+                 "process's own conflict set")
+        hosts.stop()
+    finally:
+        for h in hosts_all:
+            h.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, cls in (("multiprocess-resolver", "resolver"),
+                      ("multiprocess-storage", "storage")):
+        paths[name]["launches"] = launches[cls]
+        for k, t in paths[name].items():
+            if isinstance(t, torch.Tensor):
+                paths[name][k] = t.to(dev)
+    log("multiprocess", smi=json.dumps(smi), load_keys=load_keys,
+        key_space=key_space, phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    return paths
+
+
 def probe_entries(paths: dict, smi: str, base: dict) -> list:
     """The probe held against its plain version on each path's last
     operands, timed, with its bound: one kernel-table entry each. The
@@ -3475,7 +4280,8 @@ def main() -> int:
     phase_wall("probe")
     phase_narrow(rng)
     phase_wall("narrow")
-    launches, cap, full_rate = phase_full(rng, card, smi)
+    launches, cap, full_rate = phase_full(rng, card, smi,
+                                          n_batches=FULL_BATCHES)
     # The probe held against its plain version on the main path's
     # inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
@@ -3515,10 +4321,14 @@ def main() -> int:
     for name, phase in (("cluster", phase_cluster),
                         ("sharded", phase_sharded),
                         ("cluster-sharded", phase_cluster_sharded),
-                        ("sharded-cluster", phase_sharded_cluster)):
+                        ("sharded-cluster", lambda rng, smi:
+                         phase_sharded_cluster(
+                             rng, smi,
+                             load_keys=SHARDED_CLUSTER_LOAD_KEYS))):
         kernels += probe_entries(phase(rng, smi), smi, base)
         phase_wall(name)
-    entry, rankfed_check = phase_rankfed(rng, smi, full_txns_per_s=full_rate)
+    entry, rankfed_check = phase_rankfed(rng, smi, full_txns_per_s=full_rate,
+                                         n_batches=RANKFED_BATCHES)
     kernels.append(entry)
     phase_wall("rankfed")
     for name, phase in (("recovery", phase_recovery),
@@ -3527,12 +4337,17 @@ def main() -> int:
         phase_wall(name)
     rankfed_check()
     phase_wall("rankfed-check")
-    kernels += probe_entries(phase_sim(rng, smi), smi, base)
+    kernels += probe_entries(phase_sim(
+        rng, smi, seeds=SIM_CHIP_SEEDS,
+        det_seeds=SIM_CHIP_DETERMINISM_SEEDS), smi, base)
     phase_wall("sim")
     kernels += probe_entries(phase_durable(rng, smi), smi, base)
     phase_wall("durable")
-    kernels += probe_entries(phase_sim_durable(rng, smi), smi, base)
+    kernels += probe_entries(phase_sim_durable(
+        rng, smi, seeds=SIM_DURABLE_CHIP_SEEDS), smi, base)
     phase_wall("sim-durable")
+    kernels += probe_entries(phase_multiprocess(rng, smi), smi, base)
+    phase_wall("multiprocess")
     log("smoke", wall_s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

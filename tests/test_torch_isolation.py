@@ -1,7 +1,8 @@
 """The port stands alone: nothing under foundationdb_tpu_torch/ and nothing
-in its scripts chip_smoke.py and probe_bench.py imports jax, jaxlib or the
-JAX package foundationdb_tpu (not even its pure-numpy modules), and
-importing every module of the port loads none of them."""
+in its scripts chip_smoke.py, probe_bench.py and multiprocess_load_bench.py
+imports jax, jaxlib or the JAX package foundationdb_tpu (not even its
+pure-numpy modules), and importing every module of the port loads none
+of them."""
 
 import ast
 import pkgutil
@@ -17,7 +18,8 @@ FORBIDDEN = {"jax", "jaxlib", "foundationdb_tpu"}
 
 def port_sources():
     return sorted((ROOT / "foundationdb_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "probe_bench.py"
+        ROOT / "chip_smoke.py", ROOT / "probe_bench.py",
+        ROOT / "multiprocess_load_bench.py",
     ]
 
 
@@ -44,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke, probe_bench\n"
+        "import chip_smoke, probe_bench, multiprocess_load_bench\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"

@@ -109,11 +109,46 @@ def test_cpu_entry_point_refuses_the_durable_tier(tmp_path):
     assert "[sim seed 3] ok=True" in p.stderr
 
 
+def _fdbd_serves_until_sigterm() -> None:
+    """`-r fdbd --device cpu` (the in-process cluster on a real-clock
+    loop) announces that it serves, and ends on SIGTERM."""
+    import signal
+    import threading
+
+    p = subprocess.Popen(
+        [sys.executable, "-m", "foundationdb_tpu_torch.server", "-r", "fdbd",
+         "--device", "cpu"],
+        cwd=ROOT, stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+    serving = threading.Event()
+
+    def watch():
+        for line in p.stderr:
+            if "cluster serving" in line:
+                serving.set()
+
+    threading.Thread(target=watch, daemon=True).start()
+    try:
+        assert serving.wait(timeout=120), "fdbd never announced serving"
+        assert p.poll() is None
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=60) == -signal.SIGTERM
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+
+
 @pytest.mark.parametrize("role", ["fdbd", "cli"])
 def test_deployed_roles_name_item_8(role):
+    """The deployed tier is ported (ROADMAP Queue 1 item 8): fdbd serves;
+    the operator shell waits for the backup tier, item 9."""
+    if role == "fdbd":
+        _fdbd_serves_until_sigterm()
+        return
     p = run_server("-r", role)
     assert p.returncode == 2
-    assert "ROADMAP Queue 1 item 8" in p.stderr
+    assert "ROADMAP Queue 1 item 9" in p.stderr
 
 
 def test_entry_point_validates_the_backend_knob_eagerly():
