@@ -20,7 +20,7 @@ Phases (each prints one line; any failure exits nonzero):
 4. full width, BASELINE config 5 (sliding MVCC window): uniform 8-byte
    keys over 2^20, 5 point reads + 2 point writes per txn, 65,536 txns per
    batch, version step 65,536, GC horizon version - 131,072, a 2^21-slot
-   state. 12 batches (FULL_BATCHES; 24, then 16, before) through
+   state. 8 batches (FULL_BATCHES; 24, 16, then 12, before) through
    submit/verdicts at depth 4; the first 2 also through
    ConflictSetGPU(device="cpu"), statuses and entries() equal. The
    probe's launch count is reset just before and read just after this run
@@ -42,7 +42,8 @@ Phases (each prints one line; any failure exits nonzero):
    through the client in 1,000-key transactions (cut from 2^20 to keep
    the whole run inside its time: phase 9 loads the full 2^20), then
    ReadWriteWorkload (5 reads, 2 writes per txn, uniform keys over 2^20)
-   from 1,024 clients until 10,000 txns have committed. Every resolve
+   from 1,024 clients until 5,000 txns have committed (CONFIG1_CHIP_TARGET;
+   10,000 before the backup phases joined the run). Every resolve
    batch's verdicts are replayed through a fresh ConflictSetCPU in a
    process of its own, fed while the cluster runs (and entries()
    compared),
@@ -72,16 +73,16 @@ Phases (each prints one line; any failure exits nonzero):
    replication="double", n_resolvers=4), storage shards and resolvers
    split at rw_key(2^18), rw_key(2^19) and rw_key(3 * 2^18), under
    config 1 (a 2^18-key load, SHARDED_CLUSTER_LOAD_KEYS, 2^20 until PR
-   9, then ReadWrite from 1,024
-   clients until 10,000 txns commit); each role's submits replayed
+   9, then ReadWrite from 1,024 clients until 5,000 txns commit, 10,000
+   before the backup phases joined the run); each role's submits replayed
    through its own ConflictSetCPU (four processes), every read reply held
    against an independent VersionedMap per storage server, every
    submit's syncs audited.
 
 10. `[rankfed]`: BASELINE config 5 as in phase 4 through
    ConflictSetRankFed (keys in a sorted host mirror, one int32 version
-   vector of 2^23 slots on the card, the kernel as torch ops): 8 batches
-   (RANKFED_BATCHES; 24, then 12, before) of 65,536 txns (converted to
+   vector of 2^23 slots on the card, the kernel as torch ops): 6 batches
+   (RANKFED_BATCHES; 24, 12, then 8, before) of 65,536 txns (converted to
    TxnConflictInfo lists first) through
    prepare/pack/resolve_async at depth 4, one GC round on the cadence;
    the first 2 also through ConflictSetRankFed(device="cpu"), statuses
@@ -93,8 +94,10 @@ Phases (each prints one line; any failure exits nonzero):
    resolver recruited each generation through CONFLICT_SET_IMPL ("gpu"),
    its storage window KeyValueStoreGPU: Cycle over 1,000 nodes (64 x 25)
    with the transaction system killed after 25%, 50% and 75% of the
-   commits, then BASELINE config 1 as in phase 6 with kills at 2,500,
-   5,000 and 7,500 commits. Each generation's submits replay through a
+   commits, then BASELINE config 1 as in phase 6 after a 2^17-key load
+   (2^18 before the backup phases joined the run) with kills at 1,250,
+   2,500 and 3,750 of 5,000 commits (before: 2,500, 5,000 and 7,500 of
+   10,000). Each generation's submits replay through a
    fresh ConflictSetCPU at its start version; every read reply is held
    against an independent VersionedMap; the probe launches in every
    generation on both paths; no dead generation's conflict set outlives
@@ -105,13 +108,13 @@ Phases (each prints one line; any failure exits nonzero):
    each generation's four roles replayed per role, every team member of
    every shard answering the same get_range after the run.
 13. `[sim]`: the deterministic simulator (sim/, workloads/tester.py):
-   the 12 seeds of SIM_CHIP_SEEDS (the first 12 of SIM_SEEDS; 24 until
-   PR 9) from sim/config.generate_config as drawn
+   the 4 seeds of SIM_CHIP_SEEDS (the first 4 of SIM_SEEDS; 24, 12,
+   then 6, before) from sim/config.generate_config as drawn
    (cluster shape, knobs, workload mix, buggify) through run_randomized
    on the card, ConflictSetGPU and KeyValueStoreGPU recruited wherever a
    seed draws them or keeps their "gpu" default; every seed replayed in
    a CPU worker process with the host backends pinned (ok, checks,
-   metrics and fingerprint equal), 2 seeds rerun (fingerprint and
+   metrics and fingerprint equal), 1 seed rerun (fingerprint and
    coverage signature equal), specs/chaos_topology.json at seed 7 with
    both device backends forced, one seed profiled; each seed's device
    objects collected and device memory back in a band after it.
@@ -119,20 +122,21 @@ Phases (each prints one line; any failure exits nonzero):
    (RecoverableShardedCluster, 4 storage, 2 logs, double log and storage
    replication, 4 resolvers) over a temporary datadir: on the memory
    engine, 2^16 of config 1's keys loaded (cut from 2^18, PERF.md),
-   ReadWrite to 2,000 commits, a clean stop and a cold boot; a crash leg
-   (500 commits, the incarnation abandoned without close) and a cold
+   ReadWrite to 1,000 commits (DURABLE_CHIP_TARGET; 2,000 before), a
+   clean stop and a cold boot; a crash leg (250 commits, 500 before, the
+   incarnation abandoned without close) and a cold
    boot; then the crash leg on the ssd engine. Every cold boot: each
    restored KeyValueStoreGPU window's entries() equal a VersionedMap
    restored from its engine's rows, one compaction per window, every key
    read back through the client equal to an independent record of the
    acknowledged writes; prints the boot's times to fully_recovered and
    to the first commit, rows restored, bytes on disk and device bytes.
-15. `[sim-durable]`: as [sim], the 8 seeds of SIM_DURABLE_CHIP_SEEDS
-   (of SIM_DURABLE_SEEDS' 17 until PR 9; memory
+15. `[sim-durable]`: as [sim], the 4 seeds of SIM_DURABLE_CHIP_SEEDS
+   (of SIM_DURABLE_SEEDS' 17; all 17, 8, then 5, before; memory
    and ssd engines on temporary datadirs, regions, both sharded kinds)
    and three restart specs (specs/restart_cycle.json, specs/
    upgrade_cycle.json, a power-loss restart over the simulated disk),
-   each against its CPU replay, 2 seeds rerun, one profiled.
+   each against its CPU replay, 1 seed rerun and profiled.
 16. `[multiprocess]`: the deployed tier (cluster/multiprocess.py over
    net/), BASELINE config 4's cluster shape as `configure double ssd`
    (4 storage, double replication, ssd engine; 2 logs on 2 log hosts,
@@ -140,17 +144,35 @@ Phases (each prints one line; any failure exits nonzero):
    rw_key(2^18), rw_key(2^19), rw_key(3 * 2^18)), every role host a
    process of its own started as `server.py -r fdbd -c <class>` with its
    own CUDA context, this script the client over multiprocess.connect.
-   Leg A: a 2^18-key load, config 1's ReadWrite from 256 clients to
-   2,000 acknowledged commits, a stale-snapshot pair, the C wire client;
-   every key read back against a VersionedMap of the acknowledged
-   writes; each process's device memory (nvidia-smi) and probe launches
-   (scraped over the metrics plane). Leg B: the resolver host's process
+   Leg A: a 2^16-key load (MP_CHIP_LOAD_KEYS; 2^18 before), config
+   1's ReadWrite from 256 clients to 2,000 acknowledged commits, a
+   stale-snapshot pair, the C wire client; every key read back against a
+   VersionedMap of the acknowledged writes; each process's device memory
+   (nvidia-smi) and probe launches (scraped over the metrics plane); the
+   operator shell attached by cluster file (`server.py -r cli -C <cf>
+   status json`, then a get of a loaded key). Leg B: the resolver host's process
    group SIGKILLed under traffic and a fresh one started, then the
    storage host, whose windows cold-boot onto the card from the ssd
    engine; every acknowledged write read back after each. Leg C: the
    storage and resolver hosts in this process (the launch tap captures
    the probe's operands), the logs and txn host as processes. Leg D: no
    resolver class, the txn host's own conflict set on the card.
+17. `[backup]`: the backup tier (backup.py, dr.py) on config 4's cluster
+   shape, every cluster on the card. Leg A: a 2^18-key load
+   (BACKUP_LOAD_KEYS), backup_to_container(file://) under the
+   invariant-pair writer and restore_from_container into a fresh cluster
+   (its rows equal to the record at the snapshot version, the pair
+   untorn); legs B and C, on a second source loaded with 2^14 keys
+   (BACKUP_STREAM_LOAD_KEYS): ContinuousBackupAgent and DRAgent
+   under config 1's ReadWrite (256 clients, 2,000 commits), a
+   point-in-time restore into another fresh cluster equal to the record
+   at the median commit version, the DR destination equal to the source;
+   leg D: `server.py -r cli` on the card with a piped script (data,
+   status json and backup verbs). The probe's launches and last
+   operands per cluster; device memory back after the clusters stop.
+18. `[sim-backup]`: as [sim], the 6 seeds of SIM_BACKUP_CHIP_SEEDS (4, 8,
+   13 and 20 in memory, 2 and 9 durable; BackupRestore and
+   BackupAttrition), each against its CPU replay, 1 rerun and profiled.
 
 Every run drives every phase, and logs each one's wall time
 (`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
@@ -165,7 +187,9 @@ cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage,
 recovery-resolver, recovery-storage, sharded-recovery-resolver,
 sim-resolver, sim-storage, durable-resolver, durable-storage,
 sim-durable-resolver, sim-durable-storage, multiprocess-resolver,
-multiprocess-storage; and the rank-fed kernel,
+multiprocess-storage,
+backup-{source,restore,stream,dr,pitr}-{resolver,storage},
+sim-backup-resolver, sim-backup-storage; and the rank-fed kernel,
 route "torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -195,40 +219,64 @@ INT32_MIN = -(2**31)
 # which full collections took about a sixth of a cluster phase's wall time
 # (the CPU at a 2^17-key load). Young cycles are still collected.
 GC_THRESHOLDS = (100_000, 50, 100)
-# The [sim] phase's seeds: the first 24 of sim/config.generate_config that
-# need no unported tier (unported_needs) and that the JAX package passes
+# The [sim] phase's seeds: the first 24 in-memory seeds of
+# sim/config.generate_config that draw no backup workload (those run in
+# [sim-backup]) and that the JAX package passes
 # on the CPU with the host backends pinned; 5 and 25 fail there
 # (ROADMAP Queue 3). tests/test_torch_sim_differential*.py hold each of
 # these seeds' port run equal to the JAX package's on the CPU.
 SIM_SEEDS = (3, 11, 14, 17, 19, 21, 26, 29, 30, 33, 34, 38, 43, 46, 51, 53,
              54, 55, 62, 63, 66, 67, 69, 71)
-# The seeds the card runs since [multiprocess] joined the smoke: the first
-# 12 (cut from 24 to keep the whole run near 1,000 s; the CPU tests still
-# hold all 24), two of them rerun.
-SIM_CHIP_SEEDS = SIM_SEEDS[:12]
-SIM_CHIP_DETERMINISM_SEEDS = (17, 38)
+# The seeds the card runs since [backup] joined the smoke: the first 4
+# (24, then 12, before; the CPU tests still hold all 24), one of them
+# rerun.
+SIM_CHIP_SEEDS = SIM_SEEDS[:4]
+SIM_CHIP_DETERMINISM_SEEDS = (17,)
 # The [sim-durable] phase's seeds: the first 16 of generate_config that
 # draw the durable tier (a memory or ssd storage engine on a datadir, or
-# regions), need no unported tier and pass on the JAX package on the CPU
+# regions), draw no backup workload and pass on the JAX package on the CPU
 # with the host backends pinned (0, 60 and 70 fail there: ROADMAP Queue
 # 3), and 168, the first that draws the memory engine with regions.
 # tests/test_torch_sim_durable*.py hold each seed's port run equal to the
 # JAX package's on the CPU.
 SIM_DURABLE_SEEDS = (1, 6, 10, 12, 15, 18, 27, 35, 39, 42, 44, 45, 50, 58,
                      59, 65, 168)
-# The card's durable seeds since [multiprocess] joined the smoke (cut
-# from 17 for the run's time; the CPU tests still hold all 17): every ssd
-# seed (6, 39, 42), both sharded ones (27, 59) and three with regions (1,
-# 58, 168, the last on the memory engine).
-SIM_DURABLE_CHIP_SEEDS = (1, 6, 27, 39, 42, 58, 59, 168)
-# Depth cuts since [multiprocess] joined the smoke (PR 9): the whole run
-# took 886.42 s on one H100 80GB HBM3 at 700 W and 1,144.58 s, of its
+# The card's durable seeds since [backup] joined the smoke (cut from 17
+# for the run's time, to 8 and then 4; the CPU tests still hold all 17):
+# an ssd seed (6), a sharded one (27) and two with regions (58, and 168
+# on the memory engine), one of them rerun; tests/test_torch_sim_durable.py
+# checks that it keeps both engines, regions and both sharded kinds.
+SIM_DURABLE_CHIP_SEEDS = (6, 27, 58, 168)
+SIM_DURABLE_CHIP_DETERMINISM_SEEDS = (58,)
+# The [sim-backup] phase's seeds, which draw BackupRestore or
+# BackupAttrition and pass on the JAX package on the CPU with the host
+# backends pinned: the first four in-memory seeds that draw one (4 and 13
+# BackupRestore, 20 BackupAttrition, 8 both) and two durable ones (2, the
+# first durable BackupRestore, and 9, the first durable
+# BackupAttrition). tests/test_torch_sim_backup*.py hold each seed's port
+# run equal to the JAX package's on the CPU. The card reruns and profiles
+# seed 2, the shortest (seed 8 under the profiler took 76.30 s on an H100
+# 80GB HBM3 at 700 W, PERF.md).
+SIM_BACKUP_SEEDS = (4, 8, 13, 20, 2, 9)
+SIM_BACKUP_CHIP_SEEDS = SIM_BACKUP_SEEDS
+SIM_BACKUP_CHIP_DETERMINISM_SEEDS = (2,)
+# Depth cuts since [multiprocess] joined the smoke, deepened when
+# [backup] and [sim-backup] joined it: before them the whole run took
+# 865.85-886.42 s on one H100 80GB HBM3 at 700 W and 1,144.58 s, of its
 # 1,200 s limit, on another of the same card whose host ran every phase
-# slower (PERF.md). [full] ran 16 batches before, [rankfed] 12, and
-# [sharded-cluster] loaded 2^20 keys.
-FULL_BATCHES = 12
-RANKFED_BATCHES = 8
+# slower (PERF.md). [full] ran 16 batches, then 12; [rankfed] 12, then 8;
+# [durable] ran config 1 to 2,000 commits and its crash legs to 500;
+# [sharded-cluster] loaded 2^20 keys; [cluster], [sharded-cluster] and
+# [recovery] ran config 1 to 10,000 commits, [recovery] after a 2^18
+# load; [multiprocess] leg A loaded 2^18 keys.
+FULL_BATCHES = 8
+RANKFED_BATCHES = 6
 SHARDED_CLUSTER_LOAD_KEYS = 1 << 18
+CONFIG1_CHIP_TARGET = 5_000
+RECOVERY_CHIP_LOAD_KEYS = 1 << 17
+MP_CHIP_LOAD_KEYS = 1 << 16
+DURABLE_CHIP_TARGET = 1000
+DURABLE_CHIP_CRASH_TARGET = 250
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -1261,6 +1309,10 @@ class ProbeTap:
         self.launches = {"resolver": 0, "storage": 0}
         self.captured = {"resolver": {}, "storage": {}}
 
+    def _key(self, path: str):
+        """Where a launch from `path` ("resolver" or "storage") counts."""
+        return path
+
     def _recording(self, path: str, clone: bool):
         from foundationdb_tpu_torch.resolver import probe
 
@@ -1269,14 +1321,15 @@ class ProbeTap:
         def probe_ranks(hkeys, fences, smat, *, NB, B):
             n0 = probe.LAUNCHES
             out = real(hkeys, fences, smat, NB=NB, B=B)
-            self.launches[path] += probe.LAUNCHES - n0
+            key = self._key(path)
+            self.launches[key] += probe.LAUNCHES - n0
             # the resolver updates its state in place: copy its operands;
             # the storage window replaces its tensors, so references do
             if clone:
                 hkeys, fences, smat = (t.clone() for t in (hkeys, fences,
                                                            smat))
-            self.captured[path].update(hkeys=hkeys, fences=fences,
-                                       smat=smat, NB=NB, B=B)
+            self.captured[key].update(hkeys=hkeys, fences=fences,
+                                      smat=smat, NB=NB, B=B)
             return out
 
         return probe_ranks
@@ -2903,12 +2956,13 @@ def acked_read_write(writes: list, timing: dict | None = None,
     return AckedReadWrite
 
 
-def acked_state(loaded: list, writes: list) -> dict:
+def acked_state(loaded: list, writes: list, at: int | None = None) -> dict:
     """The state the acknowledged writes leave, through an independent
     VersionedMap: the loaded keys, then every acknowledged write at its
-    commit version, read at the last version."""
+    commit version, read at version `at` (None: the last)."""
     from foundationdb_tpu_torch.kv.versioned_map import VersionedMap
 
+    writes = [w for w in writes if at is None or w[0] <= at]
     vm = VersionedMap()
     for k in loaded:
         vm.set(k, b"v%d" % len(k), 1)
@@ -3246,7 +3300,6 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
         coverage_signature,
         generate_config,
         run_randomized,
-        unported_needs,
     )
     from foundationdb_tpu_torch.sim.sweep import (
         CpuReplays,
@@ -3270,9 +3323,6 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
         extras = {"chaos": pin_knobs(dict(chaos, seed=7), {
             "server:CONFLICT_SET_IMPL": "gpu",
             "server:STORAGE_ENGINE_IMPL": "gpu"})}
-    for seed, spec in list(specs.items()) + list(extras.items()):
-        if unported_needs(spec):
-            fail(f"{name}: {seed} needs {unported_needs(spec)}")
     replays = CpuReplays(limit)
     for seed in seeds:
         replays.send(seed, specs[seed])
@@ -3969,6 +4019,24 @@ def phase_multiprocess(rng, smi: str = "", device=None,
                     fail(f"multiprocess: the probe never launched in the {c}"
                          " process during the traffic")
 
+        # The operator shell attached to leg A's deployment (one-shot
+        # verbs; the shell's process holds no device): status json from
+        # the controller, then a get of a loaded key over the wire.
+        t_att = time.perf_counter()
+        st_att = json.loads(shell_once(hosts.cf, "status json"))
+        att_status_s = time.perf_counter() - t_att
+        k_att = keys[len(keys) // 3]
+        got_att = shell_once(hosts.cf, f"get {k_att.decode()}").strip()
+        want_att = f"`{k_att.decode()}' is `{want[k_att].decode()}'"
+        recovery = st_att["cluster"]["recovery_state"]["name"]
+        log("multiprocess-a-attach", smi=json.dumps(smi),
+            recovery_state=recovery, status_s=f"{att_status_s:.2f}",
+            get_s=f"{time.perf_counter() - t_att - att_status_s:.2f}",
+            get_equal=got_att == want_att)
+        if recovery != "fully_recovered" or got_att != want_att:
+            fail(f"multiprocess: the attached shell read {recovery!r} and "
+                 f"{got_att!r}, not fully_recovered and {want_att!r}")
+
         # ---------------------------------------------------- leg B
         def leg_b(kill_cls: str):
             stamps = {}
@@ -4201,6 +4269,480 @@ def phase_multiprocess(rng, smi: str = "", device=None,
     return paths
 
 
+# ---------------------------------------------------------------- phase 17
+
+# [backup]: leg A's source is config 4's cluster after a 2^18-key load of
+# config 1's keys (as [sharded-cluster]); legs B and C share one run of
+# config 1's ReadWrite from 256 clients to 2,000 acknowledged commits on a
+# second source of that shape loaded with 2^14 keys: their point-in-time
+# restore and DR copy are two more whole-database restores, ~60 s each at
+# 2^18 on an H100 80GB HBM3 at 700 W (PERF.md), while what they add to
+# leg A's, the shipped log and its lag, does not grow with the load.
+BACKUP_LOAD_KEYS = 1 << 18
+BACKUP_STREAM_LOAD_KEYS = 1 << 14
+BACKUP_CLIENTS = 256
+BACKUP_TARGET = 2000
+BACKUP_PAIR = (b"bk/a", b"bk/b")
+BACKUP_MEM_BAND = 1 << 20
+SHELL_KEY = b"bk_shell/a"
+
+
+class ClusterTap(ProbeTap):
+    """ProbeTap split by cluster: each watched cluster's resolver roles'
+    conflict sets and storage servers' windows are wrapped so that a
+    probe launched inside their submit, resolve or submit_reads counts
+    against (cluster, path)."""
+
+    ENTRY = ("submit", "resolve", "submit_reads")
+
+    def __init__(self):
+        self.launches, self.captured = {}, {}
+        self.owner = None
+
+    def _key(self, path: str):
+        if self.owner is None:
+            fail("backup: a probe launch outside every watched cluster")
+        return self.owner
+
+    def _owned(self, obj, key):
+        tap = self
+
+        class Owned:
+            def __getattr__(self, name):
+                attr = getattr(obj, name)
+                if name not in ClusterTap.ENTRY:
+                    return attr
+
+                def call(*a, **kw):
+                    prev, tap.owner = tap.owner, key
+                    try:
+                        return attr(*a, **kw)
+                    finally:
+                        tap.owner = prev
+
+                return call
+
+            def __len__(self):
+                return len(obj)
+
+        return Owned()
+
+    def watch(self, cluster, name: str):
+        """Wrap `cluster`'s conflict sets and windows (before start)."""
+        for path in ("resolver", "storage"):
+            self.launches[(name, path)] = 0
+            self.captured[(name, path)] = {}
+        for role in cluster.resolvers:
+            role.cs = self._owned(role.cs, (name, "resolver"))
+        for s in cluster.storages:
+            s.data = self._owned(s.data, (name, "storage"))
+        return cluster
+
+    def paths(self) -> dict:
+        return {f"backup-{n}-{p}": dict(cap, launches=self.launches[(n, p)])
+                for (n, p), cap in self.captured.items()}
+
+
+async def read_rows(db, chunk: int = 10_000) -> dict:
+    """Every row of the normal keyspace, in `chunk`-row transactions (the
+    cluster is quiet while it reads)."""
+    from foundationdb_tpu_torch.kv.keys import key_after
+
+    out, cursor = {}, b""
+    while True:
+        async def body(tr, cursor=cursor):
+            return await tr.get_range(cursor, b"\xff", limit=chunk)
+
+        rows = await db.transact(body)
+        out.update(rows)
+        if len(rows) < chunk:
+            return out
+        cursor = key_after(rows[-1][0])
+
+
+def diff_rows(got: dict, want: dict) -> str:
+    missing = [k for k in want if k not in got][:3]
+    extra = [k for k in got if k not in want][:3]
+    wrong = [k for k in want if k in got and got[k] != want[k]][:3]
+    return (f"{len(got)} rows, {len(want)} wanted; missing {missing}, "
+            f"extra {extra}, different {wrong}")
+
+
+def run_shell(script: list, device=None, timeout: float = 300):
+    """`server.py -r cli` as an operator runs it, the script piped in:
+    (each reply, seconds from the start to the first reply). Its output
+    is drained on threads, so a shell that hangs or fills its stderr
+    fails here after `timeout` s with what it printed."""
+    import threading
+
+    cmd = [sys.executable, "-m", "foundationdb_tpu_torch.server", "-r",
+           "cli"]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    out, err, first = [], [], []
+
+    def drain(stream, lines, replies):
+        for line in stream:
+            if replies and not first and "fdbtpu> " in line \
+                    and line.split("fdbtpu> ")[-1].strip():
+                first.append(time.perf_counter() - t0)
+            lines.append(line)
+
+    readers = [threading.Thread(target=drain, args=(p.stdout, out, True),
+                                daemon=True),
+               threading.Thread(target=drain, args=(p.stderr, err, False),
+                                daemon=True)]
+    for r in readers:
+        r.start()
+    rc = None
+    try:
+        p.stdin.write("".join(line + "\n" for line in script))
+        p.stdin.close()
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, 9)
+            p.wait()
+        for r in readers:
+            r.join(timeout=10)
+    tail = "".join(out)[-2000:] + "".join(err)[-2000:]
+    if rc is None:
+        fail(f"shell: still running after {timeout} s: {tail}")
+    if rc != 0:
+        fail(f"shell: exit {rc}: {tail}")
+    if not first:
+        fail(f"shell: no reply: {tail}")
+    return "".join(out).split("fdbtpu> ")[1:], first[0]
+
+
+def shell_once(cluster_file: str, command: str,
+               timeout: float = 120) -> str:
+    """One verb of `server.py -r cli` attached to a deployment through its
+    cluster file; its standard output."""
+    p = subprocess.run(
+        [sys.executable, "-m", "foundationdb_tpu_torch.server", "-r", "cli",
+         "-C", str(cluster_file), *command.split()],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=timeout)
+    if p.returncode != 0:
+        fail(f"shell: `{command}' exited {p.returncode}: {p.stderr[-2000:]}")
+    return p.stdout
+
+
+def check_shell(device, tmp: Path) -> dict:
+    """[backup] leg D: the operator shell on the card, the backup verbs
+    of fdbbackup and fdbrestore among its data verbs."""
+    url = f"file://{tmp}/shell"
+    k = SHELL_KEY.decode()
+    script = ["writemode on", f"set {k} 1", f"get {k}",
+              "getrange bk_shell/ bk_shell0", "status json", f"backup {url}",
+              f"backups {url}", f"clear {k}", f"get {k}", f"restore {url}",
+              f"get {k}", "exit"]
+    t0 = time.perf_counter()
+    replies, first = run_shell(script, device)
+    wall = time.perf_counter() - t0
+    replies = [r.strip() for r in replies]
+    if len(replies) < len(script) - 1:
+        fail(f"shell: {len(replies)} replies to {len(script) - 1} commands:"
+             f" {replies}")
+    if not replies[5].startswith("backup complete at version "):
+        fail(f"shell: backup replied {replies[5]!r}")
+    version = replies[5].rsplit(" ", 1)[1]
+    want = {0: "writemode on", 1: "Committed", 2: f"`{k}' is `1'",
+            3: f"`{k}' is `1'", 6: version, 7: "Committed",
+            8: f"`{k}': not found", 9: "restored 1 rows",
+            10: f"`{k}' is `1'"}
+    for i, w in want.items():
+        if replies[i] != w:
+            fail(f"shell: `{script[i]}' replied {replies[i]!r}, not {w!r}")
+    status = json.loads(replies[4])
+    if "workload" not in status.get("cluster", {}):
+        fail(f"shell: status json has no cluster workload: {list(status)}")
+    return {"first_reply_s": first, "wall_s": wall, "version": version,
+            "replies": len(replies)}
+
+
+def phase_backup(rng, smi: str = "", device=None, key_space: int = 1 << 20,
+                 load_keys: int = BACKUP_LOAD_KEYS,
+                 stream_keys: int = BACKUP_STREAM_LOAD_KEYS,
+                 loaders: int = 32, clients: int = BACKUP_CLIENTS,
+                 target: int = BACKUP_TARGET):
+    """The backup tier on the card, the deployment of FoundationDB's
+    documentation/sphinx/source/backups.rst (`fdbbackup start -d
+    file://...`, `fdbrestore start`, a continuous backup, `fdbdr start`
+    between two clusters). Every cluster here is config 4's
+    (ShardedKVCluster, 4 storage, 2 logs, double replication, 4
+    resolvers, split at rw_key of key_space/4, /2, 3/4), on `device`,
+    under one sim_loop, each counted by ClusterTap. Leg A's source holds a
+    `load_keys` load, legs B and C's ("stream") a `stream_keys` load.
+
+    - leg A: backup_to_container(file://) while BackupRestoreWorkload's
+      invariant pair is written, each acknowledged pair write recorded
+      with its commit version; restore_from_container into a fresh
+      cluster, whose rows must equal the loaded keys plus the pair writes
+      at or below the snapshot version, the pair untorn.
+    - legs B and C: ContinuousBackupAgent and DRAgent (into another
+      cluster) started on the stream source, then config 1's ReadWrite from
+      `clients` clients to `target` commits, each client recording
+      (commit version, writes); wait_until at the end version and
+      wait_drained; restore_to_version at the median acknowledged version
+      into another cluster must equal the record replayed up to it, and
+      the DR destination's rows the source's and the whole record.
+    - leg D: `server.py -r cli` on `device` with a piped script of data,
+      status and backup verbs; each reply checked.
+
+    Device memory back in a band once the clusters are stopped. Returns
+    the probe's paths per cluster."""
+    import shutil
+    import tempfile
+
+    import torch
+    from foundationdb_tpu_torch import backup as bk
+    from foundationdb_tpu_torch.cluster.sharded_cluster import ShardedKVCluster
+    from foundationdb_tpu_torch.core.runtime import (
+        current_loop,
+        loop_context,
+        sim_loop,
+        spawn,
+    )
+    from foundationdb_tpu_torch.dr import DRAgent
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    dev = torch.device("cuda" if device is None else device)
+    card = dev.type == "cuda"
+    bounds = [rw_key(key_space * i // 4) for i in (1, 2, 3)]
+    tmp = Path(tempfile.mkdtemp(prefix="fdbtpu_backup_"))
+
+    def memory() -> int:
+        gc.collect()
+        return torch.cuda.memory_allocated(dev) if card else 0
+
+    mem0 = memory()
+    keys = load_key_set(key_space, load_keys)
+    keys_bc = load_key_set(key_space, stream_keys)
+    # every acknowledged write, (commit version, order, key, value): the
+    # pair writer's on leg A's source, config 1's on the stream source
+    pair_writes, writes = [], []
+    loop = sim_loop(seed=SEED + 17)
+    stamps, out = {}, {}
+    try:
+        with ClusterTap() as tap:
+            with loop_context(loop):
+                def config4(name):
+                    return tap.watch(ShardedKVCluster(
+                        n_storage=4, n_logs=2, replication="double",
+                        shard_boundaries=bounds, n_resolvers=4,
+                        resolver_boundaries=bounds, device=device), name)
+
+                src = config4("source").start()
+                db = src.database()
+
+                async def main():
+                    mark = stamper(stamps)
+                    mark("load")
+                    await load_through_client(db, keys, loaders)
+                    mark("loaded")
+                    # ---- leg A: a snapshot under the invariant writer
+                    pair, stop = [], [False]  # the pair's commit versions
+
+                    async def writer():
+                        n = 0
+                        while not stop[0]:
+                            n += 1
+                            tr = db.create_transaction()
+                            while True:
+                                try:
+                                    for k in BACKUP_PAIR:
+                                        tr.set(k, b"%d" % n)
+                                    v = await tr.commit()
+                                    break
+                                except BaseException as e:  # noqa: BLE001
+                                    await tr.on_error(e)
+                            pair.append(v)
+                            pair_writes.extend(
+                                (v, len(pair_writes), k, b"%d" % n)
+                                for k in BACKUP_PAIR)
+
+                    w = spawn(writer(), name="bkWriter")
+                    # some pair writes land before the snapshot's version
+                    # (each is a commit of the whole cluster's path, ~0.1 s
+                    # of wall time on the card)
+                    await current_loop().delay(0.02)
+                    url_a = f"file://{tmp}/snapshots"
+                    mark("snapshot")
+                    snap_v = await bk.backup_to_container(db, url_a)
+                    mark("snapshot_end")
+                    stop[0] = True
+                    await w.done
+                    dst = config4("restore").start()
+                    mark("restore")
+                    n_rest = await bk.restore_from_container(
+                        dst.database(), url_a)
+                    mark("restore_end")
+                    got = await read_rows(dst.database())
+                    dst.stop()
+                    src.stop()
+                    out["a"] = (snap_v, n_rest, got,
+                                acked_state(keys, pair_writes, snap_v),
+                                len(pair), sum(v <= snap_v for v in pair))
+                    # ---- legs B and C: continuous backup and DR
+                    src_bc = config4("stream").start()
+                    db_bc = src_bc.database()
+                    mark("stream_load")
+                    await load_through_client(db_bc, keys_bc, loaders)
+                    mark("stream_loaded")
+                    url_b = f"file://{tmp}/continuous"
+                    agent = bk.ContinuousBackupAgent(src_bc, url_b)
+                    mark("cont")
+                    await agent.start()
+                    mark("cont_end")
+                    dr_dst = config4("dr").start()
+                    dr = DRAgent(src_bc, dr_dst.database())
+                    mark("dr")
+                    await dr.start()
+                    mark("dr_end")
+                    rw = await read_write_until(
+                        db_bc, key_space, clients, target,
+                        cls=acked_read_write(writes))
+                    mark("rw_end")
+                    end_v = src_bc.master.get_live_committed_version()
+                    lag = (end_v - agent.shipped_version,
+                           end_v - dr.applied_version)
+                    async def until(wait, name):
+                        await wait
+                        mark(name)
+
+                    caught = [spawn(until(agent.wait_until(end_v),
+                                          "shipped")),
+                              spawn(until(dr.wait_drained(), "drained"))]
+                    for t in caught:
+                        await t.done
+                    agent.stop()
+                    versions = sorted(v for v, *_ in writes)
+                    mid = versions[len(versions) // 2]
+                    pitr = config4("pitr").start()
+                    mark("pitr")
+                    n_pitr = await bk.restore_to_version(
+                        pitr.database(), url_b, mid)
+                    mark("pitr_end")
+                    got_b = await read_rows(pitr.database())
+                    pitr.stop()
+                    src_rows = await read_rows(db_bc)
+                    dr_rows = await read_rows(dr_dst.database())
+                    dr.stop()
+                    dr_dst.stop()
+                    src_bc.stop()
+                    out["b"] = ((rw.txns_done, rw.retries), len(writes),
+                                mid, n_pitr, got_b,
+                                acked_state(keys_bc, writes, mid), lag,
+                                agent.snapshot_version)
+                    out["c"] = (src_rows, dr_rows,
+                                acked_state(keys_bc, writes))
+
+                loop.run(main(), timeout_sim_seconds=1e6)
+            loop.shutdown()
+            # the loop's metrics registry holds the windows' gauges
+            del src, db, loop
+            tap.to_host()
+        mem1 = memory()
+        shell_out = check_shell(device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def wall(a, b):
+        return stamps[b][0] - stamps[a][0]
+
+    def sim(a, b):
+        return stamps[b][1] - stamps[a][1]
+
+    snap_v, n_rest, got, want, n_pair, n_below = out["a"]
+    if got != want:
+        fail(f"backup: the restored snapshot differs from the record: "
+             f"{diff_rows(got, want)}")
+    if got.get(BACKUP_PAIR[0]) != got.get(BACKUP_PAIR[1]):
+        fail(f"backup: the restored pair is torn: "
+             f"{[got.get(k) for k in BACKUP_PAIR]}")
+    if not n_below or n_below == n_pair:
+        fail(f"backup: {n_below} of {n_pair} pair writes at or below the "
+             "snapshot: the snapshot did not run under the writer")
+    n_bytes = sum(len(k) + len(v) for k, v in got.items())
+    log("backup-a", smi=json.dumps(smi), rows=n_rest, bytes=n_bytes,
+        snapshot_version=snap_v, pair_writes=n_pair,
+        pair_writes_in_snapshot=n_below,
+        snapshot_wall_s=f"{wall('snapshot', 'snapshot_end'):.2f}",
+        snapshot_sim_s=f"{sim('snapshot', 'snapshot_end'):.4f}",
+        restore_wall_s=f"{wall('restore', 'restore_end'):.2f}",
+        restore_rows_per_wall_s=f"{n_rest / wall('restore', 'restore_end'):.1f}",
+        load_wall_s=f"{wall('load', 'loaded'):.2f}",
+        writer_before_snapshot_wall_s=f"{wall('loaded', 'snapshot'):.2f}",
+        restored_equal=True, pair_untorn=True)
+    (done, retries), n_writes, mid, n_pitr, got_b, want_b, lag, cont_v = \
+        out["b"]
+    if done < target:
+        fail(f"backup: {done} config-1 transactions, {target} wanted")
+    if got_b != want_b:
+        fail(f"backup: restore_to_version({mid}) differs from the record: "
+             f"{diff_rows(got_b, want_b)}")
+    log("backup-b", smi=json.dumps(smi), load_keys=len(keys_bc),
+        load_wall_s=f"{wall('stream_load', 'stream_loaded'):.2f}",
+        committed=done, retries=retries, writes=n_writes,
+        snapshot_version=cont_v, restore_version=mid,
+        snapshot_wall_s=f"{wall('cont', 'cont_end'):.2f}",
+        ship_lag_versions=lag[0],
+        ship_lag_wall_ms=f"{1e3 * wall('rw_end', 'shipped'):.2f}",
+        ship_lag_sim_ms=f"{1e3 * sim('rw_end', 'shipped'):.2f}",
+        traffic_wall_s=f"{wall('dr_end', 'rw_end'):.2f}",
+        committed_per_wall_s=f"{done / wall('dr_end', 'rw_end'):.1f}",
+        restored_rows=n_pitr, restored_keys=len(got_b),
+        restore_wall_s=f"{wall('pitr', 'pitr_end'):.2f}",
+        restore_equal=True)
+    src_rows, dr_rows, want_c = out["c"]
+    if dr_rows != src_rows:
+        fail(f"backup: the DR destination differs from the source: "
+             f"{diff_rows(dr_rows, src_rows)}")
+    if src_rows != want_c:
+        fail(f"backup: the source differs from the record: "
+             f"{diff_rows(src_rows, want_c)}")
+    n_dr = len(keys_bc)
+    log("backup-c", smi=json.dumps(smi), rows=len(dr_rows),
+        snapshot_rows=n_dr, snapshot_wall_s=f"{wall('dr', 'dr_end'):.2f}",
+        snapshot_rows_per_wall_s=f"{n_dr / wall('dr', 'dr_end'):.1f}",
+        apply_lag_versions=lag[1],
+        apply_lag_wall_ms=f"{1e3 * wall('rw_end', 'drained'):.2f}",
+        apply_lag_sim_ms=f"{1e3 * sim('rw_end', 'drained'):.2f}",
+        equal_to_source=True)
+    log("backup-d", smi=json.dumps(smi),
+        first_reply_s=f"{shell_out['first_reply_s']:.2f}",
+        wall_s=f"{shell_out['wall_s']:.2f}",
+        backup_version=shell_out["version"],
+        replies=shell_out["replies"], replies_equal=True)
+    paths = tap.paths()
+    log("backup-launches", smi=json.dumps(smi),
+        launches=json.dumps({p: c["launches"] for p, c in paths.items()}),
+        memory_start=mem0, memory_end=mem1)
+    if card:
+        for p, c in paths.items():
+            if c["launches"] <= 0:
+                fail(f"backup: the probe never launched on {p}")
+        if mem1 > mem0 + BACKUP_MEM_BAND:
+            fail(f"backup: device memory {mem1} after the clusters "
+                 f"stopped, over {mem0} + {BACKUP_MEM_BAND}")
+    log("backup-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
+    for cap in paths.values():
+        for k, t in cap.items():
+            if isinstance(t, torch.Tensor):
+                cap[k] = t.to(dev)
+    return paths
+
+
 def probe_entries(paths: dict, smi: str, base: dict) -> list:
     """The probe held against its plain version on each path's last
     operands, timed, with its bound: one kernel-table entry each. The
@@ -4318,20 +4860,23 @@ def main() -> int:
                             bound_by=bound_by))
     del legs, cap, h, f, q
     phase_wall("storage")
-    for name, phase in (("cluster", phase_cluster),
+    for name, phase in (("cluster", lambda rng, smi: phase_cluster(
+                            rng, smi, target=CONFIG1_CHIP_TARGET)),
                         ("sharded", phase_sharded),
                         ("cluster-sharded", phase_cluster_sharded),
                         ("sharded-cluster", lambda rng, smi:
                          phase_sharded_cluster(
-                             rng, smi,
-                             load_keys=SHARDED_CLUSTER_LOAD_KEYS))):
+                             rng, smi, load_keys=SHARDED_CLUSTER_LOAD_KEYS,
+                             target=CONFIG1_CHIP_TARGET))):
         kernels += probe_entries(phase(rng, smi), smi, base)
         phase_wall(name)
     entry, rankfed_check = phase_rankfed(rng, smi, full_txns_per_s=full_rate,
                                          n_batches=RANKFED_BATCHES)
     kernels.append(entry)
     phase_wall("rankfed")
-    for name, phase in (("recovery", phase_recovery),
+    for name, phase in (("recovery", lambda rng, smi: phase_recovery(
+                            rng, smi, load_keys=RECOVERY_CHIP_LOAD_KEYS,
+                            target=CONFIG1_CHIP_TARGET)),
                         ("sharded-recovery", phase_sharded_recovery)):
         kernels += probe_entries(phase(rng, smi), smi, base)
         phase_wall(name)
@@ -4341,13 +4886,24 @@ def main() -> int:
         rng, smi, seeds=SIM_CHIP_SEEDS,
         det_seeds=SIM_CHIP_DETERMINISM_SEEDS), smi, base)
     phase_wall("sim")
-    kernels += probe_entries(phase_durable(rng, smi), smi, base)
+    kernels += probe_entries(phase_durable(
+        rng, smi, target=DURABLE_CHIP_TARGET,
+        crash_target=DURABLE_CHIP_CRASH_TARGET), smi, base)
     phase_wall("durable")
     kernels += probe_entries(phase_sim_durable(
-        rng, smi, seeds=SIM_DURABLE_CHIP_SEEDS), smi, base)
+        rng, smi, seeds=SIM_DURABLE_CHIP_SEEDS,
+        det_seeds=SIM_DURABLE_CHIP_DETERMINISM_SEEDS), smi, base)
     phase_wall("sim-durable")
-    kernels += probe_entries(phase_multiprocess(rng, smi), smi, base)
+    kernels += probe_entries(phase_multiprocess(
+        rng, smi, load_keys=MP_CHIP_LOAD_KEYS), smi, base)
     phase_wall("multiprocess")
+    kernels += probe_entries(phase_backup(rng, smi), smi, base)
+    phase_wall("backup")
+    kernels += probe_entries(phase_sim(
+        rng, smi, seeds=SIM_BACKUP_CHIP_SEEDS,
+        det_seeds=SIM_BACKUP_CHIP_DETERMINISM_SEEDS, extras={},
+        name="sim-backup"), smi, base)
+    phase_wall("sim-backup")
     log("smoke", wall_s=f"{time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

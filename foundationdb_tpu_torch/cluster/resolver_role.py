@@ -53,6 +53,7 @@ from collections import deque
 from ..core.actors import NotifiedVersion
 from ..core.errors import OperationFailed
 from ..core.knobs import SERVER_KNOBS
+from ..core.rand import DeterministicRandom
 from ..core.stats import ContinuousSample, LatencyBands
 from ..core.trace import TraceEvent, trace_txn_event
 from ..resolver.types import ConflictBatchResult
@@ -102,8 +103,14 @@ class ResolverRole:
         self._consumed = NotifiedVersion(init_version)
         self._inflight_q: deque[int] = deque()
         self.max_inflight = 0
-        # Per-stage timing reservoirs (status json pipeline block).
-        self.stage_samples = {k: ContinuousSample(256) for k in _STAGES}
+        # Per-stage timing reservoirs (status json pipeline block). Only
+        # the device path fills them, so once full they draw from a stream
+        # of their own: a draw from the loop's stream would move every
+        # later simulated decision of a device run off the host run's (the
+        # JAX package's reservoirs draw from the loop's).
+        stage_random = DeterministicRandom(0)
+        self.stage_samples = {k: ContinuousSample(256, random=stage_random)
+                              for k in _STAGES}
         # Whole-resolve latency bands (knob-configured edges), surfaced in
         # the pipeline status block both tiers + ResolverStatusRequest.
         self.latency_bands = LatencyBands()

@@ -5,6 +5,7 @@ hosting every role, selected by `-r`; knobs set via --knob NAME=VALUE).
     python -m foundationdb_tpu_torch.server -r fdbd -c <class> -C <cf> -d <dir>
     python -m foundationdb_tpu_torch.server -r fdbd -m <machine> -C <cf> -d <dir>
     python -m foundationdb_tpu_torch.server -r fdbd [--sharded ...]
+    python -m foundationdb_tpu_torch.server -r cli [-C <cf>] [command ...]
 
 each with [--knob NAME=VALUE] [--device cpu]. The port's copy of
 foundationdb_tpu/server.py. Roles:
@@ -13,9 +14,7 @@ foundationdb_tpu/server.py. Roles:
                the deterministic simulator on the CUDA card (or on the CPU
                with --device cpu) and print the result JSON, or
                {"ok": ..., "seeds": ...} for a randomized spec — exit 0
-               iff every seed it ran checked out. A spec the port cannot
-               run yet (sim/config.unported_needs) exits 1 with the
-               NotImplementedError naming its ROADMAP item.
+               iff every seed checked out.
   fdbd         with -c: ONE role host of a multi-process cluster
                (cluster/multiprocess.py): log / logN / storage / resolver /
                resolverN / txn / txnN, discovering its peers through the
@@ -29,8 +28,12 @@ foundationdb_tpu/server.py. Roles:
                --device. Without -c or -m: an in-process cluster
                (LocalCluster, or ShardedKVCluster with --sharded) on a
                real-clock loop, until SIGINT.
-  cli          the operator shell, not ported: it waits for the backup
-               tier (ROADMAP Queue 1 item 9); exit 2 with that message.
+  cli          the operator shell (cli.py): an embedded sharded cluster
+               on the CUDA card (or on the CPU with --device cpu; without
+               a card and without it, exit 2 naming CUDA), or with -C
+               attached to a deployed cluster, which holds no device. One
+               command per line from stdin, or one positional command and
+               exit.
 """
 
 from __future__ import annotations
@@ -38,13 +41,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-CLI_MISSING = (
-    "-r cli: the operator shell (cli.py) is not ported: it waits for the "
-    "backup tier, ROADMAP Queue 1 item 9; the port runs -r simulation "
-    "and -r fdbd"
-)
-
 
 def _apply_knobs(knob_args: list[str]) -> None:
     from .core.knobs import CLIENT_KNOBS, SERVER_KNOBS
@@ -101,9 +97,8 @@ def run_simulation(path: str, device=None) -> int:
     if spec.get("randomized"):
         # Per-seed randomized SimulationConfig (sim/config.py): each seed
         # derives cluster shape + knobs + workload mix deterministically;
-        # the printed config IS the reproduction recipe, and every seed
-        # the port cannot run yet is printed with its reason. Always
-        # emits the one-line JSON contract, even on malformed specs.
+        # the printed config IS the reproduction recipe. Always emits the
+        # one-line JSON contract, even on malformed specs.
         from .sim.config import run_randomized
 
         try:
@@ -117,13 +112,7 @@ def run_simulation(path: str, device=None) -> int:
             return 1
         print(json.dumps({"ok": True, "seeds": seeds}))
         return 0
-    try:
-        result = run_spec(spec, device=device)
-    except NotImplementedError as e:
-        print(json.dumps({"ok": False,
-                          "error": f"{type(e).__name__}: {e}"}))
-        print(f"NotImplementedError: {e}", file=sys.stderr)
-        return 1
+    result = run_spec(spec, device=device)
     print(json.dumps(result, default=str, indent=2))
     return 0 if result.get("ok") and result.get("sev_errors", 0) == 0 else 1
 
@@ -249,9 +238,8 @@ def main(argv=None) -> int:
         description="Roles: simulation (a spec under the simulator), fdbd "
                     "(-c: one role host of a multi-process cluster, log / "
                     "logN / storage / resolver / resolverN / txn; -m: one "
-                    "machine's classes; neither: an in-process cluster). "
-                    "-r cli waits for the backup tier (ROADMAP Queue 1 "
-                    "item 9) and exits 2.",
+                    "machine's classes; neither: an in-process cluster), "
+                    "cli (the operator shell).",
     )
     ap.add_argument("-r", "--role", default="fdbd",
                     choices=["fdbd", "simulation", "cli"])
@@ -298,12 +286,26 @@ def main(argv=None) -> int:
                     help="where the device backends run (default: the "
                          "CUDA card, which must be present); -m passes it "
                          "on to every child")
+    ap.add_argument("command", nargs="*",
+                    help="-r cli: one shell command to run before exiting "
+                         "(e.g. `status json`)")
     args = ap.parse_args(argv)
     _apply_knobs(args.knob)
 
+    if args.command and args.role != "cli":
+        ap.error("a positional command is for -r cli only")
     if args.role == "cli":
-        print(CLI_MISSING, file=sys.stderr)
-        return 2
+        from .cli import main as cli_main
+
+        argv_cli = ["--cluster-file", args.cluster_file] \
+            if args.cluster_file else []
+        if args.device is not None:
+            argv_cli += ["--device", args.device]
+        try:
+            cli_main(argv_cli + args.command)
+        except SystemExit as e:
+            return e.code if isinstance(e.code, int) else 1
+        return 0
     if args.role == "simulation":
         if not args.testfile:
             ap.error("-r simulation requires -f <spec.json>")

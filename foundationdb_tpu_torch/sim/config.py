@@ -27,10 +27,8 @@ JAX package's, draw for draw: the choice tuples keep their lengths and
 weights, and only the backend names of the two device knobs are the
 port's (CONFLICT_SET_IMPL: the JAX package's "native" and "tpu" draw
 "gpu"; STORAGE_ENGINE_IMPL: "tpu" draws "gpu"), so seed N yields the JAX
-package's spec N with those two names mapped. `unported_needs` names what
-a spec needs that the port does not have yet (the backup tier);
-`run_randomized` runs only the seeds that need nothing, on `device`, and
-logs every other seed with its reason.
+package's spec N with those two names mapped. `run_randomized` runs every
+seed on `device`.
 """
 
 from __future__ import annotations
@@ -577,35 +575,13 @@ def generate_config(seed: int, bias: Optional[DrawBias] = None
     }
 
 
-_BACKUP_WORKLOADS = ("BackupRestore", "BackupAttrition")
-
-
-def unported_needs(spec: dict) -> list[str]:
-    """Each thing `spec` needs that the port does not have yet, as the
-    refusal that names its ROADMAP Queue 1 item: a backup workload (item
-    9, the backup tier), in a spec's workloads or a restart spec's
-    phases. Empty when the port can run the spec; workloads/tester.run_spec
-    and run_restart_spec raise the first."""
-    from ..workloads.more import backup_tier_missing
-
-    needs = []
-    stanzas = list(spec.get("workloads", []))
-    for phase in spec.get("phases", []):
-        stanzas.extend(phase.get("workloads", []))
-    for w in stanzas:
-        if w.get("name") in _BACKUP_WORKLOADS:
-            needs.append(backup_tier_missing(w["name"]))
-    return needs
-
-
 def run_randomized(seeds, log=print, device=None,
                    limit: Optional[float] = None,
                    on_result=None) -> list[dict[str, Any]]:
     """Run generate_config(seed) on `device` (None: the CUDA card) for
-    every seed the port can run, each under a wall-clock `limit` in
-    seconds (None: none; an overrun fails the seed); print each config
-    (the reproduction recipe) and collect results. A seed with unported
-    needs is not run: its line names the reason. `on_result(seed, spec,
+    every seed, each under a wall-clock `limit` in seconds (None: none;
+    an overrun fails the seed); print each config (the reproduction
+    recipe) and collect results. `on_result(seed, spec,
     result)` sees each result as it comes. Raises on the first failed
     seed AFTER running all of them, so CI reports every bad seed."""
     import json
@@ -619,10 +595,6 @@ def run_randomized(seeds, log=print, device=None,
     for seed in seeds:
         spec = generate_config(seed)
         log(f"[sim seed {seed}] config: {json.dumps(spec, sort_keys=True)}")
-        needs = unported_needs(spec)
-        if needs:
-            log(f"[sim seed {seed}] not run: needs " + "; ".join(needs))
-            continue
         res = run_seed(spec, device=device, limit=limit)
         ok = seed_passed(res)
         log(f"[sim seed {seed}] ok={res.get('ok')} "

@@ -10,10 +10,7 @@ seeds nightly, each failure reproducible from its seed alone).
         --seeds 7,99 --device cpu
 
 --seeds takes "lo:hi" (half-open), a comma list, or a count N (== 0:N).
-A seed whose spec needs what the port does not have yet
-(sim/config.unported_needs: the backup tier)
-is not run; its line names the reason. Every seed that runs is held to
-a wall-clock limit (--wall-limit seconds): an overrun fails the seed, as
+Every seed is held to a wall-clock limit (--wall-limit seconds): an overrun fails the seed, as
 a crash, a SevError or a failed check does.
 
 --check-determinism runs every seed twice: the keyspace fingerprint and
@@ -243,28 +240,21 @@ def sweep(seeds, base: Optional[dict] = None, device=None,
           check_determinism: bool = False, against_cpu: bool = False,
           limit: Optional[float] = DEFAULT_WALL_LIMIT,
           log=print) -> list[dict[str, Any]]:
-    """Run every seed the port can run; one record per seed: {"seed",
-    "ok", "detail", "wall_s", ...}, or {"seed", "skipped": [needs]} for a
-    seed not run. Logs a line per seed and the repro spec of a failure."""
+    """Run every seed; one record per seed: {"seed", "ok", "detail",
+    "wall_s", ...}. Logs a line per seed and the repro spec of a
+    failure."""
     from ..device import resolve_device
-    from .config import unported_needs
 
     resolve_device(device)
     specs = {seed: seed_spec(seed, base) for seed in seeds}
-    runnable = [s for s in seeds if not unported_needs(specs[s])]
     replays = CpuReplays(limit) if against_cpu else None
     records = []
     try:
         if replays is not None:
-            for seed in runnable:
+            for seed in seeds:
                 replays.send(seed, specs[seed])
         for seed in seeds:
             spec = specs[seed]
-            needs = unported_needs(spec)
-            if needs:
-                log(f"[seed {seed}] not run: needs " + "; ".join(needs))
-                records.append({"seed": seed, "skipped": needs})
-                continue
             res = run_seed(spec, device=device, limit=limit)
             ok, detail = seed_passed(res), []
             rec = {"seed": seed, "wall_s": res["wall_s"]}
@@ -348,12 +338,9 @@ def main(argv=None) -> int:
                     check_determinism=args.check_determinism,
                     against_cpu=args.against_cpu, limit=args.wall_limit,
                     log=lambda m: print(m, flush=True))
-    failures = [r["seed"] for r in records
-                if "skipped" not in r and not r["ok"]]
-    skipped = [r["seed"] for r in records if "skipped" in r]
-    ran = len(records) - len(skipped)
-    print(f"\n{ran} seed(s) run, {len(skipped)} not run (unported "
-          f"needs: {skipped}), {len(failures)} failing: {failures}")
+    failures = [r["seed"] for r in records if not r["ok"]]
+    print(f"\n{len(records)} seed(s) run, {len(failures)} failing: "
+          f"{failures}")
     if len(failures) > 125:
         print(f"exit status capped at 125 "
               f"(true failure count {len(failures)})")

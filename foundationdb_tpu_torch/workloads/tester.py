@@ -24,9 +24,7 @@ device=None)` and `run_restart_spec(spec, device=None)` build every
 cluster on `device` (None: the CUDA card, which must be present; "cpu"
 runs the device backends' plain torch versions), so the knob-chosen
 ConflictSetGPU and KeyValueStoreGPU are recruited on the card, durable
-clusters' windows restored there from disk. What the port does not have
-yet is refused before anything runs, with NotImplementedError naming its
-ROADMAP item: the backup workloads (Queue 1 item 9).
+clusters' windows restored there from disk.
 """
 
 from __future__ import annotations
@@ -392,10 +390,16 @@ async def _run_workloads(cluster, db, spec) -> dict[str, Any]:
             checkers.append((rkey, wl.check, wl.metrics))
         elif name == "BackupAttrition":
             # TaskBucket lease-takeover soak: mortal backup agents under
-            # a killing nemesis (backup_attrition.py, not ported).
-            from .more import backup_tier_missing
+            # a killing nemesis must lose no ranges.
+            from .backup_attrition import BackupAttritionWorkload
 
-            raise NotImplementedError(backup_tier_missing(name))
+            wl = BackupAttritionWorkload(
+                db, keys=w.get("keys", 48), tasks=w.get("tasks", 8),
+                agents=w.get("agents", 3), kills=w.get("kills", 3),
+                deadline=w.get("deadline", 40.0),
+            )
+            starters.append((rkey, spawn(wl.run()).done))
+            checkers.append((rkey, wl.check, wl.metrics))
         elif name == "StatusWorkload":
             # Status-schema probe mid-chaos (ref: StatusWorkload.actor.cpp
             # — the document must render AND conform while the fault
@@ -640,7 +644,6 @@ def run_restart_spec(spec: dict, device=None) -> dict[str, Any]:
     from ..device import resolve_device
 
     resolve_device(device)
-    _refuse_unported(spec)
 
     ckw = {k: v for k, v in spec.get("cluster", {}).items()
            if k != "kind"}
@@ -782,16 +785,6 @@ def run_restart_spec(spec: dict, device=None) -> dict[str, Any]:
     return results
 
 
-def _refuse_unported(spec: dict) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for the first
-    thing `spec` needs that the port does not have yet."""
-    from ..sim.config import unported_needs
-
-    needs = unported_needs(spec)
-    if needs:
-        raise NotImplementedError(needs[0])
-
-
 def failure_summary(spec: dict, res: dict) -> dict[str, Any]:
     """Classify one spec run into a structured failure summary whose
     `class` string is the distiller's shrink-preserving fingerprint
@@ -856,7 +849,6 @@ def run_spec(spec: dict, device=None) -> dict[str, Any]:
     resolve_device(device)
     if spec.get("cluster", {}).get("kind") == "restart":
         return run_restart_spec(spec, device=device)
-    _refuse_unported(spec)
 
     # Flush pending garbage BEFORE the deterministic run starts: suspended
     # coroutines from earlier loops (tests, prior specs) must have their

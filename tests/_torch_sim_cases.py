@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from chip_smoke import (  # noqa: F401 - re-exported for the tests
+    SIM_BACKUP_SEEDS,
     SIM_DURABLE_SEEDS,
     SIM_SEEDS,
 )
@@ -34,13 +35,16 @@ HOST = {"server:CONFLICT_SET_IMPL": "oracle",
         "server:STORAGE_ENGINE_IMPL": "memory"}
 DEVICE = {"server:CONFLICT_SET_IMPL": "gpu",
           "server:STORAGE_ENGINE_IMPL": "gpu"}
-# Seeds the port runs (no unported needs) that the JAX package itself
-# fails on the CPU with the host backends pinned, and how (ROADMAP Queue
-# 3, "To settle"): the exception it raises, or "check:<workload>" for a
-# run that ends with that workload's check failed. The [sim] seeds are
-# the first 24 runnable in-memory seeds without these, the [sim-durable]
-# seeds the first 16 runnable durable ones (a storage engine or regions)
-# and seed 168.
+# Seeds that the JAX package itself fails on the CPU with the host
+# backends pinned, and how (ROADMAP Queue 3, "To settle"): the exception
+# it raises, or "check:<workload>" for a run that ends with that
+# workload's check failed. The [sim] seeds are the first 24 in-memory
+# seeds without these that draw no backup workload, the [sim-durable]
+# seeds the first 16 such durable ones (a storage engine or regions) and
+# seed 168; the [sim-backup] seeds draw a backup workload. Of the seeds
+# that draw one, 16 and 28 fail as 163 does, 31 and 99 as 60 does, 169
+# its Attrition check and 180 its boot's coordination read; 103
+# fails as 60 does.
 REFERENCE_SIDE_FAILURES = {
     0: "check:Serializability",
     5: "TypeError: a bytes-like object is required, not 'NoneType'",
@@ -53,7 +57,20 @@ REFERENCE_SIDE_FAILURES = {
     137: "check:LowLatency",
     149: "OperationFailed: coordination quorum unavailable for write",
     163: "TypeError: a bytes-like object is required, not 'NoneType'",
+    16: "TypeError: a bytes-like object is required, not 'NoneType'",
+    28: "TypeError: a bytes-like object is required, not 'NoneType'",
+    31: "OSError: dq_push failed (record too large?)",
+    99: "OSError: dq_push failed (record too large?)",
+    103: "OSError: dq_push failed (record too large?)",
+    169: "check:Attrition",
+    180: "OperationFailed: coordination quorum unavailable for read",
 }
+
+
+def draws_backup(spec: dict) -> bool:
+    """A seed that draws BackupRestore or BackupAttrition."""
+    return any(w["name"] in ("BackupRestore", "BackupAttrition")
+               for w in spec["workloads"])
 
 
 def is_durable(spec: dict) -> bool:

@@ -264,15 +264,28 @@ def test_resolver_host_and_balancer_over_the_wire(tmp_path):
     )
 
 
-def test_flight_recorder_end_to_end(tmp_path):
+# Each package's operator shell attached to the port's role hosts: the JAX
+# package's (the reference reads the port's deployment) and the port's
+# (attached, it holds no device).
+SHELLS = ("foundationdb_tpu", "foundationdb_tpu_torch")
+
+
+def shell_class(package: str):
+    import importlib
+
+    return importlib.import_module(f"{package}.cli").Cli
+
+
+@pytest.mark.parametrize("shell", SHELLS)
+def test_flight_recorder_end_to_end(tmp_path, shell):
     """With sampling forced on in the port's client, commit through a
-    4-process port cluster; the JAX package's operator shell, attached by
-    cluster file (the port's cli.py waits for the backup tier), stitches
-    the timeline over the wire: GRV, batch attach, resolver submit and
-    verdict, tlog durability and quorum ack, reply, from >= 3 processes,
-    in causal order."""
-    from foundationdb_tpu.cli import Cli
+    4-process port cluster; the operator shell, attached by cluster file,
+    stitches the timeline over the wire: GRV, batch attach, resolver
+    submit and verdict, tlog durability and quorum ack, reply, from >= 3
+    processes, in causal order."""
     from foundationdb_tpu_torch.core.knobs import CLIENT_KNOBS
+
+    Cli = shell_class(shell)
 
     classes = ("log", "storage", "resolver", "txn")
     cf, procs = launch(tmp_path, classes, spec_extra={"n_resolvers": 1})
@@ -320,8 +333,9 @@ def test_flight_recorder_end_to_end(tmp_path):
     assert "TransactionAttach" in tailed
 
 
-def test_metrics_plane_end_to_end(tmp_path):
-    """Against a 4-process port cluster under load: the JAX package's
+@pytest.mark.parametrize("shell", SHELLS)
+def test_metrics_plane_end_to_end(tmp_path, shell):
+    """Against a 4-process port cluster under load: the shell's
     `top` renders live per-role rates from >= 3 processes, `metrics`
     answers a pattern query over the wire, the port txn host's HTTP
     exposition serves parseable Prometheus text (the port's
@@ -329,9 +343,10 @@ def test_metrics_plane_end_to_end(tmp_path):
     exemplar resolves through `trace` to a cross-process timeline."""
     import urllib.request
 
-    from foundationdb_tpu.cli import Cli
     from foundationdb_tpu_torch.core.knobs import CLIENT_KNOBS
     from test_metrics import _PROM_COMMENT, _PROM_SAMPLE
+
+    Cli = shell_class(shell)
 
     (mport,) = free_ports(1)
     classes = ("log", "storage", "resolver", "txn")

@@ -2,10 +2,10 @@
 every case of tests/test_sim_faults.py (SimulatedCluster under clogs,
 blackouts and partitions, with the port's default device backends,
 ConflictSetGPU and KeyValueStoreGPU, behind it) and every case of
-tests/test_tester_specs.py (run_spec's compound specs), plus the port's
-own refusals: specs that need the backup tier raise NotImplementedError
-naming its ROADMAP item, and without a card every entry point raises
-unless the caller asked for the CPU.
+tests/test_tester_specs.py (run_spec's compound specs); the backup
+workloads (BackupRestore, BackupAttrition) on a hand-written spec give
+the JAX package's whole result; and without a card every entry point
+raises unless the caller asked for the CPU.
 """
 
 import hashlib
@@ -224,18 +224,33 @@ def test_watches_spec_on_sharded_cluster():
     assert res["Watches"]["metrics"]["fires"] == 24
 
 
-# ------------------------------------------------------ the port's refusals
+# --------------------------------------- the backup workloads, and no card
 
 
 @pytest.mark.parametrize("name", ["BackupRestore", "BackupAttrition"])
 def test_backup_workloads_raise_naming_item_9(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        cpu_spec({"cluster": {"kind": "local"},
-                  "workloads": [{"name": name}]})
-    from foundationdb_tpu_torch.workloads.more import BackupRestoreWorkload
+    """Since the backup tier is ported the backup workloads run: a spec
+    with one of them beside Cycle gives the JAX package's whole result
+    (host backends pinned on both sides), and passes on the port's device
+    backends."""
+    from foundationdb_tpu.workloads.tester import run_spec as jax_run_spec
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        BackupRestoreWorkload(db=None)
+    spec = {"seed": 5, "buggify": True,
+            "cluster": {"kind": "sharded", "n_storage": 3, "n_logs": 1,
+                        "replication": "single"},
+            "knobs": {"server:CONFLICT_SET_IMPL": "oracle",
+                      "server:STORAGE_ENGINE_IMPL": "memory"},
+            "workloads": [{"name": "Cycle", "nodes": 8, "clients": 2,
+                           "txns": 8}, {"name": name}]}
+    want, got = jax_run_spec(spec), cpu_spec(spec)
+    assert want["ok"] and want[name]["ok"], want
+    assert set(got) == set(want)
+    for key in sorted(want):
+        assert got[key] == want[key], key
+    device = cpu_spec(dict(spec, knobs={
+        "server:CONFLICT_SET_IMPL": "gpu",
+        "server:STORAGE_ENGINE_IMPL": "gpu"}))
+    assert device["ok"] and device[name] == want[name], device
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no card")

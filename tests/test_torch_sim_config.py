@@ -6,9 +6,10 @@ draw for draw; only the two device knobs' backend names are the port's
 "tpu" draws "gpu"). So for every seed, with or without a DrawBias, the
 port's spec is the JAX package's with those names mapped, and both
 packages' coverage facets, signatures and knob buckets agree on either
-spec. `unported_needs` flags exactly the draws that need the durable
-tier (an engine, regions) or the backup tier (a backup workload), and a
-seed it clears runs on the port's knob registry as drawn.
+spec. Every draw of seeds 0-199 applies on the port's knob registry as
+drawn (the port refuses none since the backup tier is ported), and the
+smoke's seed lists are taken from the draws as before: [sim] and
+[sim-durable] from the seeds that draw no backup workload.
 """
 
 import pytest
@@ -97,52 +98,63 @@ def test_coverage_facets_signature_and_buckets_agree(chunk):
                     jcfg.knob_bucket(key, value), (seed, key)
 
 
-def expected_needs(spec: dict) -> bool:
+def draws_backup(spec: dict) -> bool:
     names = {w["name"] for w in spec["workloads"]}
     return bool(names & {"BackupRestore", "BackupAttrition"})
 
 
 def test_unported_needs_flags_exactly_engine_regions_and_backups():
-    """Since the durable tier is ported, only the backup workloads are
-    flagged: a durable engine, a datadir and regions run."""
-    runnable, durable = [], []
+    """Nothing is flagged any more: `unported_needs` is gone with the
+    last refusal, and the seeds that draw no backup workload, in order,
+    are the ones the [sim] and [sim-durable] lists were taken from
+    (unchanged); 81 of the 200 draw a backup workload, 25 of them on the
+    durable tier."""
+    assert not hasattr(pcfg, "unported_needs")
+    plain, durable, backup, backup_durable = [], [], [], []
     for seed in SEEDS:
         spec = pcfg.generate_config(seed)
-        needs = pcfg.unported_needs(spec)
-        assert bool(needs) == expected_needs(spec), (seed, needs)
         cluster = spec["cluster"]
-        item9 = [n for n in needs if "Queue 1 item 9" in n]
-        assert len(item9) == sum(
-            w["name"] in ("BackupRestore", "BackupAttrition")
-            for w in spec["workloads"]), seed
-        assert len(item9) == len(needs)
-        assert not any("Queue 1 item 7" in n for n in needs), seed
-        if not needs:
-            runnable.append(seed)
-            if cluster.get("engine") or cluster.get("regions"):
-                durable.append(seed)
-    # The seeds the port runs, in order (the smoke's [sim] list is taken
-    # from the in-memory ones, its [sim-durable] list from the durable).
-    assert runnable[:12] == [0, 1, 3, 5, 6, 10, 11, 12, 14, 15, 17, 18]
+        is_durable = bool(cluster.get("engine") or cluster.get("regions"))
+        if draws_backup(spec):
+            backup.append(seed)
+            backup_durable += [seed] if is_durable else []
+            continue
+        plain.append(seed)
+        if is_durable:
+            durable.append(seed)
+    assert plain[:12] == [0, 1, 3, 5, 6, 10, 11, 12, 14, 15, 17, 18]
     assert durable[:8] == [0, 1, 6, 10, 12, 15, 18, 27]
-    assert 100 <= len(runnable) <= 140, len(runnable)
+    assert 100 <= len(plain) <= 140, len(plain)
+    assert (len(backup), len(backup_durable)) == (81, 25)
+    assert backup[:12] == [2, 4, 7, 8, 9, 13, 16, 20, 22, 23, 24, 28]
 
 
-def test_unported_needs_of_hand_written_specs():
-    assert pcfg.unported_needs({"cluster": {"kind": "local"},
-                                "workloads": [{"name": "Cycle"}]}) == []
-    (need,) = pcfg.unported_needs(
-        {"cluster": {"kind": "restart"}, "phases": [
-            {"workloads": [{"name": "BackupRestore"}]}]})
-    assert "ROADMAP Queue 1 item 9" in need
-    for option in ("engine", "datadir", "os_layer", "regions"):
-        assert pcfg.unported_needs(
-            {"cluster": {"kind": "recoverable_sharded", option: "x"}}) == []
+def test_unported_needs_of_hand_written_specs(tmp_path):
+    """A hand-written restart spec whose second incarnation draws
+    BackupRestore runs on the port (nothing is refused) and gives the
+    JAX package's whole result, host backends pinned on both sides."""
+    from foundationdb_tpu.workloads.tester import run_spec as jax_run
+    from foundationdb_tpu_torch.workloads.tester import run_spec
+
+    cycle = {"name": "Cycle", "nodes": 8, "clients": 2, "txns": 8}
+    spec = {"seed": 11, "buggify": True,
+            "cluster": {"kind": "restart", "n_storage": 3, "n_logs": 1,
+                        "replication": "single", "engine": "memory"},
+            "knobs": {"server:CONFLICT_SET_IMPL": "oracle",
+                      "server:STORAGE_ENGINE_IMPL": "memory"},
+            "phases": [{"workloads": [cycle]},
+                       {"workloads": [cycle, {"name": "BackupRestore"}]}]}
+    want = jax_run(dict(spec, datadir=str(tmp_path / "jax")))
+    got = run_spec(dict(spec, datadir=str(tmp_path / "port")),
+                   device="cpu")
+    assert want["ok"], want
+    assert [p["BackupRestore"]["ok"] for p in want["phases"][1:]] == [True]
+    assert dict(got, datadir=None) == dict(want, datadir=None)
 
 
 @pytest.mark.parametrize("chunk", range(2))
 def test_runnable_draws_apply_on_the_port_knobs(chunk):
-    """Every knob a runnable seed draws exists in the port's registry and
+    """Every knob any seed draws exists in the port's registry and
     takes the drawn value (the backend names included); the undo puts
     every knob back."""
     from foundationdb_tpu_torch.core.knobs import CLIENT_KNOBS, SERVER_KNOBS
@@ -151,8 +163,6 @@ def test_runnable_draws_apply_on_the_port_knobs(chunk):
     before = (SERVER_KNOBS.all(), CLIENT_KNOBS.all())
     for seed in SEEDS[chunk::2]:
         spec = pcfg.generate_config(seed)
-        if pcfg.unported_needs(spec):
-            continue
         undo = _apply_knobs(spec["knobs"])
         try:
             from foundationdb_tpu_torch.resolver.factory import (
@@ -170,12 +180,14 @@ def test_runnable_draws_apply_on_the_port_knobs(chunk):
 
 
 def test_run_randomized_logs_every_seed_it_does_not_run():
+    """Seeds 2, 4 and 7 draw BackupRestore (2 and 7 on the durable tier):
+    each runs on the device backends (device="cpu") and passes, its
+    config and result logged, and none is left out."""
     lines = []
-    # Seeds 2, 4 and 7 all need an unported tier (the backup workloads):
-    # nothing runs, each is logged with its reason, and no device is
-    # touched.
-    assert pcfg.run_randomized([2, 4, 7], log=lines.append,
-                               device="cpu") == []
-    skipped = [ln for ln in lines if "not run: needs" in ln]
-    assert len(skipped) == 3
-    assert all("ROADMAP Queue 1 item 9" in ln for ln in skipped)
+    results = pcfg.run_randomized([2, 4, 7], log=lines.append,
+                                  device="cpu")
+    assert [r["ok"] for r in results] == [True] * 3
+    assert [r["BackupRestore"]["ok"] for r in results] == [True] * 3
+    for seed in (2, 4, 7):
+        assert f"[sim seed {seed}] ok=True sev_errors=0 " in lines
+    assert not [ln for ln in lines if "not run" in ln]

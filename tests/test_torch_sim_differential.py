@@ -1,8 +1,8 @@
 """The port's simulator against the JAX package's, same seed, on the CPU.
 
-- The [sim] seeds of chip_smoke.py (SIM_SEEDS) are the first 24 seeds of
-  generate_config that need no unported tier, less the two the JAX
-  package itself fails (5 and 25, ROADMAP Queue 3).
+- The [sim] seeds of chip_smoke.py (SIM_SEEDS) are the first 24 in-memory
+  seeds of generate_config that draw no backup workload, less the two
+  the JAX package itself fails (5 and 25, ROADMAP Queue 3).
 - Each of them (this file: the first half; the second half and the long
   seed 26 in tests/test_torch_sim_differential_more.py) gives the same
   whole run_spec result in both packages with the host backends pinned
@@ -12,10 +12,10 @@
 - Seed 5 fails the same way on both packages: the same exception type and
   message.
 - The CPU entry point: `python -m foundationdb_tpu_torch.server -r
-  simulation -f specs/cycle_churn.json --device cpu` exits 0; a spec that
-  needs the backup tier (specs/engine_topology_wdr.json: a durable ssd
-  cluster whose BackupRestore is not ported) exits non-zero naming ROADMAP
-  Queue 1 item 9; the deployed roles name item 8.
+  simulation -f specs/cycle_churn.json --device cpu` exits 0;
+  specs/engine_topology_wdr.json (a durable ssd cluster with
+  BackupRestore) gives the JAX package's result, the host backends pinned
+  on both sides; `-r fdbd` serves and `-r cli` serves a piped script.
 """
 
 import json
@@ -29,6 +29,7 @@ from _torch_sim_cases import (
     REFERENCE_SIDE_FAILURES,
     SIM_SEEDS,
     assert_jax_equals_port,
+    draws_backup,
     is_durable,
     jax_run,
     one_torch_thread,  # noqa: F401 - an autouse fixture
@@ -40,20 +41,20 @@ FIRST = [s for s in SIM_SEEDS[:12] if s != 26]
 
 
 def test_sim_seeds_are_the_first_runnable_seeds_the_reference_passes():
-    from foundationdb_tpu_torch.sim.config import (
-        generate_config,
-        unported_needs,
-    )
+    """Every seed runs since the backup tier is ported; the [sim] list
+    is still taken from the seeds that draw no backup workload."""
+    from foundationdb_tpu_torch.sim.config import generate_config
 
     specs = {s: generate_config(s) for s in range(200)}
-    runnable = [s for s in range(200) if not unported_needs(specs[s])
+    runnable = [s for s in range(200) if not draws_backup(specs[s])
                 and not is_durable(specs[s])]
     assert list(SIM_SEEDS) == [
         s for s in runnable if s not in REFERENCE_SIDE_FAILURES][:24]
     # every reference-side failure below the last [sim] seed is named
     assert set(runnable[:runnable.index(SIM_SEEDS[-1])]) - set(
         SIM_SEEDS) == {s for s in REFERENCE_SIDE_FAILURES
-                       if not is_durable(specs[s])}
+                       if not is_durable(specs[s])
+                       and not draws_backup(specs[s])}
 
 
 @pytest.mark.parametrize("seed", FIRST)
@@ -87,15 +88,29 @@ def test_cpu_entry_point_runs_a_spec():
 
 
 def test_cpu_entry_point_refuses_the_durable_tier(tmp_path):
-    """The durable tier runs; engine_topology_wdr.json is still refused,
-    by its BackupRestore (the backup tier)."""
-    p = run_server("-r", "simulation", "-f",
-                   "specs/engine_topology_wdr.json", "--device", "cpu")
-    assert p.returncode != 0
-    assert "NotImplementedError" in p.stdout
-    assert "BackupRestore" in p.stdout + p.stderr
-    assert "ROADMAP Queue 1 item 9" in p.stdout + p.stderr
-    # a randomized spec runs what it can and names what it cannot
+    """The durable and the backup tiers run: engine_topology_wdr.json (an
+    ssd cluster on a datadir with BackupRestore) through `-r simulation
+    --device cpu` gives the JAX package's whole result, the host backends
+    pinned on both sides; a randomized spec runs seed 2 (a durable
+    BackupRestore) and seed 3."""
+    from foundationdb_tpu.workloads.tester import run_spec
+
+    pins = {"CONFLICT_SET_IMPL": "oracle", "STORAGE_ENGINE_IMPL": "memory"}
+    path = os.path.join(ROOT, "specs", "engine_topology_wdr.json")
+    p = run_server("-r", "simulation", "-f", path, "--device", "cpu",
+                   *[a for k, v in pins.items()
+                     for a in ("--knob", f"{k}={v}")])
+    assert p.returncode == 0, p.stderr[-3000:]
+    got = json.loads(p.stdout)
+    with open(path) as f:
+        spec = json.load(f)
+    spec["knobs"].update({f"server:{k}": v for k, v in pins.items()})
+    want = json.loads(json.dumps(run_spec(spec), default=str))
+    assert want["ok"] and want["BackupRestore"]["ok"], want
+    assert set(got) == set(want)
+    for key in sorted(want):
+        assert got[key] == want[key], key
+    # a randomized spec runs every seed
     spec = tmp_path / "randomized.json"
     spec.write_text(json.dumps({"randomized": True, "seeds": [2, 3]}))
     p = run_server("-r", "simulation", "-f", str(spec), "--device", "cpu",
@@ -103,9 +118,8 @@ def test_cpu_entry_point_refuses_the_durable_tier(tmp_path):
     assert p.returncode == 0, p.stderr[-3000:]
     assert json.loads(p.stdout.strip().splitlines()[-1]) == {
         "ok": True, "seeds": [2, 3]}
-    (line,) = [ln for ln in p.stderr.splitlines()
-               if ln.startswith("[sim seed 2] not run: needs")]
-    assert "ROADMAP Queue 1 item 9" in line
+    assert "not run" not in p.stderr
+    assert "[sim seed 2] ok=True" in p.stderr
     assert "[sim seed 3] ok=True" in p.stderr
 
 
@@ -141,14 +155,20 @@ def _fdbd_serves_until_sigterm() -> None:
 
 @pytest.mark.parametrize("role", ["fdbd", "cli"])
 def test_deployed_roles_name_item_8(role):
-    """The deployed tier is ported (ROADMAP Queue 1 item 8): fdbd serves;
-    the operator shell waits for the backup tier, item 9."""
+    """The deployed tier and the operator shell are ported (ROADMAP Queue
+    1 items 8 and 9): fdbd serves; `-r cli --device cpu` serves a piped
+    script."""
     if role == "fdbd":
         _fdbd_serves_until_sigterm()
         return
-    p = run_server("-r", role)
-    assert p.returncode == 2
-    assert "ROADMAP Queue 1 item 9" in p.stderr
+    p = subprocess.run(
+        [sys.executable, "-m", "foundationdb_tpu_torch.server", "-r", role,
+         "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        input="writemode on\nset k v\nget k\nexit\n")
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert p.stdout.split("fdbtpu> ")[1:4] == [
+        "writemode on\n", "Committed\n", "`k' is `v'\n"]
 
 
 def test_entry_point_validates_the_backend_knob_eagerly():

@@ -16,6 +16,7 @@ from _torch_sim_cases import (  # noqa: F401 - one_torch_thread: autouse
     SIM_DURABLE_SEEDS,
     assert_device_equals_host,
     assert_jax_equals_port,
+    draws_backup,
     is_durable,
     one_torch_thread,
 )
@@ -24,13 +25,10 @@ FIRST = SIM_DURABLE_SEEDS[:8]
 
 
 def test_sim_durable_seeds_are_the_first_durable_seeds_the_reference_passes():
-    from foundationdb_tpu_torch.sim.config import (
-        generate_config,
-        unported_needs,
-    )
+    from foundationdb_tpu_torch.sim.config import generate_config
 
     specs = {s: generate_config(s) for s in range(200)}
-    durable = [s for s in range(200) if not unported_needs(specs[s])
+    durable = [s for s in range(200) if not draws_backup(specs[s])
                and is_durable(specs[s])]
     passing = [s for s in durable if s not in REFERENCE_SIDE_FAILURES]
     assert list(SIM_DURABLE_SEEDS) == passing[:16] + [168]
@@ -43,6 +41,21 @@ def test_sim_durable_seeds_are_the_first_durable_seeds_the_reference_passes():
     # the seeds cover both engines, regions and both cluster kinds
     drawn = [specs[s]["cluster"] for s in SIM_DURABLE_SEEDS]
     assert {c.get("engine") for c in drawn} == {None, "memory", "ssd"}
+    assert any(c.get("regions") for c in drawn)
+    assert {c["kind"] for c in drawn} == {"sharded", "recoverable_sharded"}
+
+
+def test_sim_durable_chip_seeds_cover_both_engines_regions_and_kinds():
+    """The card's cut of the list keeps an ssd seed, a memory-engine
+    seed, regions and both sharded cluster kinds."""
+    from chip_smoke import SIM_DURABLE_CHIP_DETERMINISM_SEEDS
+    from chip_smoke import SIM_DURABLE_CHIP_SEEDS as chip
+    from foundationdb_tpu_torch.sim.config import generate_config
+
+    assert set(chip) <= set(SIM_DURABLE_SEEDS)
+    assert set(SIM_DURABLE_CHIP_DETERMINISM_SEEDS) <= set(chip)
+    drawn = [generate_config(s)["cluster"] for s in chip]
+    assert {"memory", "ssd"} <= {c.get("engine") for c in drawn}
     assert any(c.get("regions") for c in drawn)
     assert {c["kind"] for c in drawn} == {"sharded", "recoverable_sharded"}
 
