@@ -5,8 +5,10 @@
 
 Phases (each prints one line; any failure exits nonzero):
 
-1. device: the card's name and power limit, the kernel build (nvcc, from
-   foundationdb_tpu_torch/csrc) and its seconds;
+1. device and build: the card's name and power limit, the kernel build
+   (nvcc, from foundationdb_tpu_torch/csrc) side by side with the native
+   host tier's and the envelope's (g++, from native/, into build/native/),
+   the seconds of each and the Python include path;
 2. probe kernel vs its plain torch version on the same CUDA tensors, bit
    exact, at edge shapes that take every branch of the kernel (unsorted
    queries, permuted blocks) and at the resolver's full-width shapes
@@ -24,7 +26,9 @@ Phases (each prints one line; any failure exits nonzero):
    submit/verdicts at depth 4; the first 2 also through
    ConflictSetGPU(device="cpu"), statuses and entries() equal. The
    probe's launch count is reset just before and read just after this run
-   and must be positive. Prints txns/s, p50/p90 batch latency and more.
+   and must be positive. Prints txns/s, p50/p90 batch latency and more;
+   then 3 batches (FULL_64K_BATCHES; 6 before) at 64K-txn chunks. The
+   main run's batches stay for phases 19-21.
 5. storage read window, one memory-engine storage process: 1,000,000 YCSB
    records (hashed keys of 5-23 bytes, 1,000-byte values) in
    KeyValueStoreGPU through make_mvcc_window("gpu"), then YCSB workload B
@@ -81,8 +85,8 @@ Phases (each prints one line; any failure exits nonzero):
 
 10. `[rankfed]`: BASELINE config 5 as in phase 4 through
    ConflictSetRankFed (keys in a sorted host mirror, one int32 version
-   vector of 2^23 slots on the card, the kernel as torch ops): 6 batches
-   (RANKFED_BATCHES; 24, 12, then 8, before) of 65,536 txns (converted to
+   vector of 2^23 slots on the card, the kernel as torch ops): 4 batches
+   (RANKFED_BATCHES; 24, 12, 8, then 6, before) of 65,536 txns (converted to
    TxnConflictInfo lists first) through
    prepare/pack/resolve_async at depth 4, one GC round on the cadence;
    the first 2 also through ConflictSetRankFed(device="cpu"), statuses
@@ -94,8 +98,8 @@ Phases (each prints one line; any failure exits nonzero):
    resolver recruited each generation through CONFLICT_SET_IMPL ("gpu"),
    its storage window KeyValueStoreGPU: Cycle over 1,000 nodes (64 x 25)
    with the transaction system killed after 25%, 50% and 75% of the
-   commits, then BASELINE config 1 as in phase 6 after a 2^17-key load
-   (2^18 before the backup phases joined the run) with kills at 1,250,
+   commits, then BASELINE config 1 as in phase 6 after a 2^16-key load
+   (2^18 before the backup phases joined the run, then 2^17) with kills at 1,250,
    2,500 and 3,750 of 5,000 commits (before: 2,500, 5,000 and 7,500 of
    10,000). Each generation's submits replay through a
    fresh ConflictSetCPU at its start version; every read reply is held
@@ -122,17 +126,17 @@ Phases (each prints one line; any failure exits nonzero):
    (RecoverableShardedCluster, 4 storage, 2 logs, double log and storage
    replication, 4 resolvers) over a temporary datadir: on the memory
    engine, 2^16 of config 1's keys loaded (cut from 2^18, PERF.md),
-   ReadWrite to 1,000 commits (DURABLE_CHIP_TARGET; 2,000 before), a
-   clean stop and a cold boot; a crash leg (250 commits, 500 before, the
-   incarnation abandoned without close) and a cold
+   ReadWrite to 500 commits (DURABLE_CHIP_TARGET; 2,000, then 1,000,
+   before), a clean stop and a cold boot; a crash leg (125 commits; 500,
+   then 250, before; the incarnation abandoned without close) and a cold
    boot; then the crash leg on the ssd engine. Every cold boot: each
    restored KeyValueStoreGPU window's entries() equal a VersionedMap
    restored from its engine's rows, one compaction per window, every key
    read back through the client equal to an independent record of the
    acknowledged writes; prints the boot's times to fully_recovered and
    to the first commit, rows restored, bytes on disk and device bytes.
-15. `[sim-durable]`: as [sim], the 4 seeds of SIM_DURABLE_CHIP_SEEDS
-   (of SIM_DURABLE_SEEDS' 17; all 17, 8, then 5, before; memory
+15. `[sim-durable]`: as [sim], the 3 seeds of SIM_DURABLE_CHIP_SEEDS
+   (of SIM_DURABLE_SEEDS' 17; all 17, 8, 5, then 4, before; memory
    and ssd engines on temporary datadirs, regions, both sharded kinds)
    and three restart specs (specs/restart_cycle.json, specs/
    upgrade_cycle.json, a power-loss restart over the simulated disk),
@@ -170,9 +174,33 @@ Phases (each prints one line; any failure exits nonzero):
    leg D: `server.py -r cli` on the card with a piped script (data,
    status json and backup verbs). The probe's launches and last
    operands per cluster; device memory back after the clusters stop.
-18. `[sim-backup]`: as [sim], the 6 seeds of SIM_BACKUP_CHIP_SEEDS (4, 8,
-   13 and 20 in memory, 2 and 9 durable; BackupRestore and
-   BackupAttrition), each against its CPU replay, 1 rerun and profiled.
+18. `[sim-backup]`: as [sim], the 4 seeds of SIM_BACKUP_CHIP_SEEDS (4 and
+   8 in memory, 2 and 9 durable; BackupRestore and BackupAttrition; 13
+   and 20 too before [swarm] joined the run), each against its CPU
+   replay, 1 rerun and profiled.
+19. `[native]`: the C++ conflict detector (ConflictSetNativeCPU,
+   native/conflict_set.cpp built with g++) on phase 4's batches at
+   phase 4's versions and GC horizon: statuses equal to ConflictSetGPU's
+   batch for batch and entries() equal after the last; txns/s and p50
+   batch ms beside the host's CPU model.
+20. `[native-sort]`: the endpoint sort of phase 4's last batch packed
+   whole (917,504 endpoints): the native radix sort's permutation equal
+   to the numpy path's (np.lexsort), both timed.
+21. `[native-envelope]`: every message registered in the port's
+   serializer encoded by the C envelope (native/envelope.cpp) and by the
+   Python codec, byte for byte, and decoded back into its class; encode
+   and decode microseconds of a 1,024-verdict ResolveBatchReply by both.
+   From here on [multiprocess] frames and checksums in C.
+22. `[swarm]`: `python -m foundationdb_tpu_torch.sim.swarm` on the card,
+   8 guided seeds (SWARM_BUDGET) from 2 spawned workers, each with its
+   own CUDA context, every seed run twice (--check-determinism: the
+   fingerprint and coverage signature repeat), every seed passing; the
+   probe's launches summed over the workers and each worker's peak
+   device memory; then specs/regressions/check_SyntheticFault_seed42.json
+   replayed on the card twice, to its recorded class with an equal
+   fingerprint and signature. The corpus goes to a temporary directory.
+
+Phases 19-21 run right after phase 4, and 22 after phase 13.
 
 Every run drives every phase, and logs each one's wall time
 (`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
@@ -241,12 +269,13 @@ SIM_CHIP_DETERMINISM_SEEDS = (17,)
 # JAX package's on the CPU.
 SIM_DURABLE_SEEDS = (1, 6, 10, 12, 15, 18, 27, 35, 39, 42, 44, 45, 50, 58,
                      59, 65, 168)
-# The card's durable seeds since [backup] joined the smoke (cut from 17
-# for the run's time, to 8 and then 4; the CPU tests still hold all 17):
-# an ssd seed (6), a sharded one (27) and two with regions (58, and 168
-# on the memory engine), one of them rerun; tests/test_torch_sim_durable.py
-# checks that it keeps both engines, regions and both sharded kinds.
-SIM_DURABLE_CHIP_SEEDS = (6, 27, 58, 168)
+# The card's durable seeds since [swarm] joined the smoke (cut from 17
+# for the run's time, to 8, to 4 and then 3; the CPU tests still hold all
+# 17): an ssd seed (6), a sharded memory-engine one (27) and one with
+# regions (58, rerun; 168, regions on the memory engine, ran until
+# [swarm] joined); tests/test_torch_sim_durable.py checks that it keeps
+# both engines, regions and both sharded kinds.
+SIM_DURABLE_CHIP_SEEDS = (6, 27, 58)
 SIM_DURABLE_CHIP_DETERMINISM_SEEDS = (58,)
 # The [sim-backup] phase's seeds, which draw BackupRestore or
 # BackupAttrition and pass on the JAX package on the CPU with the host
@@ -256,9 +285,11 @@ SIM_DURABLE_CHIP_DETERMINISM_SEEDS = (58,)
 # BackupAttrition). tests/test_torch_sim_backup*.py hold each seed's port
 # run equal to the JAX package's on the CPU. The card reruns and profiles
 # seed 2, the shortest (seed 8 under the profiler took 76.30 s on an H100
-# 80GB HBM3 at 700 W, PERF.md).
+# 80GB HBM3 at 700 W, PERF.md). Since [swarm] joined the run the card
+# runs 4 of the 6 (8 draws both workloads, 2 and 9 are the durable
+# ones); the CPU tests still hold all 6.
 SIM_BACKUP_SEEDS = (4, 8, 13, 20, 2, 9)
-SIM_BACKUP_CHIP_SEEDS = SIM_BACKUP_SEEDS
+SIM_BACKUP_CHIP_SEEDS = (4, 8, 2, 9)
 SIM_BACKUP_CHIP_DETERMINISM_SEEDS = (2,)
 # Depth cuts since [multiprocess] joined the smoke, deepened when
 # [backup] and [sim-backup] joined it: before them the whole run took
@@ -268,15 +299,19 @@ SIM_BACKUP_CHIP_DETERMINISM_SEEDS = (2,)
 # [durable] ran config 1 to 2,000 commits and its crash legs to 500;
 # [sharded-cluster] loaded 2^20 keys; [cluster], [sharded-cluster] and
 # [recovery] ran config 1 to 10,000 commits, [recovery] after a 2^18
-# load; [multiprocess] leg A loaded 2^18 keys.
+# load; [multiprocess] leg A loaded 2^18 keys. Deepened again when the
+# native phases and [swarm] joined: [rankfed] 6 batches, then 4; [full]'s
+# 64K-chunk leg 6, then 3; [recovery]'s load 2^17, then 2^16; [durable]
+# 1,000 commits and crash legs of 250, then 500 and 125.
 FULL_BATCHES = 8
-RANKFED_BATCHES = 6
+FULL_64K_BATCHES = 3
+RANKFED_BATCHES = 4
 SHARDED_CLUSTER_LOAD_KEYS = 1 << 18
 CONFIG1_CHIP_TARGET = 5_000
-RECOVERY_CHIP_LOAD_KEYS = 1 << 17
+RECOVERY_CHIP_LOAD_KEYS = 1 << 16
 MP_CHIP_LOAD_KEYS = 1 << 16
-DURABLE_CHIP_TARGET = 1000
-DURABLE_CHIP_CRASH_TARGET = 250
+DURABLE_CHIP_TARGET = 500
+DURABLE_CHIP_CRASH_TARGET = 125
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -627,7 +662,10 @@ def config5_batch(rng, n: int, version: int, space: int = 1 << 20,
 
 def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
                n_batches: int = 16, capacity: int = 1 << 21,
-               chunk: int = 8192):
+               chunk: int = 8192, keep: dict | None = None):
+    """BASELINE config 5 through ConflictSetGPU (phase 4). With `keep`, it
+    receives the main run's batches, their versions, the card's statuses
+    and entries() after them, for [native] and [native-sort]."""
     from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
     from foundationdb_tpu_torch.resolver import gpu as gpu_mod
     from foundationdb_tpu_torch.resolver import probe
@@ -709,7 +747,13 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         fail("full width: malformed statuses")
     steady = (n_batches - 2) * n_txn / (t_end - t_steady)
     lat_ms = np.asarray(lat) * 1e3
-    n_entries = len(cs.entries())
+    entries = cs.entries()
+    n_entries = len(entries)
+    if keep is not None:
+        keep.update(batches=batches, statuses=statuses, entries=entries,
+                    versions=[v0 + i * step for i in range(n_batches)],
+                    window=window, n_words=cs.n_words)
+    del entries
     log("full", card=json.dumps(card), smi=json.dumps(smi), batches=n_batches, txns_per_batch=n_txn,
         txns_per_s=f"{steady:.1f}",
         p50_batch_ms=f"{np.percentile(lat_ms, 50):.2f}",
@@ -735,7 +779,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     # Last leg, after the counts were read: the same set and traffic with
     # 64K-txn chunks (the knob's default), to see which path it takes.
     SERVER_KNOBS.TPU_MAX_CHUNK_TXNS = 65536
-    n_more = 6
+    n_more = FULL_64K_BATCHES
     comp0, fast0 = cs.compactions, cs.fast_resolves
     more = [config5_batch(rng, n_txn, v0 + (n_batches + i) * step)
             for i in range(n_more)]
@@ -3450,6 +3494,7 @@ def phase_sim(rng, smi: str = "", device=None, seeds=SIM_SEEDS,
             lambda: run_seed(specs[prof_seed], device=device, limit=limit),
             batch_ms=1e3 * walls[seeds.index(prof_seed)],
             phase=f"{name}-profile", smi=smi, host_ops=False)
+    RATES[name] = 60 * len(seeds) / sweep_s
     log(name, smi=json.dumps(smi), seeds=len(seeds), specs=len(extras),
         seeds_per_min=f"{60 * len(seeds) / sweep_s:.3f}",
         cpu_seeds_per_min=f"{60 * len(seeds) / sweep_cpu_s:.3f}",
@@ -4743,6 +4788,299 @@ def phase_backup(rng, smi: str = "", device=None, key_space: int = 1 << 20,
     return paths
 
 
+# ---------------------------------------------------------------- phases 19-22
+
+# [swarm]: the coverage-guided swarm's seeds on the card (sim/swarm.py,
+# guided from an empty corpus, each seed run twice), the workers, and the
+# regression-corpus entry replayed on the card.
+SWARM_BUDGET = 8
+SWARM_JOBS = 2
+SWARM_SEED_BASE = 0
+CORPUS_ENTRY = "specs/regressions/check_SyntheticFault_seed42.json"
+RATES: dict = {}  # phase name -> seeds per wall minute (phase_sim)
+
+
+def host_cpu() -> str:
+    """The host's CPU from /proc/cpuinfo: its model name, vendor, family
+    and model numbers and the count of logical CPUs this process sees."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        return "not readable"
+    return (f"{fields.get('model name', '?')} ({fields.get('vendor_id', '?')}"
+            f" family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')}, {len(os.sched_getaffinity(0))} "
+            "cpus)")
+
+
+def wire_columns(wb, oldest: int) -> tuple:
+    """A config-5 WireBatch as ConflictSetNativeCPU.resolve_columnar's
+    arguments after the snapshots count: rows in txn order, a tooOld
+    txn's ranges dropped (flatten_batch's admission rule). Its ranges are
+    [k, k + b"\\x00"), never empty, so no row drops for emptiness."""
+    if not ((wb.re_len == wb.rb_len + 1).all()
+            and (wb.we_len == wb.wb_len + 1).all()):
+        fail("native: the batch is not config 5's point ranges")
+    n = wb.n_txns
+    has_reads = wb.r_counts > 0
+    too_old = has_reads & (wb.snaps < oldest)
+    r_txn = np.repeat(np.arange(n, dtype=np.int32), wb.r_counts)
+    w_txn = np.repeat(np.arange(n, dtype=np.int32), wb.w_counts)
+    kr, kw = ~too_old[r_txn], ~too_old[w_txn]
+    return (np.ascontiguousarray(wb.snaps, np.int64),
+            has_reads.astype(np.uint8),
+            np.ascontiguousarray(wb.blob, np.uint8),
+            r_txn[kr], wb.rb_off[kr], wb.rb_len[kr], wb.re_off[kr],
+            wb.re_len[kr],
+            w_txn[kw], wb.wb_off[kw], wb.wb_len[kw], wb.we_off[kw],
+            wb.we_len[kw])
+
+
+def phase_native(full: dict, smi: str, card: str) -> None:
+    """[native]: the C++ conflict detector (ConflictSetNativeCPU, the
+    benchmark's CPU baseline) on [full]'s batches, at [full]'s versions
+    and GC horizon: statuses equal to ConflictSetGPU's batch for batch,
+    entries() equal after the last."""
+    from foundationdb_tpu_torch.resolver.native_cpu import (
+        ConflictSetNativeCPU,
+    )
+
+    cs = ConflictSetNativeCPU()
+    lat = []
+    n_txn = 0
+    for i, (v, wb) in enumerate(zip(full["versions"], full["batches"])):
+        t0 = time.perf_counter()
+        cols = wire_columns(wb, cs.oldest_version)
+        got = cs.resolve_columnar(v, max(0, v - full["window"]), wb.n_txns,
+                                  *cols).statuses
+        lat.append(time.perf_counter() - t0)
+        n_txn += wb.n_txns
+        if not np.array_equal(np.asarray(got, np.int64),
+                              np.asarray(full["statuses"][i], np.int64)):
+            fail(f"native: statuses differ from the card's at batch {i}")
+    entries = cs.entries()
+    if entries != full["entries"]:
+        fail("native: entries() differ from the card's after the last batch")
+    lat_ms = np.asarray(lat) * 1e3
+    log("native", smi=json.dumps(smi), card=json.dumps(card),
+        host_cpu=json.dumps(host_cpu()), batches=len(lat),
+        txns_per_batch=full["batches"][0].n_txns,
+        txns_per_s=f"{n_txn / sum(lat):.1f}",
+        p50_batch_ms=f"{np.percentile(lat_ms, 50):.2f}",
+        p90_batch_ms=f"{np.percentile(lat_ms, 90):.2f}",
+        entries=len(entries), equal=True)
+
+
+def phase_native_sort(full: dict, smi: str) -> None:
+    """[native-sort]: the endpoint sort of [full]'s last batch packed
+    whole (pack_batch_wire), once natively (fdbcs_encode_sort_order) and
+    once by the numpy path (u64 pair keys and np.lexsort): the same
+    permutation; both timed (median of 3)."""
+    from foundationdb_tpu_torch.resolver import packing
+    from foundationdb_tpu_torch.resolver.wire import pack_batch_wire
+
+    got = {}
+    real = packing._encode_sort_order
+
+    def recording(words, lt, n):
+        got.update(words=words.copy(), lt=lt.copy(), n=n)
+        return real(words, lt, n)
+
+    v, wb = full["versions"][-1], full["batches"][-1]
+    packing._encode_sort_order = recording
+    try:
+        pack_batch_wire(wb, max(0, v - full["window"]), full["n_words"])
+    finally:
+        packing._encode_sort_order = real
+    words, lt, n = got["words"], got["lt"], got["n"]
+
+    def timed(fn):
+        walls, out = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            walls.append(time.perf_counter() - t0)
+        return out, 1e3 * float(np.median(walls))
+
+    native_order, native_ms = timed(lambda: real(words, lt, n))
+    saved = packing._NATIVE_SORT_MIN
+    packing._NATIVE_SORT_MIN = 10**9
+    try:
+        numpy_order, numpy_ms = timed(lambda: real(words, lt, n))
+    finally:
+        packing._NATIVE_SORT_MIN = saved
+    if n <= packing._NATIVE_SORT_MIN:
+        fail(f"native-sort: {n} endpoints do not reach the native sort")
+    if not np.array_equal(np.asarray(native_order), np.asarray(numpy_order)):
+        fail("native-sort: the native permutation differs from np.lexsort's")
+    log("native-sort", smi=json.dumps(smi), host_cpu=json.dumps(host_cpu()),
+        endpoints=n, key_words=words.shape[1],
+        native_ms=f"{native_ms:.2f}", lexsort_ms=f"{numpy_ms:.2f}",
+        speedup=f"{numpy_ms / native_ms:.2f}", equal=True)
+
+
+def wire_instance(cls):
+    """A registered message with its declared defaults and, elsewhere,
+    plausible wire-type values drawn from its name (None if the
+    constructor refuses)."""
+    import dataclasses
+    import random
+    import zlib
+
+    rng = random.Random(zlib.crc32(cls.__name__.encode()))
+    pool = [0, -1, 2**40, 1.5, b"key", b"", "s", None, True,
+            [1, b"x"], (2, 3), {"a": 1}]
+    try:
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.default is not dataclasses.MISSING:
+                kwargs[f.name] = f.default
+            elif f.default_factory is not dataclasses.MISSING:
+                kwargs[f.name] = f.default_factory()
+            else:
+                kwargs[f.name] = rng.choice(pool)
+        return cls(**kwargs)
+    except Exception:
+        return None
+
+
+def phase_native_envelope(full: dict, smi: str) -> None:
+    """[native-envelope]: every message registered in the port's
+    serializer encoded by the C envelope and by the Python oracle, byte
+    for byte, and decoded back into its class; the encode and decode
+    microseconds of a ResolveBatchReply of [full]'s first 1,024 verdicts
+    by both."""
+    import foundationdb_tpu_torch.cluster.commit_wire  # noqa: F401
+    from foundationdb_tpu_torch.cluster.multiprocess import ResolveBatchReply
+    from foundationdb_tpu_torch.core import serialize as S
+
+    env = S._env_init()
+
+    def py_encode(v) -> bytes:
+        w = S.BinaryWriter()
+        S._encode_value_py(w, v)
+        return w.to_bytes()
+
+    covered = 0
+    for name in sorted(S._MESSAGES):
+        inst = wire_instance(S._MESSAGES[name])
+        if inst is None:
+            continue
+        blob = py_encode(inst)
+        if env.encode_value(inst) != blob:
+            fail(f"native-envelope: {name} encodes differently in C")
+        back, pos = env.decode_value(blob, 0)
+        if pos != len(blob) or type(back) is not S._MESSAGES[name] \
+                or py_encode(back) != blob:
+            fail(f"native-envelope: {name} does not decode back in C")
+        covered += 1
+    if covered < 0.8 * len(S._MESSAGES):
+        fail(f"native-envelope: only {covered} of {len(S._MESSAGES)} "
+             "messages built")
+    reply = ResolveBatchReply(statuses=tuple(
+        int(x) for x in np.asarray(full["statuses"][0])[:1024]))
+    frame = S.encode_message(reply)
+    reps = 500
+
+    def us(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / reps
+
+    enc_c = us(lambda: S.encode_message(reply))
+    dec_c = us(lambda: S.decode_message(frame))
+    enc_py = us(lambda: py_encode(reply))
+    dec_py = us(lambda: S._decode_value_py(S.BinaryReader(frame[8:])))
+    if py_encode(reply) != frame[8:] or S.decode_message(frame) != reply:
+        fail("native-envelope: the ResolveBatchReply frame differs")
+    log("native-envelope", smi=json.dumps(smi),
+        host_cpu=json.dumps(host_cpu()), messages=covered,
+        registered=len(S._MESSAGES), equal=True, reply_txns=1024,
+        frame_bytes=len(frame), encode_us=f"{enc_c:.2f}",
+        decode_us=f"{dec_c:.2f}", py_encode_us=f"{enc_py:.2f}",
+        py_decode_us=f"{dec_py:.2f}")
+
+
+def phase_swarm(smi: str, budget: int = SWARM_BUDGET,
+                jobs: int = SWARM_JOBS, seed_base: int = SWARM_SEED_BASE,
+                device=None) -> None:
+    """[swarm]: `python -m foundationdb_tpu_torch.sim.swarm` on the card,
+    guided, with --check-determinism (every seed run twice: its
+    fingerprint and coverage signature must repeat) from `jobs` spawned
+    workers, each with a CUDA context of its own, the corpus into a
+    temporary directory. Every seed passes; the probe launched in the
+    workers. Then the regression-corpus entry replays on the card in
+    this process twice, to its recorded class with an equal fingerprint
+    and signature."""
+    import shutil
+    import tempfile
+
+    from foundationdb_tpu_torch.sim.config import coverage_signature
+    from foundationdb_tpu_torch.sim.distill import run_and_classify
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="fdbtpu_swarm_"))
+    report_path = tmp / "report.json"
+    cmd = [sys.executable, "-m", "foundationdb_tpu_torch.sim.swarm",
+           "--budget", str(budget), "--jobs", str(jobs),
+           "--seed-base", str(seed_base), "--check-determinism",
+           "--corpus", str(tmp / "corpus"), "--report", str(report_path)]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=900, env=dict(os.environ,
+                                                 PYTHONHASHSEED="0"))
+        wall = time.perf_counter() - t0
+        if p.returncode != 0 or not report_path.exists():
+            fail(f"swarm: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+                 f"{p.stderr[-3000:]}")
+        report = json.loads(report_path.read_text())
+        bad = [r for r in report["records"] if r["class"] != "pass"]
+        if report["seeds_run"] != budget or bad:
+            fail(f"swarm: {len(bad)} of {report['seeds_run']} seeds did not "
+                 f"pass: {bad}")
+        if (tmp / "corpus").exists():
+            fail("swarm: a corpus entry was written for a green swarm")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = report["probe_launches"]
+    if device is None and launches <= 0:
+        fail("swarm: the probe never launched in the swarm's workers")
+    with open(root / CORPUS_ENTRY, encoding="utf-8") as f:
+        entry = json.load(f)
+    t1 = time.perf_counter()
+    res1, cls1 = run_and_classify(entry["spec"], device)
+    res2, cls2 = run_and_classify(entry["spec"], device)
+    replay_s = time.perf_counter() - t1
+    if not cls1 == cls2 == entry["expect"]:
+        fail(f"swarm: the corpus entry replayed to {cls1}, {cls2}, not "
+             f"{entry['expect']}")
+    if res1.get("fingerprint") != res2.get("fingerprint") or \
+            coverage_signature(entry["spec"], res1) \
+            != coverage_signature(entry["spec"], res2):
+        fail("swarm: the corpus entry's replays differ")
+    peaks = [round(b / 2**20, 1)
+             for b in report["device_peak_bytes_by_worker"]]
+    log("swarm", smi=json.dumps(smi), seeds=budget, jobs=jobs,
+        seed_base=seed_base, runs=2 * budget, wall_s=f"{wall:.2f}",
+        seeds_per_min=f"{60 * budget / wall:.3f}",
+        sim_seeds_per_min=(f"{RATES['sim']:.3f}" if "sim" in RATES
+                           else "not measured"),
+        distinct_buckets=report["distinct_buckets"],
+        distinct_signatures=report["distinct_signatures"],
+        probe_launches=launches, peak_reserved_mib_per_worker=peaks,
+        corpus_entry=json.dumps(CORPUS_ENTRY), corpus_class=cls1,
+        corpus_replays=2, corpus_replay_s=f"{replay_s:.2f}",
+        fingerprint_equal=True, signature_equal=True)
+
+
 def probe_entries(paths: dict, smi: str, base: dict) -> list:
     """The probe held against its plain version on each path's last
     operands, timed, with its bound: one kernel-table entry each. The
@@ -4795,12 +5133,32 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     smi = smi[0] if smi else "not readable"
-    build_s = _build.build_all()
+    # The kernel (nvcc) and the native host tier and envelope (g++) build
+    # side by side; then the envelope is set up before anything
+    # serializes.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from foundationdb_tpu_torch import native
+    from foundationdb_tpu_torch.storage_engine import _native
+
+    with ThreadPoolExecutor(1) as ex:
+        host_build = ex.submit(_native.build_host_tier)
+        build_s = _build.build_all()
+        native_s = host_build.result()
+    native.prepare()
+    build_wall = time.perf_counter() - t_start
     ptxas = _build.ptxas_summary(_build.BUILD_LOG.get("probe", ""))
     log("device", name=json.dumps(card), smi=json.dumps(smi),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
         ptxas=json.dumps(ptxas))
+    log("build", probe_nvcc_s=f"{build_s:.2f}",
+        host_tier_gxx_s=f"{native_s['libfdbtpu_native']:.2f}",
+        envelope_gxx_s=f"{native_s['fdbtpu_envelope']:.2f}",
+        wall_s=f"{build_wall:.2f}", py_include=json.dumps(_native.PY_INCLUDE),
+        host_tier=json.dumps(_native.host_path().name),
+        envelope=json.dumps(_native.envelope_path().name),
+        host_cpu=json.dumps(host_cpu()))
 
     base = {
         "name": "probe_ranks",
@@ -4822,8 +5180,10 @@ def main() -> int:
     phase_wall("probe")
     phase_narrow(rng)
     phase_wall("narrow")
+    full_keep = {}
     launches, cap, full_rate = phase_full(rng, card, smi,
-                                          n_batches=FULL_BATCHES)
+                                          n_batches=FULL_BATCHES,
+                                          keep=full_keep)
     # The probe held against its plain version on the main path's
     # inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
@@ -4840,6 +5200,13 @@ def main() -> int:
                         bound_ms=bound_ms, bound_by=bound_by))
     del cap, h, f, q
     phase_wall("full")
+    phase_native(full_keep, smi, card)
+    phase_wall("native")
+    phase_native_sort(full_keep, smi)
+    phase_wall("native-sort")
+    phase_native_envelope(full_keep, smi)
+    phase_wall("native-envelope")
+    del full_keep
     # The storage path, and the probe held against its plain version on
     # each leg's last operands (W1 = n_words + 2, queries in request
     # order).
@@ -4886,6 +5253,8 @@ def main() -> int:
         rng, smi, seeds=SIM_CHIP_SEEDS,
         det_seeds=SIM_CHIP_DETERMINISM_SEEDS), smi, base)
     phase_wall("sim")
+    phase_swarm(smi)
+    phase_wall("swarm")
     kernels += probe_entries(phase_durable(
         rng, smi, target=DURABLE_CHIP_TARGET,
         crash_target=DURABLE_CHIP_CRASH_TARGET), smi, base)

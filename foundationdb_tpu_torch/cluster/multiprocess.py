@@ -32,8 +32,9 @@ windows (KeyValueStoreGPU, one per tag), the resolver host's per-
 generation ConflictSetGPUs, and the conflict set a txn host recruits in
 its own process when the deployment has no resolver class. The log hosts
 hold no device state. Each host on the card is a CUDA context of its own;
-`run_role_host` builds the kernels and warms the card before the host
-announces itself (`warm_device`). Every role host's MetricRegistry reads
+`run_role_host` builds the native wire path (`native.prepare`), the
+kernels, and warms the card before the host announces itself
+(`warm_device`). Every role host's MetricRegistry reads
 the probe's launch count in its process as the gauge
 `probe.launches_total`, and its CUDA context and the bytes its caching
 allocator holds on the card as `device.contexts_count` and
@@ -2249,8 +2250,13 @@ def run_role_host(role_class: str, cluster_file: str, datadir: str,
     stanza). A class that holds device state (`holds_device`) resolves
     and warms `device` (None: the CUDA card) first, so without a card it
     raises before it publishes anything."""
+    from .. import native
     from ..net.transport import real_loop_with_transport
 
+    # The native CRC and envelope are built and loaded before the host
+    # serializes anything: a g++ run inside a first RPC would outlast the
+    # controller's health probe and start a recovery.
+    native.prepare()
     dev = warm_device(device) if holds_device(role_class) else None
     spec = None
     while spec is None:

@@ -8,10 +8,11 @@ same names and defaults, except where the port's backends differ:
 - STORAGE_ENGINE_IMPL takes "memory" | "gpu" (the JAX package's "tpu"
   is not a port backend) and defaults to "gpu": the port's entry points
   run on the CUDA card unless the caller asks otherwise;
-- CONFLICT_SET_IMPL takes "gpu" | "oracle" (the JAX package's "native"
-  and "tpu" are not port backends and raise) and defaults to "gpu", for
-  the same reason; the recovery tier recruits each generation's resolvers
-  through it (resolver/factory.py make_conflict_set);
+- CONFLICT_SET_IMPL takes "gpu" | "native" | "oracle" (the JAX
+  package's "tpu" is not a port backend and raises) and defaults to
+  "gpu" (the JAX package: "native"), for the same reason; the recovery
+  tier recruits each generation's resolvers through it
+  (resolver/factory.py make_conflict_set);
 - there is no probe-implementation knob: the device of the state tensors
   picks the probe (the hand-written CUDA kernel on the card, its plain
   torch version on the CPU), see resolver/probe.py.
@@ -102,7 +103,7 @@ class ServerKnobs(Knobs):
         # proxy could serve to this many ms, far below any recovery time.
         init("GRV_CACHE_STALENESS_MS", 0.0, sim_random_range=(0.0, 20.0))
         # Conflict-set backend recruited by the recovery tier (resolver/
-        # factory.py): gpu | oracle. The port's entry points run on the
+        # factory.py): gpu | native | oracle. The port's entry points run on the
         # CUDA card unless asked, so the default is the card's set.
         init("CONFLICT_SET_IMPL", "gpu")
         # Device resolver: batch-size buckets warmed ahead of time; a

@@ -135,13 +135,27 @@ def _make_table() -> list[int]:
 _CRC_TABLE = _make_table()
 
 
-def crc32c(data: bytes, crc: int = 0) -> int:
-    """Pure-python table CRC32C (ref: hardware crc32c,
-    fdbrpc/crc32c.cpp). The port has no native fast path."""
+def _crc32c_py(data: bytes, crc: int = 0) -> int:
+    """Pure-python table CRC32C, the oracle of the native one (ref:
+    hardware crc32c, fdbrpc/crc32c.cpp)."""
     c = crc ^ 0xFFFFFFFF
     for b in data:
         c = _CRC_TABLE[(c ^ b) & 0xFF] ^ (c >> 8)
     return c ^ 0xFFFFFFFF
+
+
+_CRC = None
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32C of `data` by the native slice-by-8 code (native.py, built
+    at first use; a failed build raises), the value of _crc32c_py."""
+    global _CRC
+    if _CRC is None:
+        from ..native import crc32c as native_crc32c
+
+        _CRC = native_crc32c
+    return _CRC(data, crc)
 
 
 class BinaryWriter:
@@ -385,11 +399,47 @@ def _decode_value_py(r: BinaryReader) -> Any:
     raise ValueError(f"bad wire tag {tag}")
 
 
+# -- native envelope --
+#
+# fdbtpu_envelope (native/envelope.cpp, a CPython extension built by
+# storage_engine/_native.py) walks the same tagged grammar in C, byte for
+# byte the functions above: the Python pair stays as the differential
+# oracle (tests/test_torch_serialize_native.py). Initialization is lazy
+# because the extension needs the live registries plus Promise/FdbError,
+# whose modules import this one; native.prepare() runs it ahead of the
+# first message. A failed build raises: nothing falls back to Python.
+
+_ENV = None
+_ENV_INIT = False
+
+
+def _env_init():
+    global _ENV, _ENV_INIT
+    from ..native import load_envelope
+    from .errors import FdbError, error_for_code
+    from .runtime import Promise
+
+    mod = load_envelope()
+    mod.setup(_MESSAGES, _ENUMS, Promise, FdbError, error_for_code, IntEnum)
+    _ENV, _ENV_INIT = mod, True
+    return mod
+
+
 def encode_value(w: BinaryWriter, v: Any) -> None:
-    _encode_value_py(w, v)
+    env = _ENV if _ENV_INIT else _env_init()
+    if env is not None:
+        w.raw(env.encode_value(v))
+    else:
+        _encode_value_py(w, v)
 
 
 def decode_value(r: BinaryReader) -> Any:
+    env = _ENV if _ENV_INIT else _env_init()
+    # The C decoder wants a contiguous bytes buffer; readers over
+    # memoryviews or bytearrays stay on the Python path.
+    if env is not None and type(r._buf) is bytes:
+        obj, r._pos = env.decode_value(r._buf, r._pos)
+        return obj
     return _decode_value_py(r)
 
 

@@ -15,7 +15,9 @@
   port of foundationdb_tpu.resolver.rankfed.ConflictSetRankFed.
 
 Recruitment goes through `make_conflict_set` (factory.py), driven by
-SERVER_KNOBS.CONFLICT_SET_IMPL ("gpu" | "oracle").
+SERVER_KNOBS.CONFLICT_SET_IMPL ("gpu" | "native" | "oracle");
+`ConflictSetNativeCPU` (native_cpu.py) is the C++ conflict detector on
+the host.
 """
 
 from .types import (  # noqa: F401

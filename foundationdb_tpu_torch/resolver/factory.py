@@ -7,17 +7,20 @@ foundationdb_tpu/resolver/factory.py):
   gpu     the block-sparse conflict set on the CUDA card (gpu.py); pass
           device="cpu" to run its plain torch version on the CPU. The
           default: the port's entry points run on the card unless asked.
+  native  the C++ conflict detector on the host (native_cpu.py,
+          native/conflict_set.cpp built with g++ at first use; a failed
+          build raises).
   oracle  the pure-Python step function (cpu.py), the differential
           reference.
 
-The JAX package's "native" and "tpu" are not port backends. Unknown names
-raise with the known list: a typo must not silently recruit another
-backend, and nothing falls back from the card to the CPU.
+The JAX package's "tpu" is not a port backend. Unknown names raise with
+the known list: a typo must not silently recruit another backend, and
+nothing falls back from the card to the CPU.
 """
 
 from __future__ import annotations
 
-KNOWN_CONFLICT_SET_IMPLS = ("gpu", "oracle")
+KNOWN_CONFLICT_SET_IMPLS = ("gpu", "native", "oracle")
 
 
 def validate_conflict_set_impl(name: str | None = None) -> str:
@@ -48,6 +51,10 @@ def make_conflict_set(init_version: int = 0, impl: str | None = None,
         from .gpu import ConflictSetGPU
 
         return ConflictSetGPU(init_version, device=device, **kw)
+    if name == "native":
+        from .native_cpu import ConflictSetNativeCPU
+
+        return ConflictSetNativeCPU(init_version)
     from .cpu import ConflictSetCPU
 
     return ConflictSetCPU(init_version)

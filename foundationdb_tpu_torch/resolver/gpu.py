@@ -36,6 +36,7 @@ and the CPU oracle's bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Sequence
 
@@ -1009,6 +1010,30 @@ def _pc() -> float:
     return time.perf_counter()
 
 
+def _precede(chunk, version: int):
+    """`chunk` (txn objects or a WireBatch) with every read snapshot at or
+    past `version` lowered to version - 1. A later chunk of a batch sees
+    the earlier chunks' committed writes as history stamped `version`, and
+    a read conflicts with history written after its snapshot: a snapshot
+    at the batch's own version (a lag of 0, which config 5's generator
+    draws) would miss the intra-batch conflict that one unchunked batch
+    (and the oracle) reports. No write of an earlier batch is newer than
+    version - 1, so nothing else changes, and tooOld (a snapshot below the
+    oldest version, itself below `version`) stays as it was."""
+    from .wire import WireBatch
+
+    if isinstance(chunk, WireBatch):
+        if chunk.n_txns and int(chunk.snaps.max()) >= version:
+            chunk = dataclasses.replace(
+                chunk, snaps=np.minimum(chunk.snaps, version - 1))
+        return chunk
+    if any(t.read_snapshot >= version for t in chunk):
+        chunk = [TxnConflictInfo(min(t.read_snapshot, version - 1),
+                                 t.read_ranges, t.write_ranges)
+                 for t in chunk]
+    return chunk
+
+
 class ResolveHandle:
     """One submitted batch in flight (ConflictSetGPU.submit): the chunked
     PendingResolves plus per-stage timing. Consume exactly once with
@@ -1323,7 +1348,9 @@ class ConflictSetGPU:
 
     def _chunks(self, txns: Sequence[TxnConflictInfo]):
         """Split a batch into chunks bounded by the knob caps (txn count and
-        total range count); chunked resolution at one version is exact."""
+        total range count); chunked resolution at one version is exact
+        once every later chunk's snapshots precede the version
+        (_precede)."""
         max_txns = SERVER_KNOBS.TPU_MAX_CHUNK_TXNS
         max_ranges = SERVER_KNOBS.TPU_MAX_CHUNK_RANGES
         out: list[list[TxnConflictInfo]] = []
@@ -1391,6 +1418,8 @@ class ConflictSetGPU:
         pack_ms = dispatch_ms = 0.0
         for i, ch in enumerate(chunks):
             tp = _pc()
+            if i:
+                ch = _precede(ch, version)
             pb = packer(ch)
             td = _pc()
             pack_ms += (td - tp) * 1e3

@@ -202,13 +202,53 @@ class StickyCaps:
         return m
 
 
+_sort_native = None
+
+
+def _load_sort_native():
+    """ctypes handle to the native endpoint radix sort (conflict_set.cpp
+    fdbcs_encode_sort_order), built at first use by
+    storage_engine/_native.py. A failed build raises: above the size
+    rule below nothing falls back to np.lexsort."""
+    global _sort_native
+    if _sort_native is None:
+        from ..storage_engine import _native
+
+        _sort_native = _native.load_host()
+    return _sort_native
+
+
+# Below this row count the numpy path wins (the native call's overhead
+# and the extra ascontiguousarray copy): a size rule, not a fallback.
+# Tests set it to 0 to force the native path on small inputs, and to
+# 10**9 for the numpy one.
+_NATIVE_SORT_MIN = 4096
+
+
 def _encode_sort_order(words: np.ndarray, lt: np.ndarray,
                        n: int) -> np.ndarray:
     """Endpoint sort order by (key words first-to-last, len<<3|tag),
-    straight off the packed int32 word matrix: adjacent word pairs become
-    host-side uint64 keys (sign-flipped so unsigned order is byte order)
-    and one stable np.lexsort orders them, the len<<3|tag column last."""
+    straight off the packed int32 word matrix. Above _NATIVE_SORT_MIN
+    rows one native call (fdbcs_encode_sort_order, a stable LSD radix
+    sort over the sign-flipped words) orders them; below it, adjacent
+    word pairs become host-side uint64 keys and _sort_order orders them.
+    Both give the same stable permutation."""
     n_words = words.shape[1] if words.ndim == 2 else 0
+    if n > _NATIVE_SORT_MIN:
+        import ctypes
+
+        lib = _load_sort_native()
+        wc = np.ascontiguousarray(words, dtype=np.int32)
+        l32 = np.ascontiguousarray(lt, dtype=np.uint32)
+        out = np.empty(n, dtype=np.int32)
+        lib.fdbcs_encode_sort_order(
+            wc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n_words,
+            l32.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            n,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        )
+        return out
     raw = words.view(np.uint32) ^ np.uint32(0x80000000)
     pair_keys = []
     for j in range(0, n_words, 2):
@@ -221,6 +261,15 @@ def _encode_sort_order(words: np.ndarray, lt: np.ndarray,
         if j + 1 < n_words:
             pv[:, 0] = raw[:, j + 1]
         pair_keys.append(pair)
+    return _sort_order(pair_keys, lt, n)
+
+
+def _sort_order(pair_keys: list, lt: np.ndarray, n: int) -> np.ndarray:
+    """Endpoint sort order by (uint64 key-word pairs, len<<3|tag): one
+    stable np.lexsort, the len<<3|tag column last. (The JAX package also
+    radix-sorts single-pair keys natively here; above _NATIVE_SORT_MIN
+    the port's rows never reach this function, fdbcs_encode_sort_order
+    ordering every key width.)"""
     return np.lexsort((lt,) + tuple(reversed(pair_keys)))
 
 
@@ -446,7 +495,7 @@ class FusedLayout:
     measured 20-40 MB/s link this halves the bytes of a point-range
     batch; the added decode is ~a dozen device ops.
 
-    The sort itself (np.lexsort) happens on host — XLA's TPU multi-operand
+    The sort itself (_encode_sort_order) happens on host — XLA's TPU multi-operand
     sort is catastrophically slow to compile (405 s measured for a
     5-operand sort) and the endpoints are materialized host-side anyway.
     """
@@ -607,9 +656,8 @@ def _pack_rows(
             np.full(nr, TAG_RB, np.int32),
         ]
     )
-    # Sort by (words..., len, tag): adjacent word pairs compose into
-    # host-side uint64 keys and one stable lexsort orders them (see
-    # _encode_sort_order).
+    # Sort by (words..., len, tag): one stable sort, the native radix
+    # sort above _NATIVE_SORT_MIN rows (see _encode_sort_order).
     lt = (lens << 3) | tags  # fits int32 (len <= 14 bits)
     order = _encode_sort_order(words, lt, P_act)
     inv = np.empty(P_act, np.int32)

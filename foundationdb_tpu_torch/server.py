@@ -63,7 +63,7 @@ def _apply_knobs(knob_args: list[str]) -> None:
         else:
             raise SystemExit(f"unknown knob {name}")
     # Value-level validation of enum-shaped knobs, EAGERLY at startup: a
-    # typo'd CONFLICT_SET_IMPL (or the JAX package's "native"/"tpu") must
+    # typo'd CONFLICT_SET_IMPL (or the JAX package's "tpu") must
     # fail the process here with the known-impl list, not deep inside a
     # resolver's recruitment.
     from .resolver.factory import validate_conflict_set_impl

@@ -134,7 +134,8 @@ _KNOB_RANGES = [
 # Cycle+Attrition specs through the block-sparse kernel (and, with the
 # randomized TPU_MAX_TOUCHED_BLOCKS above, through its compaction
 # fallback). The JAX package's weights are kept, its "native" and "tpu"
-# both draw the port's gpu backend, so most seeds run on the card.
+# both draw the port's gpu backend, so most seeds run on the card (the
+# port's own "native" set is never drawn: the seed lists stay as they are).
 _KNOB_CHOICES = [
     ("CONFLICT_SET_IMPL", "server", ("gpu", "gpu", "oracle", "gpu")),
     # r8: proxies ship resolve batches as columnar wire bytes (or not) —

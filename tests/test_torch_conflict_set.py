@@ -157,6 +157,32 @@ def test_chunked_submit_matches_oracle(low_compaction, monkeypatch):
     assert port.fast_resolves > 0
 
 
+@pytest.mark.parametrize("wire", [False, True])
+def test_chunked_read_at_the_batch_version_conflicts(wire, monkeypatch):
+    """A read whose snapshot is the batch's own version (a lag of 0) of a
+    key an earlier chunk committed conflicts, as in one unchunked batch
+    and in the oracle; history of earlier batches still does not."""
+    monkeypatch.setattr(PKNOBS, "TPU_MAX_CHUNK_TXNS", 2)
+    v = 2000
+    raw_prev = [(900, [], [(key(7), key(7) + b"\x00")])]
+    raw = [
+        (v - 50, [], [(key(1), key(1) + b"\x00")]),       # chunk 0 writes 1
+        (v - 50, [], []),
+        (v, [(key(1), key(1) + b"\x00")], []),            # chunk 1: conflict
+        (v + 5, [(key(7), key(7) + b"\x00")], [(key(9), key(9) + b"\x00")]),
+        (v, [(key(9), key(9) + b"\x00")], []),            # chunk 2: conflict
+    ]
+    ora = ConflictSetCPU()
+    port = ConflictSetGPU(max_key_bytes=8, initial_capacity=256, device="cpu")
+    for version, batch in ((1000, raw_prev), (v, raw)):
+        want = ora.resolve(version, 0, txns(batch, True)).statuses
+        objs = txns(batch, False)
+        h = port.submit(version, 0, PWire.from_txns(objs) if wire else objs)
+        assert port.verdicts(h) == want
+    assert want == [0, 0, 1, 0, 1]
+    assert port.entries() == ora.entries()
+
+
 def test_hand_over_mid_stream_from_tpu_state(low_compaction):
     """Three batches on ConflictSetTPU, its state handed to
     ConflictSetGPU.from_state, three more on both: identical."""
@@ -247,5 +273,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert isinstance(make_conflict_set(impl="gpu", device="cpu"),
                       ConflictSetGPU)
     assert isinstance(make_conflict_set(impl="oracle"), PortOracle)
+    # the C++ conflict detector runs on the host and needs no card
+    from foundationdb_tpu_torch.resolver.native_cpu import (
+        ConflictSetNativeCPU,
+    )
+
+    assert isinstance(make_conflict_set(impl="native"), ConflictSetNativeCPU)
     with pytest.raises(ValueError):
-        make_conflict_set(impl="native", device="cpu")
+        make_conflict_set(impl="tpu", device="cpu")

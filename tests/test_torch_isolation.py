@@ -55,3 +55,29 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_the_port_loads_no_library_under_native():
+    """The port builds its own libraries into build/native/ and never
+    loads the JAX package's `make` products (native/*.so): after the
+    host tier, the envelope, the durable tier and the C client are loaded
+    in a fresh process, no file under native/ is mapped."""
+    code = (
+        "from foundationdb_tpu_torch import native\n"
+        "from foundationdb_tpu_torch.resolver.native_cpu import "
+        "ConflictSetNativeCPU\n"
+        "from foundationdb_tpu_torch.storage_engine import _native\n"
+        "native.prepare()\n"
+        "ConflictSetNativeCPU(0)\n"
+        "_native.load(); _native.load_c_client()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print('\\n'.join(sorted({ln.split()[-1] for ln in maps.splitlines()"
+        " if ln.rstrip().endswith('.so')})))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    mapped = out.stdout.split()
+    ours = [p for p in mapped if p.startswith(str(ROOT / "build" / "native"))]
+    assert len(ours) == 4, mapped
+    assert not [p for p in mapped if p.startswith(str(ROOT / "native"))]

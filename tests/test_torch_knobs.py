@@ -7,7 +7,8 @@ name for name and default for default, but for the port's recorded
 departures (the storage engine's and the conflict set's backends, with
 the card as their default; no probe knob); a randomized draw under one
 seed equals the JAX package's; the storage-engine knob rejects "tpu" and
-unknown names, the conflict-set knob "native", "tpu" and unknown names.
+unknown names, the conflict-set knob "tpu" and unknown names ("native"
+recruits the port's C++ conflict detector).
 """
 
 import pytest
@@ -39,7 +40,9 @@ EARLIER_SERVER = {
 }
 # Where the port's registry differs from the JAX package's, and why: the
 # storage window's and the conflict set's backends are the port's (the
-# card is the default of both); the device picks the probe.
+# card is the default of both: the JAX package's conflict-set default is
+# "native", which the port also has, but its entry points run on the
+# card unless asked); the device picks the probe.
 DEPARTURES = {"STORAGE_ENGINE_IMPL": "gpu", "CONFLICT_SET_IMPL": "gpu"}
 JAX_ONLY = {"TPU_PROBE_KERNEL"}
 
@@ -108,18 +111,26 @@ def test_no_probe_knob():
 
 
 def test_conflict_set_impl_takes_gpu_or_oracle(monkeypatch):
+    """gpu (the default), native and oracle recruit the port's three
+    sets; the JAX package's "tpu" and unknown names raise."""
     from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
     from foundationdb_tpu_torch.resolver.factory import (
         make_conflict_set,
         validate_conflict_set_impl,
     )
     from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+    from foundationdb_tpu_torch.resolver.native_cpu import (
+        ConflictSetNativeCPU,
+    )
 
     assert ServerKnobs().CONFLICT_SET_IMPL == "gpu"
     assert isinstance(make_conflict_set(device="cpu"), ConflictSetGPU)
     monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", "oracle")
     assert isinstance(make_conflict_set(), ConflictSetCPU)
-    for bad in ("native", "tpu", "rocksdb", ""):
+    monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", "native")
+    assert validate_conflict_set_impl() == "native"
+    assert isinstance(make_conflict_set(), ConflictSetNativeCPU)
+    for bad in ("tpu", "rocksdb", ""):
         with pytest.raises(ValueError):
             validate_conflict_set_impl(bad)
         monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", bad)

@@ -3,9 +3,11 @@
 foundationdb_tpu_torch keeps its own copies of resolver/packing.py and
 resolver/wire.py (it imports nothing of foundationdb_tpu); the fused
 buffers they build must equal the JAX package's bit for bit, or the two
-kernels would not see the same batch. The port sorts endpoints with
-np.lexsort only; the JAX package may take its native radix sort on large
-batches, so one case is large enough to reach it.
+kernels would not see the same batch. Both packages sort endpoints with
+the native radix sort (native/conflict_set.cpp) above _NATIVE_SORT_MIN
+rows and with numpy below it; the permutations are equal at every key
+width, duplicates included, and a port build with no g++ raises rather
+than lexsorting.
 """
 
 import struct
@@ -155,3 +157,64 @@ def test_block_state_helpers_identical():
     assert [ppack.next_bucket(x) for x in range(1, 3000, 37)] == [
         jpack.next_bucket(x) for x in range(1, 3000, 37)
     ]
+
+
+def sort_case(rng, n, n_words):
+    """A word matrix (with duplicate rows, so ties test stability) and the
+    len<<3|tag column."""
+    words = rng.integers(-2**31, 2**31, size=(n, n_words),
+                         dtype=np.int64).astype(np.int32)
+    if n > 8:
+        words[n // 2:] = words[: n - n // 2]
+    lt = rng.integers(0, 1 << 17, size=n).astype(np.uint32)
+    return words, lt
+
+
+@pytest.mark.parametrize("n_words", range(1, 9))
+def test_native_sort_equals_numpy_and_the_jax_package(n_words, monkeypatch):
+    """_encode_sort_order on the native path (_NATIVE_SORT_MIN 0) and the
+    numpy path (10**9) gives one permutation, the JAX package's."""
+    rng = np.random.default_rng(100 + n_words)
+    for n in (1, 7, 300, 2500, 5000):
+        words, lt = sort_case(rng, n, n_words)
+        monkeypatch.setattr(ppack, "_NATIVE_SORT_MIN", 10**9)
+        numpy_order = np.asarray(ppack._encode_sort_order(words, lt, n))
+        monkeypatch.setattr(ppack, "_NATIVE_SORT_MIN", 0)
+        native_order = np.asarray(ppack._encode_sort_order(words, lt, n))
+        jax_order = np.asarray(jpack._encode_sort_order(words, lt, n))
+        np.testing.assert_array_equal(native_order, numpy_order)
+        np.testing.assert_array_equal(jax_order, numpy_order)
+
+
+def test_pack_batch_over_the_native_threshold_equals_the_jax_package():
+    """A batch of more than _NATIVE_SORT_MIN endpoints takes the native
+    sort in both packages; the fused buffers are byte-equal, and equal to
+    the port's numpy-sorted buffer."""
+    rng = np.random.default_rng(21)
+    jt, pt = both(raw_batch(rng, 2500, 1000, space=5000))
+    port = ppack.pack_batch(pt, 600, 3)
+    assert 2 * port.n_reads + 2 * port.n_writes > ppack._NATIVE_SORT_MIN
+    assert_same_packed(jpack.pack_batch(jt, 600, 3), port)
+    saved = ppack._NATIVE_SORT_MIN
+    try:
+        ppack._NATIVE_SORT_MIN = 10**9
+        assert_same_packed(ppack.pack_batch(pt, 600, 3), port)
+    finally:
+        ppack._NATIVE_SORT_MIN = saved
+
+
+def test_native_sort_with_no_compiler_raises(tmp_path, monkeypatch):
+    """No g++ on PATH and no library built: above the threshold the sort
+    raises, naming g++, rather than lexsorting; below it numpy sorts."""
+    from foundationdb_tpu_torch.storage_engine import _native
+
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(_native, "_host", None)
+    monkeypatch.setattr(ppack, "_sort_native", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    words, lt = sort_case(np.random.default_rng(3), 6000, 3)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        ppack._encode_sort_order(words, lt, 6000)
+    monkeypatch.setattr(ppack, "_NATIVE_SORT_MIN", 10**9)
+    assert len(ppack._encode_sort_order(words, lt, 6000)) == 6000
+    assert not (tmp_path / "out").exists()

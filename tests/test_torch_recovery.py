@@ -8,8 +8,8 @@ every generation, with coordination, leader election and discovery.
   "gpu" (ConflictSetGPU and KeyValueStoreGPU, device="cpu") and "oracle"
   (ConflictSetCPU and the VersionedMap window);
 - the cases of tests/test_conflict_factory.py under the port's names:
-  the factory builds gpu | oracle, reads the knob, and refuses the JAX
-  package's "native" and "tpu" and a typo;
+  the factory builds gpu | native | oracle, reads the knob, and refuses
+  the JAX package's "tpu" and a typo;
 - a same-seed differential against the JAX package: each package's
   RecoverableCluster under its own sim_loop(seed), two controllers,
   Cycle with two kills of the transaction system, must give identical
@@ -503,7 +503,7 @@ def test_quorum_blip_keeps_last_known_endpoints(psim, backend):
 
 
 def test_factory_selects_each_impl():
-    assert KNOWN_CONFLICT_SET_IMPLS == ("gpu", "oracle")
+    assert KNOWN_CONFLICT_SET_IMPLS == ("gpu", "native", "oracle")
     assert isinstance(make_conflict_set(0, impl="oracle"), ConflictSetCPU)
     cs = make_conflict_set(0, impl="gpu", device="cpu")
     assert isinstance(cs, ConflictSetGPU) and cs.device.type == "cpu"
@@ -511,9 +511,23 @@ def test_factory_selects_each_impl():
                       ConflictSetGPU)
 
 
-@pytest.mark.parametrize("bad", ["native", "tpu", "skiplist", ""])
+def test_factory_recruits_native(monkeypatch):
+    """The name "native" (the JAX package's default) recruits the port's
+    C++ conflict detector, by argument and by the knob, at init_version."""
+    from foundationdb_tpu_torch.resolver.native_cpu import (
+        ConflictSetNativeCPU,
+    )
+
+    assert validate_conflict_set_impl("Native") == "native"
+    cs = make_conflict_set(5, impl="native")
+    assert isinstance(cs, ConflictSetNativeCPU) and cs.entries() == [(b"", 5)]
+    monkeypatch.setattr(SERVER_KNOBS, "CONFLICT_SET_IMPL", "native")
+    assert isinstance(make_conflict_set(0), ConflictSetNativeCPU)
+
+
+@pytest.mark.parametrize("bad", ["tpu", "skiplist", ""])
 def test_factory_refuses_jax_backends_and_typos(bad, monkeypatch):
-    with pytest.raises(ValueError, match="gpu\\|oracle"):
+    with pytest.raises(ValueError, match="gpu\\|native\\|oracle"):
         validate_conflict_set_impl(bad)
     with pytest.raises(ValueError):
         make_conflict_set(0, impl=bad, device="cpu")

@@ -173,6 +173,7 @@ def test_deployed_roles_name_item_8(role):
 
 def test_entry_point_validates_the_backend_knob_eagerly():
     p = run_server("-r", "simulation", "-f", "specs/cycle_churn.json",
-                   "--device", "cpu", "--knob", "CONFLICT_SET_IMPL=native")
+                   "--device", "cpu", "--knob", "CONFLICT_SET_IMPL=tpu")
     assert p.returncode != 0
-    assert "unknown CONFLICT_SET_IMPL 'native'" in p.stderr
+    assert "unknown CONFLICT_SET_IMPL 'tpu'" in p.stderr
+    assert "gpu|native|oracle" in p.stderr
