@@ -57,22 +57,23 @@ Phases (each prints one line; any failure exits nonzero):
    Prints committed txns per wall second, batch sizes and latencies,
    the pipeline stages, profiled batches and the idle share.
 7. BASELINE config 4 standalone, `[sharded]`: ShardedConflictSetGPU with
-   4 shards over uniform 8-byte keys in 2^20 (boundaries at the
-   quarters), 5 point reads + 2 point writes per txn and on every 7th
-   txn one read range drawn over the whole space, snapshots lagging U[0,
-   100,000), the GC horizon version - 131,072, 2^19 slots per shard: 40
-   batches of 8,192 txns through submit/verdicts at depth 4 (the
-   version 8,192 on per batch) and one profiled, then 6 batches of
-   65,536. ShardedConflictSetCPU's four shards replay every batch in four
-   processes; every batch's statuses and each leg's shard_entries() must
-   equal theirs; the probe launches 4 times per fast-path batch; every
-   submit's syncs are audited.
+   4 shards, one per device (`devices=`, shard s on card s % the
+   machine's cards: all four on one card here), over uniform 8-byte keys
+   in 2^20 (boundaries at the quarters), 5 point reads + 2 point writes
+   per txn and on every 7th txn one read range drawn over the whole
+   space, snapshots lagging U[0, 100,000), the GC horizon version -
+   131,072, 2^19 slots per shard: 40 batches of 8,192 txns through
+   submit/verdicts at depth 4 (the version 8,192 on per batch) and one
+   profiled, then 6 batches of 65,536. ShardedConflictSetCPU's four
+   shards replay every batch in four processes; every batch's statuses
+   and each leg's shard_entries() must equal theirs; the probe launches
+   4 times per fast-path batch; every submit's syncs are audited.
 8. `[cluster-sharded]`: the port's LocalCluster with a 4-shard
-   ShardedConflictSetGPU as its resolver, split at the Cycle keys of
-   nodes 250, 500 and 750; Cycle over 1,000 nodes (64 clients x 25
-   txns); every resolve batch replayed through ShardedConflictSetCPU's
-   four shards (four processes), every read reply checked, every
-   submit's syncs audited.
+   ShardedConflictSetGPU (placed as in phase 7) as its resolver, split at
+   the Cycle keys of nodes 250, 500 and 750; Cycle over 1,000 nodes (64
+   clients x 25 txns); every resolve batch replayed through
+   ShardedConflictSetCPU's four shards (four processes), every read
+   reply checked, every submit's syncs audited.
 9. `[sharded-cluster]`: ShardedKVCluster(n_storage=4, n_logs=2,
    replication="double", n_resolvers=4), storage shards and resolvers
    split at rw_key(2^18), rw_key(2^19) and rw_key(3 * 2^18), under
@@ -200,7 +201,17 @@ Phases (each prints one line; any failure exits nonzero):
    replayed on the card twice, to its recorded class with an equal
    fingerprint and signature. The corpus goes to a temporary directory.
 
-Phases 19-21 run right after phase 4, and 22 after phase 13.
+23. `[multichip]`: the root entry points of __graft_entry_torch__.py:
+   entry()'s fn(*args) on the card equal to the same call on the CPU,
+   every output element for element; dryrun_multichip(8) (8 shards, shard
+   s on card s % count, three steps each equal to ShardedConflictSetCPU)
+   under the launch tap; a 4-shard set placed with devices= and one with
+   device= on the same 6 config-4 batches of 8,192 txns: statuses,
+   shard_entries() and the merged st_aux bytes equal. It draws its data
+   from a seed of its own.
+
+Phases 19-21 run right after phase 4, 22 after phase 13 and 23 after
+phase 8.
 
 Every run drives every phase, and logs each one's wall time
 (`[phase-wall]`). The oracle replays of phases 6-12 share one mechanism,
@@ -211,7 +222,7 @@ shards by check_replays.
 
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
-cluster-sharded, sharded-cluster-resolver, sharded-cluster-storage,
+cluster-sharded, multichip, sharded-cluster-resolver, sharded-cluster-storage,
 recovery-resolver, recovery-storage, sharded-recovery-resolver,
 sim-resolver, sim-storage, durable-resolver, durable-storage,
 sim-durable-resolver, sim-durable-storage, multiprocess-resolver,
@@ -1839,6 +1850,40 @@ def check_replays(name: str, verdicts, results) -> None:
             fail(f"{name}: resolve batch {i} differs from its oracle replay")
 
 
+def shard_placement(device, n_shards: int) -> list[str]:
+    """One device per shard, the JAX mesh's counterpart: shard s on card
+    s % (the machine's cards), so one card holds every shard and four
+    cards one each; every shard on the CPU for a CPU rehearsal."""
+    import torch
+
+    if device is not None and torch.device(device).type == "cpu":
+        return ["cpu"] * n_shards
+    count = torch.cuda.device_count()
+    return [f"cuda:{s % count}" for s in range(n_shards)]
+
+
+def allocated_mib(devices) -> float:
+    """Device memory this process has allocated, MiB, summed over the
+    distinct cards among `devices` (0 on the CPU)."""
+    import torch
+
+    cards = {torch.device(d) for d in devices if torch.device(d).type
+             == "cuda"}
+    return sum(torch.cuda.memory_allocated(d) for d in cards) / 2**20
+
+
+def log_placement(name: str, cs) -> None:
+    """Where a sharded set's shards lie, beside the machine's card count."""
+    from collections import Counter
+
+    import torch
+
+    log(f"{name}-placement", devices=json.dumps([str(d) for d in cs.devices]),
+        shards_per_device=json.dumps(Counter(str(d) for d in cs.devices)),
+        device_count=(torch.cuda.device_count()
+                      if torch.cuda.is_available() else 0))
+
+
 def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                   n_batches: int = 40, big_txn: int = 65536,
                   big_batches: int = 6, space: int = 1 << 20,
@@ -1873,8 +1918,10 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                         config4_arrays(rng, n, v, space, lag)))
         legs.append(leg)
 
+    devices = shard_placement(device, S)
     cs = ShardedConflictSetGPU(bounds, max_key_bytes=9,
-                               initial_capacity=capacity, device=device)
+                               initial_capacity=capacity, devices=devices)
+    log_placement("sharded", cs)
     with StreamingReplays(boundaries=bounds) as replays, \
             ProbeTap() as tap:
         got, entries, runs = [], [], []
@@ -1984,6 +2031,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
     log("sharded-check", smi=json.dumps(smi), batches=len(got),
         statuses_equal=True, entries_equal=True, oracle_processes=S,
         oracle_wait_s=f"{t_wait:.2f}",
+        allocated_mib=f"{allocated_mib(cs.devices):.1f}",
         phase_s=f"{time.perf_counter() - t_phase:.2f}")
     if card and launches <= 0:
         fail("sharded: the probe kernel was not launched on the main path")
@@ -2038,7 +2086,8 @@ def phase_cluster_sharded(rng, smi: str = "", device=None, nodes: int = 1000,
             ProbeTap() as tap:
         cs = RecordingConflictSet(ShardedConflictSetGPU(
             bounds, max_key_bytes=16, initial_capacity=capacity,
-            device=device), replays.send)
+            devices=shard_placement(device, 4)), replays.send)
+        log_placement("cluster-sharded", cs.cs)
         with loop_context(loop):
             cluster = LocalCluster(conflict_set=cs, device=device)
             win = CheckedWindow(cluster.storage.data, "cluster-sharded")
@@ -2101,6 +2150,81 @@ def phase_cluster_sharded(rng, smi: str = "", device=None, nodes: int = 1000,
         sync_audit("cluster-sharded", cs.syncs, cs.known, cs.sites)
     log("cluster-sharded-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
     return tap.paths(**{"cluster-sharded": "resolver"})
+
+
+def phase_multichip(rng, smi: str = "", device=None, n_txn: int = 8192,
+                    n_batches: int = 6, space: int = 1 << 20,
+                    window: int = 131072, lag: int = 100_000,
+                    capacity: int = 1 << 19):
+    """The root entry points of __graft_entry_torch__.py and the
+    per-device placement: entry()'s fn(*args) on the card equal to the
+    same call with device="cpu", every output element for element;
+    dryrun_multichip(8) (shard s on card s % count) under the launch tap;
+    then a 4-shard set placed with devices= and one placed with device=
+    on the same n_batches config-4 batches of n_txn txns: statuses,
+    shard_entries() and the merged st_aux bytes equal. Returns the
+    probe's operands and launches in the dry run."""
+    import torch
+
+    import __graft_entry_torch__ as graft
+    from foundationdb_tpu_torch.resolver.sharded import ShardedConflictSetGPU
+
+    t_phase = time.perf_counter()
+    default_knobs()
+    dev = torch.device("cuda" if device is None else device)
+    fn, args = graft.entry(device=device)
+    out = [o.cpu() for o in fn(*args)]
+    fn_c, args_c = graft.entry(device="cpu")
+    want = fn_c(*args_c)
+    for i, (a, b) in enumerate(zip(out, want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"multichip: entry() output {i} on {dev} differs from "
+                 "the CPU's")
+    log("multichip-entry", outputs=json.dumps([list(o.shape) for o in out]),
+        device=json.dumps(str(args[0].device)), equal_to_cpu=True)
+
+    with ProbeTap() as tap:
+        t0 = time.perf_counter()
+        steps = graft.dryrun_multichip(8, device=device)
+        dry_s = time.perf_counter() - t0
+    launches = tap.launches["resolver"]
+    log("multichip-dryrun", smi=json.dumps(smi), shards=8, steps=len(steps),
+        statuses_equal=True, probe_launches=launches,
+        wall_s=f"{dry_s:.2f}")
+    if dev.type == "cuda" and (launches <= 0 or launches % 8):
+        fail(f"multichip: {launches} probe launches in the dry run, not a "
+             "positive multiple of its 8 shards")
+
+    bounds = [k8(space // 4), k8(space // 2), k8(3 * space // 4)]
+    kw = dict(max_key_bytes=9, initial_capacity=capacity)
+    by_devices = ShardedConflictSetGPU(bounds, devices=shard_placement(
+        device, 4), **kw)
+    by_device = ShardedConflictSetGPU(bounds, device=device, **kw)
+    log_placement("multichip", by_devices)
+    v = 2_000_000
+    for b in range(n_batches):
+        v += n_txn
+        txns = config4_txns(config4_arrays(rng, n_txn, v, space, lag))
+        oldest = max(0, v - window)
+        ha = by_devices.submit(v, oldest, txns)
+        hb = by_device.submit(v, oldest, txns)
+        st_a, st_b = ha.st.cpu(), hb.st.cpu()
+        if st_a.dtype != torch.int8 or not torch.equal(st_a, st_b):
+            fail(f"multichip: batch {b}: merged st_aux bytes differ between "
+                 "devices= and device=")
+        if by_devices.verdicts(ha) != by_device.verdicts(hb):
+            fail(f"multichip: batch {b}: statuses differ between devices= "
+                 "and device=")
+    if by_devices.shard_entries() != by_device.shard_entries():
+        fail("multichip: shard_entries() differ between devices= and "
+             "device=")
+    log("multichip-placements", batches=n_batches, txns_per_batch=n_txn,
+        statuses_equal=True, st_aux_bytes_equal=True, entries_equal=True,
+        fast_resolves=by_devices.fast_resolves,
+        compactions=by_devices.compactions,
+        allocated_mib=f"{allocated_mib(by_devices.devices):.1f}",
+        phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    return tap.paths(multichip="resolver")
 
 
 def phase_sharded_cluster(rng, smi: str = "", device=None,
@@ -5231,6 +5355,8 @@ def main() -> int:
                             rng, smi, target=CONFIG1_CHIP_TARGET)),
                         ("sharded", phase_sharded),
                         ("cluster-sharded", phase_cluster_sharded),
+                        ("multichip", lambda rng, smi: phase_multichip(
+                            np.random.default_rng(SEED + 12), smi)),
                         ("sharded-cluster", lambda rng, smi:
                          phase_sharded_cluster(
                              rng, smi, load_keys=SHARDED_CLUSTER_LOAD_KEYS,

@@ -5,7 +5,8 @@
   hand-written CUDA kernel of probe.py / csrc/probe.cu.
 - `ConflictSetCPU` (cpu.py): the exact step-function oracle.
 - `ShardedConflictSetGPU` (sharded.py): S resolver shards over a key-space
-  partition, stacked on one device (BASELINE config 4), the port of
+  partition, each on its own device (`devices=`, the JAX mesh's
+  counterpart; repeats allowed) (BASELINE config 4), the port of
   foundationdb_tpu.resolver.sharded.ShardedConflictSetTPU;
   `ShardedConflictSetCPU` is its oracle, `shard_key_ranges` and
   `clip_txns_to_shard` the partition helpers both share.

@@ -13,34 +13,38 @@ exactly.
 Per-txn status combine is max over shards: COMMITTED=0 < CONFLICT=1 <
 TOO_OLD=2, so any-conflict aborts and any-too-old dominates.
 
-`ShardedConflictSetGPU` holds the same stacked block-sparse state as the
-JAX package's ShardedConflictSetTPU, with the `resolvers` mesh axis as the
-leading axis of tensors on one device:
+`ShardedConflictSetGPU` holds the same block-sparse state per shard as
+the JAX package's ShardedConflictSetTPU, each shard's on its own device
+(`devices=`, one per shard, the counterpart of the 1-D `resolvers` mesh;
+entries may repeat, so one card holds every shard):
 
-  hmat    (S, n_words+2, NB*B)  key words, key length, version offset
-  counts  (S, NB)               live entries per block (<= B-1)
-  fences  (S, n_words+1, NB)    each block's minimum live key
-  btree   (S, 2*NB)             per-shard block-max segment trees
-  n       (S,)                  live entries per shard (superset counts)
+  hmat[s]    (n_words+2, NB*B)  key words, key length, version offset
+  counts[s]  (NB,)              live entries per block (<= B-1)
+  fences[s]  (n_words+1, NB)    each block's minimum live key
+  btree[s]   (2*NB,)            the shard's block-max segment tree
+  n[s]       ()                 live entries of the shard (superset count)
 
 What differs from the JAX package, and why:
 
-- The per-device body of each shard_map step is a loop over the S shards
-  that runs gpu._resolve_block_kernel_impl (the fast step) or
-  gpu._compact_resolve_impl (the compaction) on each shard's slice of the
-  stack. The fast kernel updates its slices of hmat/counts/btree in place,
-  so the writes land in the stacked tensors; the compaction's fresh
-  outputs are stacked again.
-- `lax.pmax` over the shard axis becomes a signed int8 amax over the
-  stacked st_aux vectors: the merged bytes (statuses, the 4 LE bytes of n
-  that the max mangles, overflow, phase-2 rounds) equal JAX's byte for
-  byte, so last_p2_iters is the max over shards. Its D2H starts at
-  dispatch behind a CUDA event; verdicts() is the designated sync.
+- The per-device body of each shard_map step runs once per shard, on the
+  shard's device: gpu._resolve_block_kernel_impl (the fast step, which
+  updates hmat/counts/btree in place) or gpu._compact_resolve_impl (the
+  compaction, whose fresh outputs replace the shard's tensors). The same
+  loop runs whether the devices repeat or not.
+- `lax.pmax` over the shard axis becomes a copy of every shard's st_aux
+  to devices[0] and a signed int8 amax there: the merged bytes
+  (statuses, the 4 LE bytes of n that the max mangles, overflow,
+  phase-2 rounds) equal JAX's byte for byte, so last_p2_iters is the max
+  over shards. Only the host reads the merged vector, so no collective is
+  needed. Its D2H starts at dispatch behind a CUDA event; verdicts() is
+  the designated sync.
+- Shards on one device share one H2D of their fused buffers per batch,
+  and one readback per compaction (_refresh_mirror).
 - Block growth stays on the device (a pad block uploaded from pinned
   memory); only _phase2_fixed_point (one host read per round group, per
-  shard), _refresh_mirror (one read per compaction) and _grow_width make
-  a host read on the dispatch path. The handle's p2_syncs counts the
-  phase-2 reads.
+  shard: shards on separate cards wait for each other's reads),
+  _refresh_mirror and _grow_width make a host read on the dispatch path.
+  The handle's p2_syncs counts the phase-2 reads.
 - The state's device picks the probe (the CUDA kernel on the card, its
   plain version on the CPU); there is no probe knob.
 """
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from ..core.knobs import CLIENT_KNOBS, SERVER_KNOBS
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..kv.keys import KeyRange
 from . import gpu
 from ._ops import I32
@@ -215,19 +219,43 @@ class ShardedResolveHandle:
         self.consumed = False
         self.p2_syncs = p2_syncs
         self._host, self._event = gpu._start_d2h(st)
-        self._keep = keep  # pinned H2D source, alive until the event
+        self._keep = keep  # pinned H2D sources, alive until the event
+
+
+def shard_devices(n_shards: int, device=None,
+                  devices=None) -> list[torch.device]:
+    """One torch.device per shard: `devices`, exactly n_shards of them
+    (repeats allowed: the JAX mesh's counterpart, which needs exactly one
+    device per shard), or `device` for every shard (None: the card). A
+    card named without an index is the current one, so that equal
+    placements compare equal. Passing both raises."""
+    if devices is None:
+        devs = [resolve_device(device)] * n_shards
+    elif device is not None:
+        raise ValueError("pass device= (every shard) or devices= (one per "
+                         "shard), not both")
+    else:
+        devs = [resolve_device(d) for d in devices]
+        if len(devs) != n_shards:
+            raise ValueError(
+                f"need exactly {n_shards} devices, one per shard, got "
+                f"{len(devs)}"
+            )
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs]
 
 
 class ShardedConflictSetGPU:
-    """Multi-resolver conflict set with S block-sparse shards stacked on
-    one device (ConflictSetCPU contract per shard, max-merged verdicts).
+    """Multi-resolver conflict set with S block-sparse shards, shard s on
+    devices[s] (ConflictSetCPU contract per shard, max-merged verdicts).
 
     submit() clips and packs per shard on the host to one common layout,
     ranks each shard's write endpoints against that shard's fence mirror,
     then runs the touched-block fast kernel on every shard between
     compactions, or the compaction on every shard together (NB stays
-    common). `device=None` means the CUDA card; without one it raises
-    unless the caller passes device="cpu".
+    common). `devices` places one shard per entry; `device` places them
+    all on one device. With neither, every shard goes on the CUDA card;
+    without one it raises unless the caller passes "cpu".
     """
 
     def __init__(
@@ -239,10 +267,11 @@ class ShardedConflictSetGPU:
         min_capacity: int = 64,
         block_slots: int | None = None,
         device=None,
+        devices=None,
     ):
-        self.device = resolve_device(device)
         self.boundaries = list(boundaries)
         self.n_shards = len(self.boundaries) + 1
+        self._place(shard_devices(self.n_shards, device, devices))
         self.n_words = max(1, (max_key_bytes + 3) // 4)
         self.max_key_bytes = 4 * self.n_words
         self.B = next_pow2(
@@ -265,11 +294,8 @@ class ShardedConflictSetGPU:
         # Every shard gets the empty-key sentinel: shard-local histories
         # are independent step functions over the full key axis; clipping
         # guarantees only in-shard keys are ever queried or merged.
-        self.hmat = self._dev(np.broadcast_to(hmat, (S,) + hmat.shape))
-        self.counts = self._dev(np.broadcast_to(counts, (S,) + counts.shape))
-        self.fences = self._dev(np.broadcast_to(fences, (S,) + fences.shape))
-        self.btree = self._dev(np.broadcast_to(btree, (S,) + btree.shape))
-        self.n = self._dev(np.ones(S, dtype=np.int32))
+        self._set_state([hmat] * S, [counts] * S, [fences] * S, [btree] * S,
+                        [np.int32(1)] * S)
         w0, l0 = pack_keys([b""], self.n_words)
         enc0 = encode_packed_words(w0, l0)
         self._fences_enc = [enc0.copy() for _ in range(S)]
@@ -278,8 +304,25 @@ class ShardedConflictSetGPU:
         self._since_compact = 0
         self._init_host_state()
 
+    def _place(self, devices: list[torch.device]) -> None:
+        self.devices = devices
+        self.device = devices[0]  # where the merged verdicts land
+        groups: dict = {}
+        for s, d in enumerate(devices):
+            groups.setdefault(d, []).append(s)
+        self._groups = list(groups.items())  # (device, its shards)
+
+    def _set_state(self, hmat, counts, fences, btree, n) -> None:
+        """Each shard's arrays (host data, one per shard) onto its
+        device."""
+        def put(arrs):
+            return [gpu.to_device(a, d) for a, d in zip(arrs, self.devices)]
+
+        self.hmat, self.counts, self.fences, self.btree, self.n = (
+            put(x) for x in (hmat, counts, fences, btree, n))
+
     def _init_host_state(self) -> None:
-        self._pending_mirror = None  # (fences_dev, counts_dev) after compact
+        self._pending_mirror = None  # (fences, counts) lists after compact
         self._steps: set = set()     # distinct (kind, layout, dims) steps
         self._sticky = StickyCaps()
         self.last_p2_iters = None
@@ -292,18 +335,20 @@ class ShardedConflictSetGPU:
         self.mirror_reads = 0  # fence/count readbacks (one host read each)
 
     @classmethod
-    def from_state(cls, state: dict, device=None) -> "ShardedConflictSetGPU":
+    def from_state(cls, state: dict, device=None,
+                   devices=None) -> "ShardedConflictSetGPU":
         """Rebuild a set from another implementation's state (plain numpy
-        arrays and ints): the stacked hmat, counts, fences, btree and n,
-        the per-shard host mirror _fences_enc (a list) and _fills (S, NB),
-        NB, B, n_words, _base, oldest_version, _since_compact and
-        boundaries (optional: min_NB). A JAX ShardedConflictSetTPU handed
+        arrays and ints): the stacked hmat, counts, fences, btree and n
+        (leading axis: the shards), the per-shard host mirror _fences_enc
+        (a list) and _fills (S, NB), NB, B, n_words, _base,
+        oldest_version, _since_compact and boundaries (optional: min_NB),
+        split onto the shards' devices. A JAX ShardedConflictSetTPU handed
         over mid-stream (with its mirror refreshed) continues
         identically."""
         cs = cls.__new__(cls)
-        cs.device = resolve_device(device)
         cs.boundaries = list(state["boundaries"])
         cs.n_shards = len(cs.boundaries) + 1
+        cs._place(shard_devices(cs.n_shards, device, devices))
         cs.n_words = int(state["n_words"])
         cs.max_key_bytes = 4 * cs.n_words
         cs.B = int(state["B"])
@@ -312,32 +357,28 @@ class ShardedConflictSetGPU:
         cs.min_NB = int(state.get("min_NB", min(8, cs.NB)))
         cs.oldest_version = int(state["oldest_version"])
         cs._base = int(state["_base"])
-        cs.hmat = cs._dev(state["hmat"])
-        cs.counts = cs._dev(state["counts"])
-        cs.fences = cs._dev(state["fences"])
-        cs.btree = cs._dev(state["btree"])
-        cs.n = cs._dev(state["n"])
         S = cs.n_shards
+        hmat = np.asarray(state["hmat"])
         want = (S, cs.n_words + 2, cs.NB * cs.B)
-        if tuple(cs.hmat.shape) != want:
-            raise ValueError(f"hmat shape {tuple(cs.hmat.shape)} does not "
+        if hmat.shape != want:
+            raise ValueError(f"hmat shape {hmat.shape} does not "
                              f"match (shards, n_words+2, NB*B) = {want}")
         if len(state["_fences_enc"]) != S:
             raise ValueError("one fence mirror per shard is needed")
+        cs._set_state(hmat, np.asarray(state["counts"]),
+                      np.asarray(state["fences"]),
+                      np.asarray(state["btree"]), np.asarray(state["n"]))
         cs._fences_enc = [np.asarray(e).copy() for e in state["_fences_enc"]]
         cs._fills = np.asarray(state["_fills"], dtype=np.int64).copy()
         cs._since_compact = int(state["_since_compact"])
         cs._init_host_state()
         return cs
 
-    def _dev(self, arr) -> torch.Tensor:
-        return gpu.to_device(arr, self.device)
-
     # -- introspection --
 
     @property
     def capacity(self) -> int:
-        """Per-shard slot capacity (the stacked state is S x this)."""
+        """Per-shard slot capacity (the whole state is S x this)."""
         return self.NB * self.B
 
     @property
@@ -354,52 +395,56 @@ class ShardedConflictSetGPU:
         """Per-shard canonicalized step functions (absolute versions) —
         bit-identical to the sharded CPU oracle's shard_entries() at any
         point, compactions pending or not."""
-        hmat = self.hmat.cpu().numpy()
-        counts = self.counts.cpu().numpy()
         return [
-            gpu.canonical_entries(hmat[s], counts[s], self.n_words, self.B,
-                                  self._base, self.oldest_version)
-            for s in range(self.n_shards)
+            gpu.canonical_entries(h.cpu().numpy(), c.cpu().numpy(),
+                                  self.n_words, self.B, self._base,
+                                  self.oldest_version)
+            for h, c in zip(self.hmat, self.counts)
         ]
 
     # -- host mirror --
 
     def _refresh_mirror(self) -> None:
         """Materialize a compaction's fence/count readback into the host
-        mirrors (ONE small D2H per compaction, paid lazily here)."""
+        mirrors (ONE small D2H per device per compaction, paid lazily
+        here)."""
         if self._pending_mirror is None:
             return
-        fences_dev, counts_dev = self._pending_mirror
+        fences, counts = self._pending_mirror
         self._pending_mirror = None
-        self.mirror_reads += 1
-        S, W = self.n_shards, self.n_words
-        nb = counts_dev.shape[1]
-        both = torch.cat(
-            [counts_dev.reshape(-1), fences_dev.reshape(-1)]
-        ).cpu().numpy()
-        counts = both[: S * nb].reshape(S, nb)
-        fw = both[S * nb:].reshape(S, W + 1, nb)
-        self._fences_enc = [
-            gpu.fence_mirror(fw[s], W, int((counts[s] > 0).sum()))
-            for s in range(S)
-        ]
-        self._fills = counts.astype(np.int64)
+        W = self.n_words
+        nb = counts[0].shape[0]
+        fills = np.zeros((self.n_shards, nb), dtype=np.int64)
+        for _, shards in self._groups:
+            self.mirror_reads += 1
+            k = len(shards)
+            both = torch.cat(
+                [counts[s] for s in shards]
+                + [fences[s].reshape(-1) for s in shards]
+            ).cpu().numpy()
+            cg = both[: k * nb].reshape(k, nb)
+            fw = both[k * nb:].reshape(k, W + 1, nb)
+            for i, s in enumerate(shards):
+                self._fences_enc[s] = gpu.fence_mirror(
+                    fw[i], W, int((cg[i] > 0).sum()))
+                fills[s] = cg[i]
+        self._fills = fills
 
     # -- growth --
 
     def _grow_blocks(self, NB_out: int) -> None:
-        """Append pad blocks to every shard, on the device (no host read):
+        """Append pad blocks to every shard, on its device (no host read):
         the compaction this growth precedes rebuilds fences and btree."""
         S = self.n_shards
         pad = (NB_out - self.NB) * self.B
-        block = self._dev(state_pad_block(self.n_words, pad))
-        self.hmat = torch.cat(
-            [self.hmat, block.unsqueeze(0).expand(S, -1, -1)], dim=2
-        )
-        self.counts = torch.cat([
-            self.counts,
-            torch.zeros((S, NB_out - self.NB), dtype=I32, device=self.device),
-        ], dim=1)
+        block = state_pad_block(self.n_words, pad)
+        pads = {d: gpu.to_device(block, d) for d, _ in self._groups}
+        self.hmat = [torch.cat([h, pads[d]], dim=1)
+                     for h, d in zip(self.hmat, self.devices)]
+        self.counts = [
+            torch.cat([c, torch.zeros(NB_out - self.NB, dtype=I32, device=d)])
+            for c, d in zip(self.counts, self.devices)
+        ]
         self._fills = np.concatenate(
             [self._fills, np.zeros((S, NB_out - self.NB), dtype=np.int64)],
             axis=1,
@@ -420,19 +465,45 @@ class ShardedConflictSetGPU:
             next_pow2((min_key_bytes + 3) // 4, minimum=self.n_words * 2),
             next_pow2((cap + 3) // 4),
         )
-        S, W = self.n_shards, self.n_words
-        widened = np.stack([widen_state(h, W, new_words)
-                            for h in self.hmat.cpu().numpy()])
-        fw2 = gpu.widen_fences(self.fences.cpu().numpy(), W, new_words)
+        W = self.n_words
+        widened = [widen_state(h.cpu().numpy(), W, new_words)
+                   for h in self.hmat]
+        fw2 = [gpu.widen_fences(f.cpu().numpy(), W, new_words)
+               for f in self.fences]
+        counts = [c.cpu().numpy() for c in self.counts]
         self.n_words = new_words
         self.max_key_bytes = 4 * new_words
-        self.hmat = self._dev(widened)
-        self.fences = self._dev(fw2)
-        counts = self.counts.cpu().numpy()
+        self.hmat = [gpu.to_device(h, d)
+                     for h, d in zip(widened, self.devices)]
+        self.fences = [gpu.to_device(f, d) for f, d in zip(fw2, self.devices)]
         self._fences_enc = [
-            gpu.fence_mirror(fw2[s], new_words, int((counts[s] > 0).sum()))
-            for s in range(S)
+            gpu.fence_mirror(f, new_words, int((c > 0).sum()))
+            for f, c in zip(fw2, counts)
         ]
+
+    # -- transfers --
+
+    def _upload(self, bufs: list):
+        """Every shard's fused buffer on its device: ONE H2D per device,
+        of its shards' buffers stacked. Returns (per-shard tensors, the
+        pinned sources to keep alive until the copies complete)."""
+        fused, keep = [None] * self.n_shards, []
+        for d, shards in self._groups:
+            t, k = gpu.upload(np.stack([bufs[s] for s in shards]), d)
+            keep.append(k)
+            for i, s in enumerate(shards):
+                fused[s] = t[i]
+        return fused, keep
+
+    def _merge(self, sts: list) -> torch.Tensor:
+        """The proxy-side verdict merge, lax.pmax's counterpart: every
+        shard's st_aux copied to devices[0] (no copy where it lies there
+        already), then a signed byte max over the whole vector. Any
+        shard's CONFLICT/TOO_OLD wins."""
+        d0 = self.devices[0]
+        return torch.stack(
+            [st.to(d0, non_blocking=True) for st in sts]
+        ).amax(dim=0)
 
     # -- resolution --
 
@@ -443,9 +514,10 @@ class ShardedConflictSetGPU:
         txns: Sequence[TxnConflictInfo],
     ) -> ShardedResolveHandle:
         """Dispatch one batch WITHOUT waiting for its verdicts: clip, pack
-        and rank on the host, one H2D of the stacked fused buffers, then
-        the fast kernel (or the compaction) on every shard and the verdict
-        merge, all enqueued. Consume with verdicts()."""
+        and rank on the host, one H2D per device of its shards' fused
+        buffers, then the fast kernel (or the compaction) on every shard,
+        each on its own device, and the verdict merge, all enqueued.
+        Consume with verdicts()."""
         from .wire import WireBatch
 
         syncs0 = gpu.P2_SYNCS
@@ -483,7 +555,7 @@ class ShardedConflictSetGPU:
                                flat=f)
                     for local, f in zip(per_shard, flats)
                 ]
-                # Shards share ONE layout (one stacked buffer), but
+                # Shards share ONE layout (one step shape), but
                 # explicit-end counts are only known after packing: repack
                 # against the widest shard's buckets if they diverged.
                 if len({pb.layout.key() for pb in packed}) > 1:
@@ -549,19 +621,18 @@ class ShardedConflictSetGPU:
             for pb in packed:
                 pb.set_scalars(version_off, oldest_off)
                 gpu.rebase_snapshots(pb.buf, lay, delta)
-            fused, keep = gpu.upload(np.stack([pb.buf for pb in packed]),
-                                     self.device)
+            fused, keep = self._upload([pb.buf for pb in packed])
             self._steps.add(("cmp", lay.key(), self.NB, NB_out, self.B))
             t_disp = gpu._pc()
-            outs = [
-                gpu._compact_resolve_impl(
-                    self.hmat[s], self.counts[s], fused[s], lay=lay,
-                    NB=self.NB, NB_out=NB_out, B=self.B,
-                )
-                for s in range(S)
-            ]
+            outs = []
+            for s in range(S):
+                with on_device(self.devices[s]):
+                    outs.append(gpu._compact_resolve_impl(
+                        self.hmat[s], self.counts[s], fused[s], lay=lay,
+                        NB=self.NB, NB_out=NB_out, B=self.B,
+                    ))
             (self.hmat, self.counts, self.btree, self.fences, self.n,
-             st) = (torch.stack(x) for x in zip(*outs))
+             sts) = (list(x) for x in zip(*outs))
             self.NB = NB_out
             self._base = oldest_eff
             self._since_compact = 0
@@ -580,29 +651,25 @@ class ShardedConflictSetGPU:
                                    oldest_off, delta)
                 for pb, t in zip(packed, touched_l)
             ]
-            fused, keep = gpu.upload(np.stack(bufs), self.device)
+            fused, keep = self._upload(bufs)
             self._steps.add(("blk", lay.key(), K, self.NB, self.B))
             t_disp = gpu._pc()
-            n_out, sts = [], []
+            sts = []
             for s in range(S):
-                # hmat/counts/btree slices are updated in place.
-                _, _, _, n_s, st_s = gpu._resolve_block_kernel_impl(
-                    self.hmat[s], self.counts[s], self.btree[s],
-                    self.fences[s], self.n[s], fused[s],
-                    lay=lay, K=K, NB=self.NB, B=self.B,
-                )
-                n_out.append(n_s)
+                # hmat/counts/btree are updated in place.
+                with on_device(self.devices[s]):
+                    _, _, _, self.n[s], st_s = gpu._resolve_block_kernel_impl(
+                        self.hmat[s], self.counts[s], self.btree[s],
+                        self.fences[s], self.n[s], fused[s],
+                        lay=lay, K=K, NB=self.NB, B=self.B,
+                    )
                 sts.append(st_s)
-            self.n = torch.stack(n_out)
-            st = torch.stack(sts)
             for s in range(S):
                 self._fills[s, : len(self._fences_enc[s])] += inc_l[s]
             self._since_compact += 1
             self.fast_resolves += 1
 
-        # The proxy-side verdict merge: any shard's CONFLICT/TOO_OLD wins;
-        # a signed byte max over the whole vector, as lax.pmax.
-        st = st.amax(dim=0)
+        st = self._merge(sts)
         self.oldest_version = oldest_eff
         self.inflight += 1
         self.max_inflight = max(self.max_inflight, self.inflight)

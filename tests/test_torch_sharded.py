@@ -8,7 +8,10 @@ shard_entries() and last_p2_iters must be equal after every batch, across
 compactions, block and key-width growth, the touched-block cap, abort
 chains, pipelined submits and a mid-stream hand-over of a JAX set's state
 to ShardedConflictSetGPU.from_state. The merged st_aux bytes of a fast and
-a compaction step equal the JAX step's output byte for byte. The cases
+a compaction step equal the JAX step's output byte for byte. The JAX
+differentials run the port's set in both placements: every shard on one
+device (`device="cpu"`) and one device per shard (`devices=["cpu"] * S`,
+the mesh's counterpart), which must give the same results. The cases
 keep to a few shapes (8-byte keys, 25-txn batches, a capacity that does not
 grow where growth is not the point) to bound the JAX compiles: every step
 shape is a compile of a few seconds.
@@ -54,6 +57,16 @@ def mesh_of(n):
     return Mesh(np.array(devs[:n]), ("resolvers",))
 
 
+PLACEMENTS = ("device", "devices")
+
+
+def placement(kind, n_shards):
+    """The port set's placement keywords: every shard on the CPU through
+    `device`, or one CPU device per shard through `devices`."""
+    return ({"device": "cpu"} if kind == "device"
+            else {"devices": ["cpu"] * n_shards})
+
+
 def bounds_of(n_shards, key_space=1000):
     return [k8(key_space * (i + 1) // n_shards) for i in range(n_shards - 1)]
 
@@ -91,16 +104,18 @@ def txns(raw, jax_side: bool):
 
 
 class Trio:
-    """ShardedConflictSetTPU, ShardedConflictSetGPU(device="cpu") and the
-    port's ShardedConflictSetCPU over one partition; step() resolves one
-    batch on all three and holds them equal."""
+    """ShardedConflictSetTPU, ShardedConflictSetGPU (on the CPU, placed
+    as `where` says) and the port's ShardedConflictSetCPU over one
+    partition; step() resolves one batch on all three and holds them
+    equal."""
 
-    def __init__(self, bounds, **kw):
+    def __init__(self, bounds, where="device", **kw):
         from foundationdb_tpu.resolver.sharded import ShardedConflictSetTPU
 
         self.tpu = ShardedConflictSetTPU(bounds, mesh_of(len(bounds) + 1),
                                          **kw)
-        self.port = ShardedConflictSetGPU(bounds, device="cpu", **kw)
+        self.port = ShardedConflictSetGPU(
+            bounds, **placement(where, len(bounds) + 1), **kw)
         self.ora = ShardedConflictSetCPU(bounds)
 
     def step(self, v, no, raw, wire=False, entries=True):
@@ -233,9 +248,11 @@ def test_port_oracle_matches_jax_sharded_oracle():
 # ----------------------------------------------- tests/test_sharded.py cases
 
 
+@pytest.mark.parametrize("where", PLACEMENTS)
 @pytest.mark.parametrize("n_shards", [2, 4, 8])
-def test_sharded_differential(n_shards):
-    trio = Trio(bounds_of(n_shards), max_key_bytes=8, initial_capacity=512)
+def test_sharded_differential(n_shards, where):
+    trio = Trio(bounds_of(n_shards), where, max_key_bytes=8,
+                initial_capacity=512)
     rng = np.random.default_rng(42 + n_shards)
     v = 1000
     for b in range(6):
@@ -261,10 +278,11 @@ def test_sharded_growth_blocks_and_entries():
     assert trio.port.NB == trio.tpu.NB
 
 
-def test_sharded_width_growth():
+@pytest.mark.parametrize("where", PLACEMENTS)
+def test_sharded_width_growth(where):
     """Keys beyond the initial packed width widen every shard's state and
     fence directory (same contract as the single-resolver set)."""
-    trio = Trio([b"m"], max_key_bytes=8, initial_capacity=64)
+    trio = Trio([b"m"], where, max_key_bytes=8, initial_capacity=64)
     raw1 = [(0, [], [(b"abc", b"abd")])]
     raw2 = [(5, [(b"a" * 40, b"a" * 40 + b"\xff")],
              [(b"z" * 100, b"z" * 100 + b"\x00")])]
@@ -276,12 +294,14 @@ def test_sharded_width_growth():
 # ----------------------------------- tests/test_sharded_block.py tier-1 cases
 
 
-def test_sharded_block_differential_across_compactions(knobs):
+@pytest.mark.parametrize("where", PLACEMENTS)
+def test_sharded_block_differential_across_compactions(knobs, where):
     """Statuses AND per-shard entries with the compaction cadence at 3, so
     the run crosses several shard-wide compactions (fast <-> compaction
     hand-offs)."""
     knobs("TPU_COMPACT_EVERY_BATCHES", 3)
-    trio = Trio([k8(333), k8(666)], max_key_bytes=8, initial_capacity=512)
+    trio = Trio([k8(333), k8(666)], where, max_key_bytes=8,
+                initial_capacity=512)
     rng = np.random.default_rng(7)
     v = 1000
     for _ in range(8):
@@ -362,12 +382,13 @@ def test_sharded_recompile_guard(knobs):
 # ------------------------------------------------------------ port-only cases
 
 
-def test_merged_st_aux_bytes_equal_the_jax_step(knobs):
+@pytest.mark.parametrize("where", PLACEMENTS)
+def test_merged_st_aux_bytes_equal_the_jax_step(knobs, where):
     """The raw merged verdict vector of one fast step and one compaction
     step: statuses, the max-mangled LE bytes of n, overflow and the
     phase-2 round byte, byte for byte against the JAX step's pmax."""
     bounds = bounds_of(4)
-    trio = Trio(bounds, max_key_bytes=8, initial_capacity=64)
+    trio = Trio(bounds, where, max_key_bytes=8, initial_capacity=64)
     rng = np.random.default_rng(11)
     v = 1000
     for kind in ("fast", "compaction"):
@@ -388,13 +409,14 @@ def test_merged_st_aux_bytes_equal_the_jax_step(knobs):
         assert hp.p2_syncs >= trio.port.n_shards
 
 
-def test_hand_over_mid_stream_from_jax_state(knobs):
+@pytest.mark.parametrize("where", PLACEMENTS)
+def test_hand_over_mid_stream_from_jax_state(knobs, where):
     """Three batches on ShardedConflictSetTPU, its state handed to
-    ShardedConflictSetGPU.from_state, three more on both: identical,
-    across a compaction."""
+    ShardedConflictSetGPU.from_state (split onto the shards' devices),
+    three more on both: identical, across a compaction."""
     knobs("TPU_COMPACT_EVERY_BATCHES", 3)
     bounds = bounds_of(4)
-    trio = Trio(bounds, max_key_bytes=8, initial_capacity=64)
+    trio = Trio(bounds, where, max_key_bytes=8, initial_capacity=64)
     tpu = trio.tpu
     rng = np.random.default_rng(9)
     v = 1000
@@ -412,7 +434,9 @@ def test_hand_over_mid_stream_from_jax_state(knobs):
         "_fences_enc": tpu._fences_enc, "_fills": tpu._fills,
         "min_NB": tpu.min_NB, "boundaries": tpu.boundaries,
     }
-    trio.port = ShardedConflictSetGPU.from_state(state, device="cpu")
+    trio.port = ShardedConflictSetGPU.from_state(state,
+                                                 **placement(where, 4))
+    assert trio.port.devices == [torch.device("cpu")] * 4
     assert trio.port.shard_entries() == tpu.shard_entries()
     for _ in range(3):
         v += 120
@@ -494,7 +518,8 @@ def test_reduced_config4_against_the_oracle():
     assert crossing > 100 and cs.fast_resolves > 0
 
 
-def test_local_cluster_cycle_on_the_sharded_set():
+@pytest.mark.parametrize("where", PLACEMENTS)
+def test_local_cluster_cycle_on_the_sharded_set(where):
     """The port's LocalCluster with a 4-shard ShardedConflictSetGPU as its
     resolver (tests/test_cluster_tpu.py's mesh case): the Cycle invariant
     holds with real cross-shard conflicts, and every resolve batch
@@ -507,7 +532,7 @@ def test_local_cluster_cycle_on_the_sharded_set():
     bounds = [b"cycle/\x00\x00\x00\x05", b"cycle/\x00\x00\x00\x0a",
               b"cycle/\x00\x00\x00\x0f"]
     cs = ShardedConflictSetGPU(bounds, max_key_bytes=16,
-                               initial_capacity=64, device="cpu")
+                               initial_capacity=64, **placement(where, 4))
     log = []
     real_submit, real_verdicts = cs.submit, cs.verdicts
     open_ = {}
@@ -555,3 +580,64 @@ def test_without_a_card_it_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ShardedConflictSetGPU([k8(5)])
     assert ShardedConflictSetGPU([k8(5)], device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [
+    {"devices": ["cpu"] * 3},
+    {"devices": ["cpu"] * 5},
+    {"devices": ["cpu"] * 4, "device": "cpu"},
+], ids=["too-few", "too-many", "both"])
+def test_a_placement_of_the_wrong_size_or_both_raises(kw):
+    """devices= needs exactly one device per shard (the JAX mesh needs
+    exactly S devices); device= and devices= together are refused; the
+    hand-over checks the same."""
+    bounds = bounds_of(4)
+    with pytest.raises(ValueError, match="exactly 4 devices|not both"):
+        ShardedConflictSetGPU(bounds, **kw)
+    state = {"boundaries": bounds}
+    with pytest.raises(ValueError, match="exactly 4 devices|not both"):
+        ShardedConflictSetGPU.from_state(state, **kw)
+
+
+def test_shards_on_one_device_share_one_upload_and_one_mirror_read(
+        monkeypatch):
+    """Shards whose devices repeat share one H2D of their fused buffers a
+    batch and one mirror readback a compaction: one device, one upload
+    and one read, whichever argument placed them."""
+    from foundationdb_tpu_torch.resolver import gpu
+
+    uploads = []
+    real = gpu.upload
+    monkeypatch.setattr(gpu, "upload",
+                        lambda buf, dev: uploads.append(buf.shape) or
+                        real(buf, dev))
+    rng = np.random.default_rng(12)
+    raws = [raw_batch(rng, 25, 1000 + 120 * b) for b in range(4)]
+    sets = [ShardedConflictSetGPU(bounds_of(4), max_key_bytes=8,
+                                  initial_capacity=512, **placement(w, 4))
+            for w in PLACEMENTS]
+    for cs in sets:
+        uploads.clear()
+        for b, raw in enumerate(raws):
+            v = 1120 + 120 * b
+            cs.resolve(v, v - 600, txns(raw, False))
+        assert len(uploads) == 4 and all(u[0] == 4 for u in uploads)
+        cs._refresh_mirror()  # the last compaction's read is lazy
+        assert cs.mirror_reads == cs.compactions >= 1
+        assert len(cs._groups) == 1
+    assert sets[0].shard_entries() == sets[1].shard_entries()
+
+
+@pytest.mark.parametrize("name", ["cuda:1", "cuda:4"])
+def test_a_card_past_the_count_raises_at_once(monkeypatch, name):
+    """resolve_device("cuda:N") with N at or past the machine's card
+    count raises there, naming the count, not at the first allocation."""
+    from foundationdb_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="has 1 CUDA device"):
+        resolve_device(name)
+    with pytest.raises(RuntimeError, match="has 1 CUDA device"):
+        ShardedConflictSetGPU(bounds_of(2), devices=["cpu", name])
+    assert resolve_device("cuda:0") == torch.device("cuda:0")
