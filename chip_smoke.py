@@ -14,7 +14,12 @@ Phases (each prints one line; any failure exits nonzero):
    queries, permuted blocks) and at the resolver's full-width shapes
    (W1 = 4, NB = 65,536 blocks of 32, P2 = 917,504 sorted endpoints),
    with the device time of both (foundationdb_tpu_torch/timing.py: warm
-   over 50 launches per event pair, cold after an L2 flush);
+   over 50 launches per event pair, cold after an L2 flush); then
+   `[phase2]`: phase 2's kernel (csrc/phase2.cu, the fixed point's rounds
+   on the device) through a ConflictSetGPU and a ConflictSetRankFed on a
+   pure abort chain of 15 and of 16 txns, statuses alternating, and each
+   call's operands held bit-exact against the plain version (conflict
+   vector and round counter), also with the round cap cut to 5;
 3. narrow slice: ConflictSetGPU on the card against the CPU oracle
    ConflictSetCPU, 40 batches of 256 txns at pipeline depth 4 (GC horizon,
    tooOld txns, a 40-byte key mid-run, compaction every 4 dispatches):
@@ -25,9 +30,12 @@ Phases (each prints one line; any failure exits nonzero):
    state. 8 batches (FULL_BATCHES; 24, 16, then 12, before) through
    submit/verdicts at depth 4; the first 2 also through
    ConflictSetGPU(device="cpu"), statuses and entries() equal. The
-   probe's launch count is reset just before and read just after this run
-   and must be positive. Prints txns/s, p50/p90 batch latency and more;
-   then 3 batches (FULL_64K_BATCHES; 6 before) at 64K-txn chunks. The
+   probe's and phase 2's launch counts are reset just before and read
+   just after this run: the probe's must be positive, phase 2's at least
+   one per resolved chunk, and no submit may read the host in phase 2.
+   Prints txns/s, p50/p90 batch latency and more;
+   then 2 batches (FULL_64K_BATCHES; 6, then 3, before) at 64K-txn
+   chunks. The
    main run's batches stay for phases 19-21.
 5. storage read window, one memory-engine storage process: 1,000,000 YCSB
    records (hashed keys of 5-23 bytes, 1,000-byte values) in
@@ -46,8 +54,9 @@ Phases (each prints one line; any failure exits nonzero):
    through the client in 1,000-key transactions (cut from 2^20 to keep
    the whole run inside its time: phase 9 loads the full 2^20), then
    ReadWriteWorkload (5 reads, 2 writes per txn, uniform keys over 2^20)
-   from 1,024 clients until 5,000 txns have committed (CONFIG1_CHIP_TARGET;
-   10,000 before the backup phases joined the run). Every resolve
+   from 1,024 clients until 2,500 txns have committed (CONFIG1_CHIP_TARGET;
+   10,000 before the backup phases joined the run, then 5,000). Every
+   resolve
    batch's verdicts are replayed through a fresh ConflictSetCPU in a
    process of its own, fed while the cluster runs (and entries()
    compared),
@@ -78,8 +87,9 @@ Phases (each prints one line; any failure exits nonzero):
    replication="double", n_resolvers=4), storage shards and resolvers
    split at rw_key(2^18), rw_key(2^19) and rw_key(3 * 2^18), under
    config 1 (a 2^18-key load, SHARDED_CLUSTER_LOAD_KEYS, 2^20 until PR
-   9, then ReadWrite from 1,024 clients until 5,000 txns commit, 10,000
-   before the backup phases joined the run); each role's submits replayed
+   9, then ReadWrite from 1,024 clients until 2,500 txns commit, 10,000
+   before the backup phases joined the run, then 5,000); each role's
+   submits replayed
    through its own ConflictSetCPU (four processes), every read reply held
    against an independent VersionedMap per storage server, every
    submit's syncs audited.
@@ -94,15 +104,17 @@ Phases (each prints one line; any failure exits nonzero):
    and the version vector equal; a ConflictSetCPU replays every batch,
    statuses and entries() equal. Prints txns/s beside phase 4's, the
    stage times, one profiled batch, and `[rankfed-sync-audit]`:
-   resolve_async makes exactly its phase-2 group reads, a GC round one.
+   resolve_async makes no host sync (phase 2 runs on the card), a GC
+   round one.
 11. `[recovery]`: the port's RecoverableCluster, two controllers, its
    resolver recruited each generation through CONFLICT_SET_IMPL ("gpu"),
    its storage window KeyValueStoreGPU: Cycle over 1,000 nodes (64 x 25)
    with the transaction system killed after 25%, 50% and 75% of the
    commits, then BASELINE config 1 as in phase 6 after a 2^16-key load
-   (2^18 before the backup phases joined the run, then 2^17) with kills at 1,250,
-   2,500 and 3,750 of 5,000 commits (before: 2,500, 5,000 and 7,500 of
-   10,000). Each generation's submits replay through a
+   (2^18 before the backup phases joined the run, then 2^17) with kills
+   at 25%, 50% and 75% of 5,000 commits (RECOVERY_CHIP_TARGET; 10,000
+   before).
+   Each generation's submits replay through a
    fresh ConflictSetCPU at its start version; every read reply is held
    against an independent VersionedMap; the probe launches in every
    generation on both paths; no dead generation's conflict set outlives
@@ -126,7 +138,8 @@ Phases (each prints one line; any failure exits nonzero):
 14. `[durable]`: the durable tier, BASELINE config 4's cluster shape
    (RecoverableShardedCluster, 4 storage, 2 logs, double log and storage
    replication, 4 resolvers) over a temporary datadir: on the memory
-   engine, 2^16 of config 1's keys loaded (cut from 2^18, PERF.md),
+   engine, 2^15 of config 1's keys loaded (DURABLE_CHIP_LOAD_KEYS; cut
+   from 2^18, then 2^16, PERF.md),
    ReadWrite to 500 commits (DURABLE_CHIP_TARGET; 2,000, then 1,000,
    before), a clean stop and a cold boot; a crash leg (125 commits; 500,
    then 250, before; the incarnation abandoned without close) and a cold
@@ -150,7 +163,8 @@ Phases (each prints one line; any failure exits nonzero):
    process of its own started as `server.py -r fdbd -c <class>` with its
    own CUDA context, this script the client over multiprocess.connect.
    Leg A: a 2^16-key load (MP_CHIP_LOAD_KEYS; 2^18 before), config
-   1's ReadWrite from 256 clients to 2,000 acknowledged commits, a
+   1's ReadWrite from 256 clients to 1,000 acknowledged commits
+   (MP_CHIP_TARGET; 2,000 before), a
    stale-snapshot pair, the C wire client; every key read back against a
    VersionedMap of the acknowledged writes; each process's device memory
    (nvidia-smi) and probe launches (scraped over the metrics plane); the
@@ -169,16 +183,17 @@ Phases (each prints one line; any failure exits nonzero):
    (its rows equal to the record at the snapshot version, the pair
    untorn); legs B and C, on a second source loaded with 2^14 keys
    (BACKUP_STREAM_LOAD_KEYS): ContinuousBackupAgent and DRAgent
-   under config 1's ReadWrite (256 clients, 2,000 commits), a
+   under config 1's ReadWrite (256 clients, 1,000 commits,
+   BACKUP_CHIP_TARGET; 2,000 before), a
    point-in-time restore into another fresh cluster equal to the record
    at the median commit version, the DR destination equal to the source;
    leg D: `server.py -r cli` on the card with a piped script (data,
    status json and backup verbs). The probe's launches and last
    operands per cluster; device memory back after the clusters stop.
-18. `[sim-backup]`: as [sim], the 4 seeds of SIM_BACKUP_CHIP_SEEDS (4 and
-   8 in memory, 2 and 9 durable; BackupRestore and BackupAttrition; 13
-   and 20 too before [swarm] joined the run), each against its CPU
-   replay, 1 rerun and profiled.
+18. `[sim-backup]`: as [sim], the 3 seeds of SIM_BACKUP_CHIP_SEEDS (8 in
+   memory, 2 and 9 durable; BackupRestore and BackupAttrition; 13 and 20
+   too before [swarm] joined the run, then 4), each against its
+   CPU replay, 1 rerun and profiled.
 19. `[native]`: the C++ conflict detector (ConflictSetNativeCPU,
    native/conflict_set.cpp built with g++) on phase 4's batches at
    phase 4's versions and GC horizon: statuses equal to ConflictSetGPU's
@@ -193,7 +208,8 @@ Phases (each prints one line; any failure exits nonzero):
    and decode microseconds of a 1,024-verdict ResolveBatchReply by both.
    From here on [multiprocess] frames and checksums in C.
 22. `[swarm]`: `python -m foundationdb_tpu_torch.sim.swarm` on the card,
-   8 guided seeds (SWARM_BUDGET) from 2 spawned workers, each with its
+   4 guided seeds (SWARM_BUDGET; 8 before) from 2 spawned workers,
+   each with its
    own CUDA context, every seed run twice (--check-determinism: the
    fingerprint and coverage signature repeat), every seed passing; the
    probe's launches summed over the workers and each worker's peak
@@ -220,6 +236,11 @@ runs, one per resolver or one per shard (each clipping every batch to
 its shard with clip_txns_to_shard), their statuses max-merged over the
 shards by check_replays.
 
+Phase 2 reads the host nowhere on the card: every sync audit fails a
+submit that made a phase-2 read, and [full], [sharded] and [rankfed]
+count the phase-2 kernel's launches (at least one per chunk, shard step
+or batch).
+
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
 cluster-sharded, multichip, sharded-cluster-resolver, sharded-cluster-storage,
@@ -228,8 +249,10 @@ sim-resolver, sim-storage, durable-resolver, durable-storage,
 sim-durable-resolver, sim-durable-storage, multiprocess-resolver,
 multiprocess-storage,
 backup-{source,restore,stream,dr,pitr}-{resolver,storage},
-sim-backup-resolver, sim-backup-storage; and the rank-fed kernel,
-route "torch"), the
+sim-backup-resolver, sim-backup-storage; phase 2's kernel on
+[full]'s last chunk (resolver), [sharded]'s last shard step (sharded) and
+[rankfed]'s last batch (rankfed); and the rank-fed kernel, route
+"torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
@@ -297,10 +320,10 @@ SIM_DURABLE_CHIP_DETERMINISM_SEEDS = (58,)
 # run equal to the JAX package's on the CPU. The card reruns and profiles
 # seed 2, the shortest (seed 8 under the profiler took 76.30 s on an H100
 # 80GB HBM3 at 700 W, PERF.md). Since [swarm] joined the run the card
-# runs 4 of the 6 (8 draws both workloads, 2 and 9 are the durable
-# ones); the CPU tests still hold all 6.
+# ran 4 of the 6 and now runs 3 (8 draws both workloads, 2 and 9
+# are the durable ones); the CPU tests still hold all 6.
 SIM_BACKUP_SEEDS = (4, 8, 13, 20, 2, 9)
-SIM_BACKUP_CHIP_SEEDS = (4, 8, 2, 9)
+SIM_BACKUP_CHIP_SEEDS = (8, 2, 9)
 SIM_BACKUP_CHIP_DETERMINISM_SEEDS = (2,)
 # Depth cuts since [multiprocess] joined the smoke, deepened when
 # [backup] and [sim-backup] joined it: before them the whole run took
@@ -313,16 +336,27 @@ SIM_BACKUP_CHIP_DETERMINISM_SEEDS = (2,)
 # load; [multiprocess] leg A loaded 2^18 keys. Deepened again when the
 # native phases and [swarm] joined: [rankfed] 6 batches, then 4; [full]'s
 # 64K-chunk leg 6, then 3; [recovery]'s load 2^17, then 2^16; [durable]
-# 1,000 commits and crash legs of 250, then 500 and 125.
+# 1,000 commits and crash legs of 250, then 500 and 125. Deepened again
+# when a run took 1,244.42 s on a host whose CPU ran every host-bound
+# phase 25-45% slower (995.53 s on the faster host, PERF.md):
+# [swarm] 4 seeds, [cluster] and [sharded-cluster] config 1 to 2,500
+# commits ([recovery] keeps 5,000: its three kills need the commits that
+# 1,024 clients bring a batch at a time), [multiprocess] leg A and
+# [backup] legs B-C to 1,000, [full]'s 64K-chunk leg 2, [sim-backup] 3 seeds, [durable]'s load 2^15, the C
+# client's sets in [multiprocess] 50.
 FULL_BATCHES = 8
-FULL_64K_BATCHES = 3
+FULL_64K_BATCHES = 2
 RANKFED_BATCHES = 4
 SHARDED_CLUSTER_LOAD_KEYS = 1 << 18
-CONFIG1_CHIP_TARGET = 5_000
+CONFIG1_CHIP_TARGET = 2_500
+RECOVERY_CHIP_TARGET = 5_000
 RECOVERY_CHIP_LOAD_KEYS = 1 << 16
 MP_CHIP_LOAD_KEYS = 1 << 16
+DURABLE_CHIP_LOAD_KEYS = 1 << 15
 DURABLE_CHIP_TARGET = 500
 DURABLE_CHIP_CRASH_TARGET = 125
+MP_CHIP_TARGET = 1000
+BACKUP_CHIP_TARGET = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -496,6 +530,177 @@ def phase_probe(rng):
         bound_ms=f"{bound_ms:.5f}", **fmt_times(t))
 
 
+# ------------------------------------------------------- phase-2 kernel
+
+
+class Phase2Tap:
+    """Phase 2's rounds (resolver/phase2.py, the CUDA kernel on the card)
+    while the block is open: the calls on the card counted, and the last
+    one's operands kept by reference (the callers build them fresh per
+    chunk, shard step or batch, and neither they nor the kernel write to
+    them afterwards), held against the plain version afterwards by
+    phase2_check."""
+
+    def __init__(self):
+        self.calls = 0
+        self.captured = {}
+
+    def __enter__(self) -> "Phase2Tap":
+        from foundationdb_tpu_torch.resolver import phase2
+
+        real = self._real = phase2.phase2_rounds
+
+        def rounds(base_conf, conflict0, it0, cap, **kw):
+            if base_conf.is_cuda:
+                self.calls += 1
+                self.captured = dict(
+                    base_conf=base_conf, conflict0=conflict0, it0=it0,
+                    cap=cap, **{k: v for k, v in kw.items()
+                                if k != "groups"})
+            return real(base_conf, conflict0, it0, cap, **kw)
+
+        phase2.phase2_rounds = rounds
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from foundationdb_tpu_torch.resolver import phase2
+
+        phase2.phase2_rounds = self._real
+
+
+def phase2_bound(cap: dict, rounds: int) -> tuple[float, str]:
+    """Least ms for the kernel's work on this card, and what bounds it:
+    the larger of its bytes, every operand read once (base_conf and
+    conflict0 4 T each, rtxn, lo, hi and leaf 16 R, perm, seg_lo, seg_hi
+    and wtxn 16 Wr, w_valid Wr) and the output written once (4 T + 4),
+    over the memory rate, and its operations over the 32-bit integer
+    peak: per round, per read a min over its leaf's ancestors, a
+    range-min, a compare and a max (log2 n_leaves + 4), per write a
+    gather, a compare and a select (3), per txn a max and a compare (2).
+    The rounds re-read operands that fit in L2 (under 12 MB of the card's
+    50 MB at the smoke's sizes), so only the first read crosses HBM."""
+    T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
+    t_bytes = (12 * T + 4 + 16 * R + 17 * Wr) / HBM_BYTES_PER_S * 1e3
+    ops = rounds * (R * (cap["n_leaves"].bit_length() + 4) + 3 * Wr + 2 * T)
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase2_check(cap: dict, name: str, timed: bool = False):
+    """The kernel against its plain version on the same CUDA tensors:
+    conflict vector and round counter bit for bit (fails otherwise).
+    Returns (max |diff|, rounds, times): times, if timed, {"ms": warm,
+    "ms_cold": after an L2 flush, "plain_ms": the plain version's grouped
+    loop, host reads included}, device ms per call by device_ms."""
+    import torch
+    from foundationdb_tpu_torch.resolver import phase2
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
+
+    args = (cap["base_conf"], cap["conflict0"], cap["it0"], cap["cap"])
+    kw = {k: v for k, v in cap.items() if k not in (
+        "base_conf", "conflict0", "it0", "cap", "launches")}
+    got = phase2.phase2_rounds_launch(*args, **kw)
+    want = phase2.phase2_rounds_ref(*args, **kw)[:2]
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    rounds = int(got[1]) - cap["it0"]
+    if err:
+        fail(f"{name}: the phase-2 kernel disagrees with its plain version "
+             f"(T={cap['base_conf'].shape[0]} R={cap['rtxn'].shape[0]} "
+             f"Wr={cap['wtxn'].shape[0]} n_leaves={cap['n_leaves']}): max "
+             f"|diff| {err}")
+    if not timed:
+        return err, rounds, None
+    n0 = phase2.LAUNCHES
+
+    def kernel():
+        phase2.phase2_rounds_launch(*args, **kw)
+
+    times = {"ms": device_ms(kernel, n=50),
+             "ms_cold": device_ms(kernel,
+                                  flush=l2_flusher(cap["base_conf"].device)),
+             "plain_ms": device_ms(
+                 lambda: phase2.phase2_rounds_ref(*args, **kw))}
+    phase2.LAUNCHES = n0   # comparison launches do not count
+    return err, rounds, times
+
+
+def phase2_entry(path: str, cap: dict, launches: int, smi: str,
+                 replaces: str) -> dict:
+    """The kernel on one path's last operands: checked, timed, bounded,
+    logged, as one kernel-table entry."""
+    err, rounds, t = phase2_check(cap, f"phase2-{path}", timed=True)
+    bound_ms, bound_by = phase2_bound(cap, rounds)
+    T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
+    log(f"phase2-{path}", smi=json.dumps(smi), T=T, R=R, Wr=Wr,
+        n_leaves=cap["n_leaves"], rounds=rounds, max_abs_err=err,
+        **fmt_times(t), bound_ms=f"{bound_ms:.7f}", bound_by=bound_by,
+        launches=launches)
+    return {"name": "phase2_rounds", "route": "cuda",
+            "source": "foundationdb_tpu_torch/csrc/phase2.cu",
+            "replaces": replaces, "path": path, "launches": launches,
+            "max_abs_err": err, "ms": t["ms"], "ms_cold": t["ms_cold"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "rounds": rounds}
+
+
+P2_REPLACES = {"gpu": "foundationdb_tpu/resolver/tpu.py:435",
+               "rankfed": "foundationdb_tpu/resolver/rankfed.py:251"}
+
+
+def phase_phase2(device=None) -> None:
+    """The kernel's first calls, through both callers on the card, at the
+    cases where the fixed point is slowest: a pure abort chain (txn i
+    reads what txn i-1 writes) of 15 and of 16 txns through a
+    ConflictSetGPU (its pointer-jumping seed resolves a chain at once:
+    one verification round) and through a ConflictSetRankFed (no seed:
+    one round a link, n rounds for n txns in T = 16, across the plain
+    version's round groups). Statuses alternate; each call's operands
+    hold the kernel bit-exact against the plain version, conflict vector
+    and round counter, and again with the cap cut to 5 rounds, where both
+    stop mid-chain."""
+    from foundationdb_tpu_torch.kv.keys import KeyRange
+    from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
+    from foundationdb_tpu_torch.resolver.rankfed import ConflictSetRankFed
+    from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
+
+    def chain(n):
+        pt = lambda a: KeyRange(k8(a), k8(a) + b"\x00")  # noqa: E731
+        return [TxnConflictInfo(9, [pt(i - 1)] if i else [], [pt(i)])
+                for i in range(n)]
+
+    for kind, make in (("gpu", lambda: ConflictSetGPU(
+                           max_key_bytes=9, initial_capacity=64,
+                           device=device)),
+                       ("rankfed", lambda: ConflictSetRankFed(
+                           max_key_bytes=12, initial_capacity=64,
+                           device=device))):
+        for n in (15, 16):
+            with Phase2Tap() as tap:
+                st = list(make().resolve(10, 0, chain(n)).statuses)
+            if st != [i % 2 for i in range(n)]:
+                fail(f"phase2: {kind} chain of {n}: statuses {st}")
+            if tap.calls != 1:
+                fail(f"phase2: {kind} chain of {n}: {tap.calls} kernel "
+                     "calls, 1 expected")
+            cap = tap.captured
+            err, rounds, _ = phase2_check(cap, f"phase2-{kind}-{n}")
+            T = cap["base_conf"].shape[0]
+            want = 1 if kind == "gpu" else n
+            if rounds != want:
+                fail(f"phase2: {kind} chain of {n} in T = {T}: {rounds} "
+                     f"rounds, {want} expected")
+            err_cap, cut, _ = phase2_check(dict(cap, cap=cap["it0"] + 5),
+                                           f"phase2-{kind}-{n}-cap")
+            if cut != min(want, 5):
+                fail(f"phase2: {kind} chain of {n} with the cap at 5 "
+                     f"rounds: {cut} rounds")
+            log("phase2", caller=kind, chain=n, T=T, rounds=rounds,
+                max_abs_err=max(err, err_cap), statuses_alternate=True,
+                capped_rounds=cut)
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -573,17 +778,20 @@ def count_syncs(fn, settle: bool = True, sites=None):
 
 def audit_syncs(cs, wb, version: int, window: int) -> None:
     """Count the host syncs one submit() makes and fail on any beyond the
-    known ones: phase 2's one read per round group and the lazy
-    fence/count mirror readback after a compaction (one read)."""
+    known one, the lazy fence/count mirror readback after a compaction
+    (one read). Phase 2 runs on the card: any read of its plain version
+    fails the run."""
     from foundationdb_tpu_torch.resolver import gpu as gpu_mod
 
     p0, m0 = gpu_mod.P2_SYNCS, cs.mirror_reads
     h, syncs = count_syncs(
         lambda: cs.submit(version, max(0, version - window), wb))
     cs.verdicts(h)
-    known = (gpu_mod.P2_SYNCS - p0) + (cs.mirror_reads - m0)
-    log("sync-audit", host_syncs_in_submit=syncs, phase2_reads=gpu_mod.P2_SYNCS - p0,
-        mirror_reads=cs.mirror_reads - m0)
+    known = cs.mirror_reads - m0
+    log("sync-audit", host_syncs_in_submit=syncs,
+        phase2_reads=gpu_mod.P2_SYNCS - p0, mirror_reads=known)
+    if gpu_mod.P2_SYNCS != p0:
+        fail(f"submit made {gpu_mod.P2_SYNCS - p0} phase-2 host reads")
     if syncs > known:
         fail(f"submit made {syncs} host syncs, {known} expected")
 
@@ -679,7 +887,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     and entries() after them, for [native] and [native-sort]."""
     from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
     from foundationdb_tpu_torch.resolver import gpu as gpu_mod
-    from foundationdb_tpu_torch.resolver import probe
+    from foundationdb_tpu_torch.resolver import phase2, probe
     from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
 
     step, window, depth = 65536, 131072, 4
@@ -708,10 +916,12 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     gpu_mod.probe_ranks = recording_probe
     cs = ConflictSetGPU(device=device, **kw)
     ref = ConflictSetGPU(device="cpu", **kw)
+    p2_tap = Phase2Tap().__enter__()
     probe.LAUNCHES = 0
-    syncs0 = gpu_mod.P2_SYNCS
+    phase2.LAUNCHES = 0
     sync(cs.device)
-    lat, statuses, handles, p2 = [], [], [], []
+    lat, statuses, handles, p2, p2_reads = [], [], [], [], []
+    n_chunks = [0]
 
     stages = {"pack_ms": [], "dispatch_ms": [], "wait_ms": []}
 
@@ -720,6 +930,8 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         statuses.append(cs.verdicts(h))
         lat.append(time.perf_counter() - t_sub)
         p2.append(cs.last_p2_iters)
+        p2_reads.append(h.p2_syncs)
+        n_chunks[0] += len(h.chunks)
         for k, x in (("pack_ms", h.pack_ms), ("dispatch_ms", h.dispatch_ms),
                      ("wait_ms", h.device_ms)):
             stages[k].append(x)
@@ -749,10 +961,17 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     sync(cs.device)
     t_end = time.perf_counter()
     launches = probe.LAUNCHES
-    syncs = gpu_mod.P2_SYNCS - syncs0
+    p2_launches = phase2.LAUNCHES
+    p2_tap.__exit__()
     gpu_mod.probe_ranks = real_probe
     if launches <= 0:
         fail("full width: the probe kernel was not launched on the main path")
+    on_card = cs.device.type == "cuda"
+    if on_card and p2_launches < n_chunks[0]:
+        fail(f"full width: {p2_launches} phase-2 kernel launches for "
+             f"{n_chunks[0]} resolved chunks")
+    if on_card and any(p2_reads):
+        fail(f"full width: phase 2 read the host in a submit: {p2_reads}")
     st = np.concatenate([np.asarray(s) for s in statuses])
     if st.size != n_txn * n_batches or not np.isin(st, (0, 1, 2)).all():
         fail("full width: malformed statuses")
@@ -770,10 +989,12 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         p50_batch_ms=f"{np.percentile(lat_ms, 50):.2f}",
         p90_batch_ms=f"{np.percentile(lat_ms, 90):.2f}",
         conflict_rate=f"{float((st == 1).mean()):.4f}",
-        last_p2_iters=p2[-1], p2_syncs_per_batch=f"{syncs / n_batches:.2f}",
+        last_p2_iters=p2[-1],
+        p2_syncs_per_batch=f"{sum(p2_reads) / n_batches:.2f}",
         entries=n_entries, compactions=cs.compactions,
         fast_resolves=cs.fast_resolves, probe_launches=launches,
         probe_launches_per_batch=f"{launches / n_batches:.2f}",
+        phase2_launches=p2_launches, chunks=n_chunks[0],
         cpu_twin_batches=2)
     log("full-stages", **{f"p50_{k}": f"{np.percentile(x, 50):.2f}"
                           for k, x in stages.items()})
@@ -808,7 +1029,8 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         txns_per_s=f"{n_more * n_txn / (time.perf_counter() - t0):.1f}",
         compactions=cs.compactions - comp0,
         fast_resolves=cs.fast_resolves - fast0)
-    return launches, captured, steady
+    return launches, captured, steady, dict(p2_tap.captured,
+                                            launches=p2_launches)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1208,7 +1430,8 @@ class RecordingConflictSet:
     submit (version, new oldest version, batch) with its verdicts for the
     CPU replay, the batch's size, its wall latency from submit to
     verdicts, and the host syncs inside submit: torch's count on the card
-    and the ones the set knows of (phase-2 reads, mirror reads). With a
+    and the ones the set knows of (mirror reads; phase 2 runs on the card
+    and reads nothing: a phase-2 read there fails the run). With a
     `sink`, each recorded batch goes to it, in submit order, as soon as
     its verdicts are in (a replay that runs while the cluster does)."""
 
@@ -1217,7 +1440,7 @@ class RecordingConflictSet:
         self.log = []       # [version, new_oldest, batch, verdicts]
         self._open = {}     # id(handle) -> (log index, submit time, handle)
         self.lat_ms, self.n_txns = [], []
-        self.syncs, self.known, self.sites = [], [], []
+        self.syncs, self.known, self.sites, self.p2 = [], [], [], []
         self.sink, self._sent = sink, 0
 
     def submit(self, version, new_oldest, batch):
@@ -1234,7 +1457,12 @@ class RecordingConflictSet:
             self.sites.append(sites)
         else:
             h = self.cs.submit(version, new_oldest, batch)
-        self.known.append(gpu_mod.P2_SYNCS - p0 + self.cs.mirror_reads - m0)
+        p2 = gpu_mod.P2_SYNCS - p0
+        if p2 and self.cs.device.type == "cuda":
+            fail(f"a resolver submit on the card made {p2} phase-2 host "
+                 "reads")
+        self.p2.append(p2)
+        self.known.append(p2 + self.cs.mirror_reads - m0)
         self.log.append([version, new_oldest, batch, None])
         self.n_txns.append(h.n_txns)
         self._open[id(h)] = (len(self.log) - 1, t0, h)
@@ -1900,6 +2128,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
     must launch once per shard per fast-path batch. Returns the probe's
     last operands and launches."""
     import torch
+    from foundationdb_tpu_torch.resolver import phase2
     from foundationdb_tpu_torch.resolver.sharded import ShardedConflictSetGPU
 
     t_phase = time.perf_counter()
@@ -1923,7 +2152,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                                initial_capacity=capacity, devices=devices)
     log_placement("sharded", cs)
     with StreamingReplays(boundaries=bounds) as replays, \
-            ProbeTap() as tap:
+            ProbeTap() as tap, Phase2Tap() as p2_tap:
         got, entries, runs = [], [], []
         for li, leg in enumerate(legs):
             for v, oldest, arrays in leg:
@@ -1933,6 +2162,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
             batches = [config4_txns(a) for _, _, a in timed]
             f0, c0, l0, p0 = (cs.fast_resolves, cs.compactions,
                               tap.launches["resolver"], len(got))
+            q0 = phase2.LAUNCHES
             handles, lat, stages, syncs, known, sites = [], [], [], [], [], []
 
             def consume():
@@ -1956,6 +2186,9 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                     sites.append(site)
                 else:
                     h = cs.submit(v, oldest, txns)
+                if card and h.p2_syncs:
+                    fail(f"sharded: a submit made {h.p2_syncs} phase-2 "
+                         "host reads on the card")
                 known.append(h.p2_syncs + cs.mirror_reads - m0)
                 handles.append((t_sub, h))
             while handles:
@@ -1968,9 +2201,11 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                 sites=sites, fast=cs.fast_resolves - f0,
                 compactions=cs.compactions - c0,
                 launches=tap.launches["resolver"] - l0,
+                p2_launches=phase2.LAUNCHES - q0,
                 statuses=np.concatenate([np.asarray(g, dtype=np.int8)
                                          for g in got[p0:]])))
             del batches
+            p2_cap = p2_tap.captured   # leg B's last shard step wins
             if li == 0:
                 # one more batch of leg A, alone, under the profiler
                 v, oldest, arrays = leg[-1]
@@ -2005,7 +2240,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
             too_old_rate=f"{float((st == 2).mean()):.4f}",
             p2_syncs_per_batch=f"{run['stages'][:, 3].mean():.2f}",
             fast_resolves=run["fast"], compactions=run["compactions"],
-            probe_launches=run["launches"],
+            probe_launches=run["launches"], phase2_launches=run["p2_launches"],
             p50_pack_ms=f"{np.percentile(run['stages'][:, 0], 50):.2f}",
             p50_dispatch_ms=f"{np.percentile(run['stages'][:, 1], 50):.2f}",
             p50_wait_ms=f"{np.percentile(run['stages'][:, 2], 50):.2f}",
@@ -2013,6 +2248,9 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
         if card and run["launches"] != S * run["fast"]:
             fail(f"{leg_name}: {run['launches']} probe launches for "
                  f"{run['fast']} fast-path batches of {S} shards")
+        if card and run["p2_launches"] < S * len(lat_ms):
+            fail(f"{leg_name}: {run['p2_launches']} phase-2 kernel launches "
+                 f"for {len(lat_ms)} batches of {S} shard steps")
         if card:
             sync_audit(leg_name, run["syncs"], run["known"], run["sites"])
     if runs[0]["fast"] <= 0:
@@ -2035,7 +2273,10 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
         phase_s=f"{time.perf_counter() - t_phase:.2f}")
     if card and launches <= 0:
         fail("sharded: the probe kernel was not launched on the main path")
-    return tap.paths(sharded="resolver")
+    paths = tap.paths(sharded="resolver")
+    paths["sharded"]["phase2"] = dict(
+        p2_cap, launches=sum(r["p2_launches"] for r in runs))
+    return paths
 
 
 def cycle_key(i: int) -> bytes:
@@ -2045,16 +2286,17 @@ def cycle_key(i: int) -> bytes:
 
 def sync_audit(name: str, syncs, known, sites) -> None:
     """Host syncs of every audited submit (torch's count on the card, and
-    the file:line of each) against the ones the sets know of: phase-2
-    reads and mirror reads."""
+    the file:line of each) against the ones the sets know of: mirror
+    reads (phase 2 runs on the card; its callers fail the run on any
+    phase-2 read there)."""
     bad = [(i, n, k, sites[i]) for i, (n, k) in enumerate(zip(syncs, known))
            if n > k]
     log(f"{name}-sync-audit", submits=len(syncs), host_syncs=sum(syncs),
-        phase2_and_mirror_reads=sum(known), submits_over=len(bad),
+        mirror_reads=sum(known), submits_over=len(bad),
         first_over=json.dumps(bad[:5]))
     if bad:
-        fail(f"{name}: submit made more host syncs than phase 2 and the "
-             "mirror account for")
+        fail(f"{name}: submit made more host syncs than the mirror reads "
+             "account for")
 
 
 def pct(x, q):
@@ -2124,7 +2366,7 @@ def phase_cluster_sharded(rng, smi: str = "", device=None, nodes: int = 1000,
         txns_per_batch_max=max(cs.n_txns),
         latency_ms_p50=pct(cs.lat_ms, 50), latency_ms_p90=pct(cs.lat_ms, 90),
         fast_resolves=cs.fast_resolves, compactions=cs.compactions,
-        p2_syncs_per_batch=f"{sum(cs.known) / len(cs.known):.2f}",
+        p2_syncs_per_batch=f"{sum(cs.p2) / len(cs.p2):.2f}",
         probe_launches=tap.launches["resolver"],
         probe_launches_per_fast_batch=(
             f"{tap.launches['resolver'] / cs.fast_resolves:.2f}"
@@ -2460,9 +2702,11 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
     ConflictSetRankFed(device="cpu"): statuses and the version vector equal
     bit for bit. A ConflictSetCPU replays every batch in a process of its
     own: every batch's statuses and the final entries() must equal its.
-    Returns the kernel's table entry (None on the CPU) and the check
-    against the replay, to call once it may wait for it."""
+    Returns the kernel-table entries of the rank-fed kernel and of the
+    phase-2 kernel on this path (none on the CPU) and the check against
+    the replay, to call once it may wait for it."""
     import torch
+    from foundationdb_tpu_torch.resolver import phase2
     from foundationdb_tpu_torch.resolver.rankfed import ConflictSetRankFed
 
     t_phase = time.perf_counter()
@@ -2478,7 +2722,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
     # converted and the card runs, and on while the next phases run (the
     # returned check waits for it).
     replays = StreamingReplays()
-    with RankTap() as tap:
+    with RankTap() as tap, Phase2Tap() as p2_tap:
         for v, wb in zip(versions, wires):
             replays.send((v, max(0, v - window), wb))
         t0 = time.perf_counter()
@@ -2510,6 +2754,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
             lat.append((time.perf_counter() - t0) * 1e3)
 
         tap.launches = 0
+        phase2.LAUNCHES = 0
         gc0 = rf.gc_rounds
         sync(dev)
         for i in range(n_batches):
@@ -2539,10 +2784,17 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
         sync(dev)
         t_end = time.perf_counter()
         launches = tap.launches
+        p2_launches = phase2.LAUNCHES
+        p2_cap = dict(p2_tap.captured, launches=p2_launches)
         gc_rounds = rf.gc_rounds - gc0
         if card and launches != n_batches:
             fail(f"rankfed: {launches} kernel launches on the card for "
                  f"{n_batches} batches")
+        if card and p2_launches < n_batches:
+            fail(f"rankfed: {p2_launches} phase-2 kernel launches for "
+                 f"{n_batches} batches")
+        if card and any(p2):
+            fail(f"rankfed: phase 2 read the host in resolve_async: {p2}")
         steady = (n_batches - 2) * n_txn / (t_end - t_steady)
         st = np.concatenate(statuses)
         if st.size != n_txn * n_batches or not np.isin(st, (0, 1, 2)).all():
@@ -2557,7 +2809,8 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
             gc_rounds=gc_rounds, capacity=rf.capacity, history=rf.n,
             key_bytes=rf.max_key_bytes,
             p2_reads_per_batch=f"{sum(p2) / len(p2):.2f}",
-            launches=launches, cpu_twin_batches=2,
+            launches=launches, phase2_launches=p2_launches,
+            cpu_twin_batches=2,
             convert_s=f"{convert_s:.2f}")
         log("rankfed-stages", **{
             f"p50_{k}": f"{np.percentile(x, 50):.2f}"
@@ -2574,8 +2827,8 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
                                  phase="rankfed-profile", smi=smi)
         else:
             run_one(n_batches)
-        # The sync audit: each resolve_async makes exactly its phase-2
-        # group reads; a GC round makes one read.
+        # The sync audit: resolve_async makes no host sync (phase 2 runs
+        # on the card); a GC round makes one read.
         audit = []
         for i in range(n_batches + 1, n_all):
             v = versions[i]
@@ -2596,14 +2849,17 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
                 host_syncs=json.dumps([a[0] for a in audit]),
                 phase2_reads=json.dumps([a[1] for a in audit]),
                 gc_round_syncs=gc_syncs)
-            if any(n != k for n, k, _ in audit):
-                fail(f"rankfed: resolve_async's host syncs differ from its "
-                     f"phase-2 group reads: {audit}")
+            if any(n or k for n, k, _ in audit):
+                fail(f"rankfed: resolve_async made host syncs or phase-2 "
+                     f"reads: {audit}")
             if gc_syncs != 1:
                 fail(f"rankfed: a GC round made {gc_syncs} host syncs, 1 "
                      "expected")
         entries = rf.entries()
-    entry = rank_kernel_entry(tap, launches, busy, smi) if card else None
+    table = ([rank_kernel_entry(tap, launches, busy, smi),
+              phase2_entry("rankfed", p2_cap, p2_launches, smi,
+                           P2_REPLACES["rankfed"])] if card else [])
+    del p2_cap
     log("rankfed-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
 
     def check():
@@ -2619,7 +2875,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
             entries_equal=True, entries=len(entries),
             replay_wait_s=f"{time.perf_counter() - t0:.2f}")
 
-    return entry, check
+    return table, check
 
 
 # ---------------------------------------------------------------- phase 11
@@ -3710,7 +3966,7 @@ MP_C_LOAD_KEYS = 1 << 16
 MP_C_TARGET = 500
 MP_D_LOAD_KEYS = 1 << 14
 MP_D_TARGET = 300
-MP_C_CLIENT_SETS = 100
+MP_C_CLIENT_SETS = 50
 MP_BOOT_S = 300.0
 MP_CLASSES = ("log0", "log1", "storage", "resolver", "txn")
 
@@ -3975,7 +4231,8 @@ def phase_multiprocess(rng, smi: str = "", device=None,
       `load_keys` of config 1's keys loaded in 1,000-key transactions,
       ReadWrite from `clients` clients to `target` acknowledged commits, a
       stale-snapshot pair (the second must conflict), then the C wire
-      client against the txn host (100 sets committed, then read back).
+      client against the txn host (MP_C_CLIENT_SETS sets committed, then
+      read back).
       Every loaded and acknowledged key read back over the wire against a
       VersionedMap of the acknowledged writes. Prints commits per wall
       second, client-side commit and GRV latency p50/p99, the proxy's
@@ -4917,7 +5174,7 @@ def phase_backup(rng, smi: str = "", device=None, key_space: int = 1 << 20,
 # [swarm]: the coverage-guided swarm's seeds on the card (sim/swarm.py,
 # guided from an empty corpus, each seed run twice), the workers, and the
 # regression-corpus entry replayed on the card.
-SWARM_BUDGET = 8
+SWARM_BUDGET = 4
 SWARM_JOBS = 2
 SWARM_SEED_BASE = 0
 CORPUS_ENTRY = "specs/regressions/check_SyntheticFault_seed42.json"
@@ -5275,8 +5532,10 @@ def main() -> int:
     log("device", name=json.dumps(card), smi=json.dumps(smi),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
-        ptxas=json.dumps(ptxas))
-    log("build", probe_nvcc_s=f"{build_s:.2f}",
+        ptxas=json.dumps(ptxas), ptxas_phase2=json.dumps(
+            _build.ptxas_summary(_build.BUILD_LOG.get("phase2", ""))))
+    log("build", kernels=json.dumps(sorted(_build.SOURCES)),
+        probe_nvcc_s=f"{build_s:.2f}",
         host_tier_gxx_s=f"{native_s['libfdbtpu_native']:.2f}",
         envelope_gxx_s=f"{native_s['fdbtpu_envelope']:.2f}",
         wall_s=f"{build_wall:.2f}", py_include=json.dumps(_native.PY_INCLUDE),
@@ -5302,12 +5561,14 @@ def main() -> int:
     phase_wall("build")
     phase_probe(rng)
     phase_wall("probe")
+    phase_phase2()
+    phase_wall("phase2")
     phase_narrow(rng)
     phase_wall("narrow")
     full_keep = {}
-    launches, cap, full_rate = phase_full(rng, card, smi,
-                                          n_batches=FULL_BATCHES,
-                                          keep=full_keep)
+    launches, cap, full_rate, p2_cap = phase_full(rng, card, smi,
+                                                  n_batches=FULL_BATCHES,
+                                                  keep=full_keep)
     # The probe held against its plain version on the main path's
     # inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
@@ -5322,7 +5583,10 @@ def main() -> int:
                         max_abs_err=err, ms=t["ms"],
                         ms_cold=t["ms_cold"], plain_ms=t["plain_ms"],
                         bound_ms=bound_ms, bound_by=bound_by))
-    del cap, h, f, q
+    # Phase 2's kernel on [full]'s last chunk.
+    kernels.append(phase2_entry("resolver", p2_cap, p2_cap["launches"],
+                                smi, P2_REPLACES["gpu"]))
+    del cap, h, f, q, p2_cap
     phase_wall("full")
     phase_native(full_keep, smi, card)
     phase_wall("native")
@@ -5361,15 +5625,22 @@ def main() -> int:
                          phase_sharded_cluster(
                              rng, smi, load_keys=SHARDED_CLUSTER_LOAD_KEYS,
                              target=CONFIG1_CHIP_TARGET))):
-        kernels += probe_entries(phase(rng, smi), smi, base)
+        paths = phase(rng, smi)
+        p2_caps = {k: c.pop("phase2") for k, c in paths.items()
+                   if "phase2" in c}
+        kernels += probe_entries(paths, smi, base)
+        for path, c in p2_caps.items():   # [sharded]'s last shard step
+            kernels.append(phase2_entry(path, c, c["launches"], smi,
+                                        P2_REPLACES["gpu"]))
+        del paths, p2_caps
         phase_wall(name)
-    entry, rankfed_check = phase_rankfed(rng, smi, full_txns_per_s=full_rate,
-                                         n_batches=RANKFED_BATCHES)
-    kernels.append(entry)
+    entries, rankfed_check = phase_rankfed(
+        rng, smi, full_txns_per_s=full_rate, n_batches=RANKFED_BATCHES)
+    kernels += entries
     phase_wall("rankfed")
     for name, phase in (("recovery", lambda rng, smi: phase_recovery(
                             rng, smi, load_keys=RECOVERY_CHIP_LOAD_KEYS,
-                            target=CONFIG1_CHIP_TARGET)),
+                            target=RECOVERY_CHIP_TARGET)),
                         ("sharded-recovery", phase_sharded_recovery)):
         kernels += probe_entries(phase(rng, smi), smi, base)
         phase_wall(name)
@@ -5382,17 +5653,20 @@ def main() -> int:
     phase_swarm(smi)
     phase_wall("swarm")
     kernels += probe_entries(phase_durable(
-        rng, smi, target=DURABLE_CHIP_TARGET,
-        crash_target=DURABLE_CHIP_CRASH_TARGET), smi, base)
+        rng, smi, load_keys=DURABLE_CHIP_LOAD_KEYS,
+        target=DURABLE_CHIP_TARGET, crash_target=DURABLE_CHIP_CRASH_TARGET),
+        smi, base)
     phase_wall("durable")
     kernels += probe_entries(phase_sim_durable(
         rng, smi, seeds=SIM_DURABLE_CHIP_SEEDS,
         det_seeds=SIM_DURABLE_CHIP_DETERMINISM_SEEDS), smi, base)
     phase_wall("sim-durable")
     kernels += probe_entries(phase_multiprocess(
-        rng, smi, load_keys=MP_CHIP_LOAD_KEYS), smi, base)
+        rng, smi, load_keys=MP_CHIP_LOAD_KEYS, target=MP_CHIP_TARGET),
+        smi, base)
     phase_wall("multiprocess")
-    kernels += probe_entries(phase_backup(rng, smi), smi, base)
+    kernels += probe_entries(phase_backup(rng, smi, target=BACKUP_CHIP_TARGET),
+                             smi, base)
     phase_wall("backup")
     kernels += probe_entries(phase_sim(
         rng, smi, seeds=SIM_BACKUP_CHIP_SEEDS,

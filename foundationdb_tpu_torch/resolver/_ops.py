@@ -30,6 +30,10 @@ tpu.py sites that need it:
   on two's-complement wrap (tpu.py:259); computed in int64, masked back;
 - st_aux int8 bytes (tpu.py:914-920): bytes 128..255 become int8 by an
   explicit two's-complement mapping, not a cast of out-of-range int32.
+
+The range helpers that gpu.py, rankfed.py and phase2.py share live here
+too: the sparse range-query table (`_build_table`, `_table_range_query`)
+and a segment tree's canonical nodes (`_canonical_nodes_flat`).
 """
 
 from __future__ import annotations
@@ -99,6 +103,56 @@ def floor_log2(x: torch.Tensor) -> torch.Tensor:
         m = m + big.to(I32) * s
         x = torch.where(big, x >> s, x)
     return m
+
+
+def _build_table(v, op, identity: int):
+    """(L, C) sparse range-query table: row m combines windows [i, i+2^m)."""
+    c = v.shape[0]
+    rows = [v]
+    s = 1
+    while s < c:
+        prev = rows[-1]
+        shifted = torch.cat(
+            [prev[s:], torch.full((s,), identity, dtype=v.dtype, device=v.device)]
+        )
+        rows.append(op(prev, shifted))
+        s *= 2
+    return torch.stack(rows)
+
+
+def _table_range_query(table, lo, hi, op, identity: int):
+    """op-combine over [lo, hi) per query; empty ranges -> identity. Two
+    gathers of overlapping power-of-two windows."""
+    c = table.shape[1]
+    length = (hi - lo).to(I32)
+    m = floor_log2(torch.clamp(length, min=1))  # 31 - clz (hazard: no clz)
+    window = torch.ones_like(m) << m
+    flat = table.reshape(-1)
+    base = m.to(torch.int64) * c
+    got1 = flat[base + torch.clamp(lo, 0, c - 1)]
+    got2 = flat[base + torch.clamp(hi - window, 0, c - 1)]
+    return torch.where(hi > lo, op(got1, got2), identity)
+
+
+def _canonical_nodes_flat(pos_lo, pos_hi, n_leaves: int):
+    """Canonical segment-tree node ids of each [pos_lo, pos_hi) interval,
+    flattened to 1-D (2*steps blocks of N), 0 marking unused slots (node 0
+    is never a real node — root is 1). Pure integer arithmetic."""
+    steps = n_leaves.bit_length()
+    l = (pos_lo + n_leaves).to(I32)
+    r = (pos_hi + n_leaves).to(I32)
+    cols = []
+    for _ in range(steps):
+        active = l < r
+        tl = active & ((l & 1) == 1)
+        cols.append(torch.where(tl, l, 0))
+        l = l + tl.to(I32)
+        tr = active & ((r & 1) == 1)
+        r = r - tr.to(I32)
+        cols.append(torch.where(tr, r, 0))
+        l = l >> 1
+        r = r >> 1
+    return torch.cat(cols), 2 * steps
 
 
 def add_wrap_i32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -20,13 +20,14 @@ What differs from the JAX package, and why:
 - The fast kernel updates the resident hmat/counts/btree IN PLACE where
   JAX donated those buffers (tpu.py:1105-1116), so the per-batch cost
   stays batch-scaled with no O(capacity) copy.
-- Phase 2's `lax.while_loop` stops on a device boolean; torch eager cannot
-  without a host read. The rounds run in groups under a device `active`
-  flag (conflict and the round count freeze after the first unchanged
-  round, so both stay bit-identical to JAX) with ONE `.item()` per group;
-  P2_SYNCS counts them. Besides the mirror readback the next dispatch
-  after a compaction makes (as tpu.py does), they are the only host syncs
-  inside submit.
+- Phase 2's `lax.while_loop` stops on a device boolean, which eager torch
+  cannot do without a host read; its rounds run in a hand-written CUDA
+  kernel instead (phase2.py, csrc/phase2.cu), every round on the device,
+  so submit makes no host read there, as tpu.py makes none. On CPU
+  tensors the plain version runs the rounds in groups with one `.item()`
+  per group, counted in P2_SYNCS. The mirror readback the next dispatch
+  after a compaction makes (as tpu.py does) is the one host sync left
+  inside submit on the card.
 - The verdict bytes (st_aux) start their D2H right after each dispatch,
   into pinned memory behind a CUDA event; verdicts() waits on the events.
 
@@ -48,10 +49,12 @@ from ..device import resolve_device
 from ._ops import (
     I32,
     I32_INF,
+    _build_table,
+    _canonical_nodes_flat,
+    _table_range_query,
     add_wrap_i32,
     cumsum32,
     dump_index,
-    floor_log2,
     int8_twos,
     le_bytes,
     scatter_cols_new,
@@ -77,14 +80,15 @@ from .packing import (
     unpack_key,
     widen_state,
 )
+from . import phase2
 from .probe import probe_ranks
 from .types import COMMITTED, CONFLICT, TOO_OLD, ConflictBatchResult, TxnConflictInfo
 
-P2_SYNCS = 0  # host reads made by phase 2's stopping rule (one per group)
+P2_SYNCS = 0  # host reads of phase 2's plain version (CPU tensors only)
 
-# Phase-2 round groups: one host read after each group. Most batches settle
-# in the first verification round (the pointer-jumping seed is exact on
-# pure chains), so the groups start small and grow.
+# Phase-2 round groups of the plain version: one host read after each
+# group. Most batches settle in the first verification round (the pointer-
+# jumping seed is exact on pure chains), so the groups start small and grow.
 _P2_GROUPS = (1, 2, 4, 8)
 
 
@@ -128,56 +132,6 @@ def _lower_rank(hkeys, qmat):
         pos = pos + lt.to(I32) * s
         s //= 2
     return pos
-
-
-def _build_table(v, op, identity: int):
-    """(L, C) sparse range-query table: row m combines windows [i, i+2^m)."""
-    c = v.shape[0]
-    rows = [v]
-    s = 1
-    while s < c:
-        prev = rows[-1]
-        shifted = torch.cat(
-            [prev[s:], torch.full((s,), identity, dtype=v.dtype, device=v.device)]
-        )
-        rows.append(op(prev, shifted))
-        s *= 2
-    return torch.stack(rows)
-
-
-def _table_range_query(table, lo, hi, op, identity: int):
-    """op-combine over [lo, hi) per query; empty ranges -> identity. Two
-    gathers of overlapping power-of-two windows."""
-    c = table.shape[1]
-    length = (hi - lo).to(I32)
-    m = floor_log2(torch.clamp(length, min=1))  # 31 - clz (hazard: no clz)
-    window = torch.ones_like(m) << m
-    flat = table.reshape(-1)
-    base = m.to(torch.int64) * c
-    got1 = flat[base + torch.clamp(lo, 0, c - 1)]
-    got2 = flat[base + torch.clamp(hi - window, 0, c - 1)]
-    return torch.where(hi > lo, op(got1, got2), identity)
-
-
-def _canonical_nodes_flat(pos_lo, pos_hi, n_leaves: int):
-    """Canonical segment-tree node ids of each [pos_lo, pos_hi) interval,
-    flattened to 1-D (2*steps blocks of N), 0 marking unused slots (node 0
-    is never a real node — root is 1). Pure integer arithmetic."""
-    steps = n_leaves.bit_length()
-    l = (pos_lo + n_leaves).to(I32)
-    r = (pos_hi + n_leaves).to(I32)
-    cols = []
-    for _ in range(steps):
-        active = l < r
-        tl = active & ((l & 1) == 1)
-        cols.append(torch.where(tl, l, 0))
-        l = l + tl.to(I32)
-        tr = active & ((r & 1) == 1)
-        r = r - tr.to(I32)
-        cols.append(torch.where(tr, r, 0))
-        l = l >> 1
-        r = r >> 1
-    return torch.cat(cols), 2 * steps
 
 
 def _decode_fused(fused, *, lay: FusedLayout):
@@ -278,8 +232,10 @@ def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
                         rtxn, wtxn, w_valid, T, Wr, P2):
     """Intra-batch fixed point (checkIntraBatchConflicts): the pointer-
     jumping seed, then the verification rounds until nothing changes (cap
-    n_jump+T+2), exactly as tpu._phase2_fixed_point. Returns the per-txn
-    conflict vector and the round count (0-d int32)."""
+    n_jump+T+2), exactly as tpu._phase2_fixed_point. The rounds are
+    phase2.phase2_rounds: the CUDA kernel on the card, the plain version
+    (one host read per round group, counted in P2_SYNCS) on the CPU.
+    Returns the per-txn conflict vector and the round count (0-d int32)."""
     global P2_SYNCS
     dev = base_conf.device
     inf = I32_INF
@@ -288,24 +244,11 @@ def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
     lo_r, hi_r = wb_excl[q_begin], wb_excl[q_end]
     rank_w = wb_excl[s_begin]             # rank of each write among wb's
     perm_w = scatter_new(Wr, 0, rank_w, _arange(Wr, dev), "set")
-    wnodes, n_blocks = _canonical_nodes_flat(s_begin, s_end, P2)
-    wnodes = wnodes.to(torch.int64)       # node 0 absorbs unused slots
-    k_levels = P2.bit_length()
-    anc = (q_begin[None, :] + P2) >> _arange(k_levels, dev)[:, None]
-
-    def min_writer_per_read(wval):
-        case_a = _table_range_query(
-            _build_table(wval[perm_w], torch.minimum, inf),
-            lo_r, hi_r, torch.minimum, inf,
-        )
-        tree_l = torch.full((2 * P2,), inf, dtype=I32, device=dev)
-        tree_l.scatter_reduce_(0, wnodes, wval.repeat(n_blocks),
-                               reduce="amin", include_self=True)
-        stab = tree_l[anc].amin(dim=0)
-        return torch.minimum(case_a, stab)
+    geometry = dict(perm=perm_w, lo=lo_r, hi=hi_r, seg_lo=s_begin,
+                    seg_hi=s_end, n_leaves=P2, leaf=q_begin)
 
     # Pointer-doubling seed over the read -> min-potential-writer chain.
-    pot = min_writer_per_read(torch.where(w_valid, wtxn, inf))
+    pot = phase2.min_writer_fn(**geometry)(torch.where(w_valid, wtxn, inf))
     pot = torch.where(pot < rtxn, pot, inf)
     parent = scatter_new(T + 1, inf, rtxn, pot, "min")[:T]
     has_par = parent < inf
@@ -321,35 +264,13 @@ def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
         ap, bp = a[ptr], b[ptr]
         a, b, ptr = (torch.where(ap == 1, b, a), torch.where(bp == 1, b, a),
                      ptr[ptr])
-    conflict = torch.maximum(base_conf, 1 - a[:T])
+    seed = torch.maximum(base_conf, 1 - a[:T])
 
-    def body(conflict):
-        committed_w = w_valid & (conflict[wtxn] == 0)
-        min_writer = min_writer_per_read(torch.where(committed_w, wtxn, inf))
-        evidence = (min_writer < rtxn).to(I32)
-        ev_txn = scatter_new(T, 0, rtxn, evidence, "max")
-        return torch.maximum(base_conf, ev_txn)
-
-    # lax.while_loop(changed & it < cap) in groups: a round applies only
-    # while `active`, so conflict and `it` freeze after the first unchanged
-    # round (or at the cap) exactly where the JAX loop stops.
-    cap = n_jump + T + 2
-    it = torch.full((), n_jump, dtype=I32, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    group, left = 0, T + 2   # group index, rounds the cap still allows
-    while left > 0:
-        size = min(_P2_GROUPS[min(group, len(_P2_GROUPS) - 1)], left)
-        for _ in range(size):
-            new = body(conflict)
-            changed = (new != conflict).any()
-            conflict = torch.where(active, new, conflict)
-            it = it + active.to(I32)
-            active = active & changed & (it < cap)
-        left -= size
-        group += 1
-        P2_SYNCS += 1
-        if not bool(active.item()):
-            break
+    # The verification rounds: lax.while_loop(changed & it < cap).
+    conflict, it, reads = phase2.phase2_rounds(
+        base_conf, seed, n_jump, n_jump + T + 2, rtxn=rtxn, wtxn=wtxn,
+        w_valid=w_valid, groups=_P2_GROUPS, **geometry)
+    P2_SYNCS += reads
     return conflict, it
 
 
@@ -1038,7 +959,8 @@ class ResolveHandle:
     """One submitted batch in flight (ConflictSetGPU.submit): the chunked
     PendingResolves plus per-stage timing. Consume exactly once with
     ConflictSetGPU.verdicts(). `p2_syncs` counts the host reads phase 2
-    made while this batch was dispatched."""
+    made while this batch was dispatched: 0 on the card, the plain
+    version's group reads on the CPU."""
 
     __slots__ = ("chunks", "n_txns", "version", "pack_ms", "dispatch_ms",
                  "device_ms", "d2h_ms", "depth_at_submit", "consumed",

@@ -26,12 +26,13 @@ What differs from the JAX package, and why:
 - `_rank_kernel_impl` is a sequence of torch ops on the state's device
   (XLA compiled it; the JAX package wrote no Pallas kernel for it). The
   JAX/torch semantic hazards go through resolver/_ops.py.
-- Phase 2's `lax.while_loop` stops on a device boolean; torch eager
-  cannot. `_phase2_fixed_point` runs the rounds in groups (1, 2, 4, 8,
-  8, ...) under a device `active` flag, so `conflict` freezes exactly
-  where the JAX loop stops (the cap of T + 2 rounds included), with ONE
-  host read per group, counted in P2_SYNCS: the only host reads of
-  resolve_async.
+- Phase 2's `lax.while_loop` stops on a device boolean, which eager
+  torch cannot do without a host read. `_phase2_fixed_point` runs its
+  rounds in the hand-written CUDA kernel that gpu.py's phase 2 runs
+  (phase2.py, csrc/phase2.cu; case B stabs leaf qb2 - 1, no seed, the
+  cap T + 2), so resolve_async makes no host read on the card. On CPU
+  tensors the plain version runs the rounds in groups (1, 2, 4, 8, 8,
+  ...) with one host read per group, counted in P2_SYNCS.
 - The JAX kernel donates the version vector; here the set holds one
   `hv` tensor and replaces it with the kernel's output.
 - The fused buffer's H2D goes through pinned memory, non_blocking, and
@@ -52,24 +53,23 @@ import torch
 
 from ..core.knobs import CLIENT_KNOBS, SERVER_KNOBS
 from ..device import resolve_device
-from ._ops import I32, I32_INF, cumsum32, scatter_new
-# gpu.py's sparse-table query lacks rankfed.py:155-157's cap of the window
+from . import phase2
+# _ops' sparse-table query lacks rankfed.py:155-157's cap of the window
 # level at the table's last row; here every query is at most the table's
 # length (C and Wr are powers of two), so the cap never binds.
-from .gpu import (
-    _P2_GROUPS,
+from ._ops import (
+    I32,
     _build_table,
-    _canonical_nodes_flat,
-    _start_d2h,
     _table_range_query,
-    to_device,
-    upload,
+    cumsum32,
+    scatter_new,
 )
+from .gpu import _P2_GROUPS, _start_d2h, to_device, upload
 from .packing import KeyWidthError, flatten_batch, next_pow2, pack_keys
 from .types import COMMITTED, CONFLICT, TOO_OLD, ConflictBatchResult, TxnConflictInfo
 
 INT32_MAX = np.int32(2**31 - 1)
-P2_SYNCS = 0  # host reads made by phase 2's stopping rule (one per group)
+P2_SYNCS = 0  # host reads of phase 2's plain version (CPU tensors only)
 
 
 # ---------------------------------------------------------------------------
@@ -157,60 +157,18 @@ class RankLayout:
 def _phase2_fixed_point(base_conf, *, wb2, we2, qb2, loA, hiA, perm, rtxn,
                         wtxn, w_valid, T: int, M: int):
     """Intra-batch fixed point from `base_conf`: rounds until nothing
-    changes, at most T + 2 (rankfed.py:223-253), in groups with one host
-    read each."""
+    changes, at most T + 2 (rankfed.py:223-253), through
+    phase2.phase2_rounds (the CUDA kernel on the card; on the CPU the
+    plain version, whose group reads P2_SYNCS counts). Case B stabs leaf
+    qb2 - 1; qb2 == 0 means the read point sorts before every write
+    endpoint: nothing covers it (leaf -1, no stab)."""
     global P2_SYNCS
-    dev = base_conf.device
-    inf = I32_INF
-    wnodes, n_blocks = _canonical_nodes_flat(wb2, we2, M)
-    wnodes = wnodes.to(torch.int64)       # node 0 absorbs unused slots
-    k_levels = M.bit_length()
-    leaf = torch.clamp(qb2 - 1, 0, M - 1)
-    anc = (leaf[None, :] + M) >> torch.arange(k_levels, dtype=I32,
-                                              device=dev)[:, None]
-
-    def body(conflict):
-        committed_w = w_valid & (conflict[wtxn] == 0)
-        wval = torch.where(committed_w, wtxn, inf).to(I32)
-        # Case A: writes whose BEGIN lies strictly inside the read span —
-        # range-min over begin-rank order [loA, hiA).
-        case_a = _table_range_query(
-            _build_table(wval[perm], torch.minimum, inf),
-            loA, hiA, torch.minimum, inf,
-        )
-        # Case B: writes covering the read's begin point — segment tree
-        # over the write-endpoint leaves; leaf qb2-1 (qb2 == 0 means the
-        # read point sorts before every write endpoint: nothing covers it).
-        tree_l = torch.full((2 * M,), inf, dtype=I32, device=dev)
-        tree_l.scatter_reduce_(0, wnodes, wval.repeat(n_blocks),
-                               reduce="amin", include_self=True)
-        stab = tree_l[anc].amin(dim=0)
-        stab = torch.where(qb2 > 0, stab, inf)
-        evidence = (torch.minimum(case_a, stab) < rtxn).to(I32)
-        ev_txn = scatter_new(T, 0, rtxn, evidence, "max")
-        return torch.maximum(base_conf, ev_txn)
-
-    # lax.while_loop(changed & it < T + 2) in groups: a round applies only
-    # while `active`, so conflict freezes after the first unchanged round
-    # (or at the cap) exactly where the JAX loop stops.
-    cap = T + 2
-    conflict = base_conf
-    it = torch.zeros((), dtype=I32, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
-    group, left = 0, cap
-    while left > 0:
-        size = min(_P2_GROUPS[min(group, len(_P2_GROUPS) - 1)], left)
-        for _ in range(size):
-            new = body(conflict)
-            changed = (new != conflict).any()
-            conflict = torch.where(active, new, conflict)
-            it = it + active.to(I32)
-            active = active & changed & (it < cap)
-        left -= size
-        group += 1
-        P2_SYNCS += 1
-        if not bool(active.item()):
-            break
+    leaf = torch.where(qb2 > 0, torch.clamp(qb2 - 1, 0, M - 1), -1)
+    conflict, _, reads = phase2.phase2_rounds(
+        base_conf, base_conf, 0, T + 2, perm=perm, lo=loA, hi=hiA,
+        seg_lo=wb2, seg_hi=we2, n_leaves=M, leaf=leaf, rtxn=rtxn, wtxn=wtxn,
+        w_valid=w_valid, groups=_P2_GROUPS)
+    P2_SYNCS += reads
     return conflict
 
 

@@ -41,10 +41,12 @@ What differs from the JAX package, and why:
 - Shards on one device share one H2D of their fused buffers per batch,
   and one readback per compaction (_refresh_mirror).
 - Block growth stays on the device (a pad block uploaded from pinned
-  memory); only _phase2_fixed_point (one host read per round group, per
-  shard: shards on separate cards wait for each other's reads),
-  _refresh_mirror and _grow_width make a host read on the dispatch path.
-  The handle's p2_syncs counts the phase-2 reads.
+  memory); only _refresh_mirror and _grow_width make a host read on the
+  dispatch path. Each shard's phase 2 runs gpu.py's phase-2 kernel
+  (resolver/phase2.py, csrc/phase2.cu), which reads nothing on the host,
+  so each shard's step is enqueued on its device without waiting and
+  shards on separate cards overlap. The handle's p2_syncs counts the
+  reads of phase 2's plain version (CPU tensors only; 0 on the card).
 - The state's device picks the probe (the CUDA kernel on the card, its
   plain version on the CPU); there is no probe knob.
 """
@@ -198,7 +200,8 @@ class ShardedResolveHandle:
     """One in-flight batch (ShardedConflictSetGPU.submit): the merged
     st_aux on the device, its host copy in flight behind an event, and the
     per-stage timings the resolver role reads. `p2_syncs` counts the host
-    reads phase 2 made while this batch was dispatched (all shards)."""
+    reads phase 2 made while this batch was dispatched, all shards: 0 on
+    the card, the plain version's group reads on the CPU."""
 
     __slots__ = ("st", "lay", "n_txns", "version", "pack_ms", "dispatch_ms",
                  "device_ms", "d2h_ms", "depth_at_submit", "consumed",

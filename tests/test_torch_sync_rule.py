@@ -13,18 +13,21 @@ device=...)`, a copy from pageable memory) may stand only in
 - the consumption calls and the functions they call;
 - a function no dispatch reaches (host inspection such as entries(),
   hand-over, warm-up);
-- the recorded departures (ROADMAP Queue 3): `_phase2_fixed_point`'s one
-  `.item()` per round group, `_refresh_mirror`'s one fence/count readback
-  per compaction, and `_grow_width`'s host re-pack when a longer key
-  arrives (sharded.py has its own `_refresh_mirror` and `_grow_width`,
-  and runs gpu.py's phase 2 once per shard); in rankfed.py its own
-  `_phase2_fixed_point`'s one `.item()` per round group, and
-  `_canonical`'s one read of the version vector, which a GC round makes
-  (resolve() runs the GC rule before it packs, so it is analysed as a
-  dispatch too).
+- the recorded departures (ROADMAP Queue 3): `_refresh_mirror`'s one
+  fence/count readback per compaction, and `_grow_width`'s host re-pack
+  when a longer key arrives (sharded.py has its own `_refresh_mirror` and
+  `_grow_width`); in rankfed.py `_canonical`'s one read of the version
+  vector, which a GC round makes (resolve() runs the GC rule before it
+  packs, so it is analysed as a dispatch too); and in all three resolver
+  modules phase 2's plain version, `phase2_rounds_ref` (one `.item()` per
+  round group), which only a CPU tensor reaches: on a CUDA tensor
+  phase2.phase2_rounds launches the kernel (phase2_rounds_launch), whose
+  path makes no host read and never reaches the plain version.
 
 sharded.py calls the kernels of gpu.py, so its analysis sees gpu.py's
-functions too, its own taking precedence where a name is in both.
+functions too, its own taking precedence where a name is in both; the
+three resolver modules see resolver/phase2.py, where phase 2's rounds
+are.
 """
 
 import ast
@@ -38,15 +41,16 @@ MODULES = {
     "resolver/gpu.py": {
         "dispatch": {"submit", "resolve_async"},
         "consume": {"verdicts"},
-        "departures": {"_phase2_fixed_point", "_refresh_mirror",
+        "departures": {"phase2_rounds_ref", "_refresh_mirror",
                        "_grow_width"},
+        "sees": ("resolver/phase2.py",),
     },
     "resolver/sharded.py": {
         "dispatch": {"submit"},
         "consume": {"verdicts"},
-        "departures": {"_phase2_fixed_point", "_refresh_mirror",
+        "departures": {"phase2_rounds_ref", "_refresh_mirror",
                        "_grow_width"},
-        "sees": ("resolver/gpu.py",),
+        "sees": ("resolver/phase2.py", "resolver/gpu.py"),
     },
     "storage_engine/gpu_engine.py": {
         "dispatch": {"submit_reads"},
@@ -56,7 +60,8 @@ MODULES = {
     "resolver/rankfed.py": {
         "dispatch": {"resolve_async", "resolve"},
         "consume": {"result"},
-        "departures": {"_phase2_fixed_point", "_canonical"},
+        "departures": {"phase2_rounds_ref", "_canonical"},
+        "sees": ("resolver/phase2.py",),
     },
 }
 
@@ -154,8 +159,9 @@ def test_recorded_departures_are_on_the_path_and_sync(rel):
 
 
 def one_read_per_group(rel):
-    _, fns, _, _ = analyse(rel)
-    (fn,) = fns["_phase2_fixed_point"]
+    _, fns, reach, _ = analyse(rel)
+    assert "_phase2_fixed_point" in reach
+    (fn,) = fns["phase2_rounds_ref"]
     calls = sync_calls(fn)
     assert [t for _, t in calls if t.endswith(".item()")] == [
         "active.item()"]
@@ -172,6 +178,31 @@ def test_phase2_makes_one_item_per_round_group():
 
 def test_rankfed_phase2_makes_one_item_per_round_group():
     one_read_per_group("resolver/rankfed.py")
+
+
+@pytest.mark.parametrize("rel", ["resolver/gpu.py", "resolver/sharded.py",
+                                 "resolver/rankfed.py"])
+def test_phase2_cuda_branch_never_reaches_the_plain_version(rel):
+    """On a CUDA tensor phase2_rounds launches the kernel: the launch's
+    path makes no host sync and never calls the plain version, and
+    phase2_rounds calls the plain version only under its CPU test."""
+    _, fns, reach, _ = analyse(rel)
+    assert {"phase2_rounds", "phase2_rounds_launch"} <= reach
+    cuda = closure({"phase2_rounds_launch"}, fns)
+    assert "phase2_rounds_ref" not in cuda
+    assert not [t for name in cuda for fn in fns[name]
+                for _, t in sync_calls(fn)]
+    (fn,) = fns["phase2_rounds"]
+    guarded = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.If) and any(
+                isinstance(c, ast.Constant) and c.value == "cpu"
+                for c in ast.walk(node.test)):
+            guarded |= {id(n) for stmt in node.body for n in ast.walk(stmt)}
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)
+             and n.func.id == "phase2_rounds_ref"]
+    assert calls and all(id(c) in guarded for c in calls)
 
 
 def test_rankfed_gc_round_reads_the_version_vector_once():
