@@ -15,11 +15,12 @@ Phases (each prints one line; any failure exits nonzero):
    (W1 = 4, NB = 65,536 blocks of 32, P2 = 917,504 sorted endpoints),
    with the device time of both (foundationdb_tpu_torch/timing.py: warm
    over 50 launches per event pair, cold after an L2 flush); then
-   `[phase2]`: phase 2's kernel (csrc/phase2.cu, the fixed point's rounds
-   on the device) through a ConflictSetGPU and a ConflictSetRankFed on a
-   pure abort chain of 15 and of 16 txns, statuses alternating, and each
-   call's operands held bit-exact against the plain version (conflict
-   vector and round counter), also with the round cap cut to 5;
+   `[phase2]`: phase 2's kernel (csrc/phase2.cu, the fixed point's seed
+   and rounds on the device) through a ConflictSetGPU and a
+   ConflictSetRankFed on a pure abort chain of 15 and of 16 txns,
+   statuses alternating, and each call's operands held bit-exact against
+   the plain version (conflict vector and round counter) under both
+   tiers, also with the round cap cut to 5;
 3. narrow slice: ConflictSetGPU on the card against the CPU oracle
    ConflictSetCPU, 40 batches of 256 txns at pipeline depth 4 (GC horizon,
    tooOld txns, a 40-byte key mid-run, compaction every 4 dispatches):
@@ -250,9 +251,12 @@ sim-durable-resolver, sim-durable-storage, multiprocess-resolver,
 multiprocess-storage,
 backup-{source,restore,stream,dr,pitr}-{resolver,storage},
 sim-backup-resolver, sim-backup-storage; phase 2's kernel on
-[full]'s last chunk (resolver), [sharded]'s last shard step (sharded) and
-[rankfed]'s last batch (rankfed); and the rank-fed kernel, route
-"torch"), the
+[full]'s last chunk (resolver), [sharded]'s last shard step (sharded),
+[rankfed]'s last batch (rankfed) and [cluster]'s largest batch under
+each tier the rule picked there, one both tiers can run where there is
+one (cluster-resolver-block, cluster-resolver-grid), each with its tier and the other tier's time
+where the shape fits it (ab_ms); and the rank-fed kernel,
+route "torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
@@ -357,6 +361,10 @@ DURABLE_CHIP_TARGET = 500
 DURABLE_CHIP_CRASH_TARGET = 125
 MP_CHIP_TARGET = 1000
 BACKUP_CHIP_TARGET = 1000
+# Device ops of one profiled [full] batch while phase 2's seed still ran
+# as torch ops around the kernel (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# section 5): [full-profile-ops] prints the count beside it.
+SEED_AS_TORCH_OPS_DEVICE_OPS = 12_880
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -539,11 +547,15 @@ class Phase2Tap:
     one's operands kept by reference (the callers build them fresh per
     chunk, shard step or batch, and neither they nor the kernel write to
     them afterwards), held against the plain version afterwards by
-    phase2_check."""
+    phase2_check; also the launches under each tier phase2.choose_tier
+    picks and, for its A/B, that tier's largest operands (the most reads,
+    writes or txns, among those both tiers can run where there are such;
+    the last of equals) (by_tier: {tier: operands, launches, key})."""
 
     def __init__(self):
         self.calls = 0
         self.captured = {}
+        self.by_tier = {}
 
     def __enter__(self) -> "Phase2Tap":
         from foundationdb_tpu_torch.resolver import phase2
@@ -551,13 +563,26 @@ class Phase2Tap:
         real = self._real = phase2.phase2_rounds
 
         def rounds(base_conf, conflict0, it0, cap, **kw):
+            n0 = phase2.LAUNCHES
+            out = real(base_conf, conflict0, it0, cap, **kw)
             if base_conf.is_cuda:
                 self.calls += 1
                 self.captured = dict(
                     base_conf=base_conf, conflict0=conflict0, it0=it0,
                     cap=cap, **{k: v for k, v in kw.items()
                                 if k != "groups"})
-            return real(base_conf, conflict0, it0, cap, **kw)
+                shape = (base_conf.shape[0], kw["rtxn"].shape[0],
+                         kw["wtxn"].shape[0], kw["n_leaves"])
+                lim = phase2.device_limits(base_conf.device)
+                tier = phase2.choose_tier(*shape, lim)[0]
+                # both tiers can run it, then its most items a thread
+                key = (phase2.block_bytes(*shape) <= lim["smem_per_block"],
+                       max(shape[:3]))
+                kept = self.by_tier.setdefault(tier, {"launches": 0})
+                kept["launches"] += phase2.LAUNCHES - n0
+                if key >= kept.get("key", (False, -1)):
+                    kept.update(self.captured, key=key)
+            return out
 
         phase2.phase2_rounds = rounds
         return self
@@ -570,79 +595,130 @@ class Phase2Tap:
 
 def phase2_bound(cap: dict, rounds: int) -> tuple[float, str]:
     """Least ms for the kernel's work on this card, and what bounds it:
-    the larger of its bytes, every operand read once (base_conf and
-    conflict0 4 T each, rtxn, lo, hi and leaf 16 R, perm, seg_lo, seg_hi
-    and wtxn 16 Wr, w_valid Wr) and the output written once (4 T + 4),
-    over the memory rate, and its operations over the 32-bit integer
+    the larger of its bytes, every operand it reads read once (base_conf
+    4 T, and conflict0 4 T where there is no seed: a seeded call does
+    not read it; rtxn, lo, hi and leaf 16 R, perm, seg_lo, seg_hi and
+    wtxn 16 Wr, w_valid Wr) and the output written once (4 T + 4), over
+    the memory rate, and its operations over the 32-bit integer
     peak: per round, per read a min over its leaf's ancestors, a
     range-min, a compare and a max (log2 n_leaves + 4), per write a
-    gather, a compare and a select (3), per txn a max and a compare (2).
-    The rounds re-read operands that fit in L2 (under 12 MB of the card's
-    50 MB at the smoke's sizes), so only the first read crosses HBM."""
+    gather, a compare and a select (3), per txn a max and a compare (2);
+    with the seed, one more such round and n_jump jumps of 3 gathers per
+    txn and the sentinel (3 (T + 1)). The rounds re-read operands that
+    fit in L2 (under 12 MB of the card's 50 MB at the smoke's sizes), so
+    only the first read crosses HBM."""
+    from foundationdb_tpu_torch.resolver.phase2 import n_jump
+
     T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
-    t_bytes = (12 * T + 4 + 16 * R + 17 * Wr) / HBM_BYTES_PER_S * 1e3
-    ops = rounds * (R * (cap["n_leaves"].bit_length() + 4) + 3 * Wr + 2 * T)
+    seeded = bool(cap.get("seed"))
+    t_bytes = ((12 - 4 * seeded) * T + 4 + 16 * R + 17 * Wr
+               ) / HBM_BYTES_PER_S * 1e3
+    ops = (rounds + seeded) * (R * (cap["n_leaves"].bit_length() + 4)
+                               + 3 * Wr + 2 * T)
+    ops += seeded * n_jump(T) * 3 * (T + 1)
     t_ops = ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase2_check(cap: dict, name: str, timed: bool = False):
-    """The kernel against its plain version on the same CUDA tensors:
-    conflict vector and round counter bit for bit (fails otherwise).
-    Returns (max |diff|, rounds, times): times, if timed, {"ms": warm,
-    "ms_cold": after an L2 flush, "plain_ms": the plain version's grouped
-    loop, host reads included}, device ms per call by device_ms."""
+def phase2_tiers(cap: dict) -> dict:
+    """{tier: its size} for each tier that can run these operands: the
+    one phase2.choose_tier picks first, then the other where it fits."""
+    from foundationdb_tpu_torch.resolver import phase2
+
+    T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
+    L = cap["n_leaves"]
+    lim = phase2.device_limits(cap["base_conf"].device)
+    name, size, _ = phase2.choose_tier(T, R, Wr, L, lim)
+    tiers = {name: size}
+    if name == "block":
+        tiers["grid"] = phase2.choose_tier(T, R, Wr, L, lim, "grid")[1]
+    elif phase2.block_bytes(T, R, Wr, L) <= lim["smem_per_block"]:
+        tiers["block"] = 1
+    return tiers
+
+
+def phase2_check(cap: dict, name: str, timed: bool = False,
+                 tier: str | None = None):
+    """The kernel (under `tier`, else the rule's) against its plain
+    version on the same CUDA tensors: conflict vector and round counter
+    bit for bit (fails otherwise). Returns (max |diff|, rounds, times):
+    times, if timed, {"ms": warm, "ms_cold": after an L2 flush,
+    "plain_ms": the plain version's grouped loop, host reads included},
+    device ms per call by device_ms."""
     import torch
     from foundationdb_tpu_torch.resolver import phase2
     from foundationdb_tpu_torch.timing import device_ms, l2_flusher
 
     args = (cap["base_conf"], cap["conflict0"], cap["it0"], cap["cap"])
     kw = {k: v for k, v in cap.items() if k not in (
-        "base_conf", "conflict0", "it0", "cap", "launches")}
-    got = phase2.phase2_rounds_launch(*args, **kw)
+        "base_conf", "conflict0", "it0", "cap", "launches", "key")}
+    n0 = phase2.LAUNCHES
+    got = phase2.phase2_rounds_launch(*args, tier=tier, **kw)
     want = phase2.phase2_rounds_ref(*args, **kw)[:2]
     torch.cuda.synchronize()
     err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
               for g, w in zip(got, want))
     rounds = int(got[1]) - cap["it0"]
     if err:
-        fail(f"{name}: the phase-2 kernel disagrees with its plain version "
-             f"(T={cap['base_conf'].shape[0]} R={cap['rtxn'].shape[0]} "
-             f"Wr={cap['wtxn'].shape[0]} n_leaves={cap['n_leaves']}): max "
-             f"|diff| {err}")
-    if not timed:
-        return err, rounds, None
-    n0 = phase2.LAUNCHES
+        fail(f"{name}: the phase-2 kernel ({tier or 'rule'} tier) disagrees "
+             f"with its plain version (T={cap['base_conf'].shape[0]} "
+             f"R={cap['rtxn'].shape[0]} Wr={cap['wtxn'].shape[0]} "
+             f"n_leaves={cap['n_leaves']} seed={bool(kw.get('seed'))}): "
+             f"max |diff| {err}")
+    times = None
+    if timed:
+        def kernel():
+            phase2.phase2_rounds_launch(*args, tier=tier, **kw)
 
-    def kernel():
-        phase2.phase2_rounds_launch(*args, **kw)
-
-    times = {"ms": device_ms(kernel, n=50),
-             "ms_cold": device_ms(kernel,
-                                  flush=l2_flusher(cap["base_conf"].device)),
-             "plain_ms": device_ms(
-                 lambda: phase2.phase2_rounds_ref(*args, **kw))}
+        times = {"ms": device_ms(kernel, n=50),
+                 "ms_cold": device_ms(
+                     kernel, flush=l2_flusher(cap["base_conf"].device)),
+                 "plain_ms": device_ms(
+                     lambda: phase2.phase2_rounds_ref(*args, **kw))}
     phase2.LAUNCHES = n0   # comparison launches do not count
     return err, rounds, times
 
 
 def phase2_entry(path: str, cap: dict, launches: int, smi: str,
                  replaces: str) -> dict:
-    """The kernel on one path's last operands: checked, timed, bounded,
-    logged, as one kernel-table entry."""
+    """The kernel on one path's last operands: checked under each tier
+    that fits (the rule's first), timed, bounded, logged, as one
+    kernel-table entry; the tiers' A/B is timed in turns (rule, other,
+    other, rule), 50 launches a reading."""
+    from foundationdb_tpu_torch.resolver import phase2
+    from foundationdb_tpu_torch.timing import device_ms
+
+    tiers = phase2_tiers(cap)
+    rule = next(iter(tiers))
     err, rounds, t = phase2_check(cap, f"phase2-{path}", timed=True)
+    for other in list(tiers)[1:]:
+        err = max(err, phase2_check(cap, f"phase2-{path}-{other}",
+                                    tier=other)[0])
+    args = (cap["base_conf"], cap["conflict0"], cap["it0"], cap["cap"])
+    kw = {k: v for k, v in cap.items() if k not in (
+        "base_conf", "conflict0", "it0", "cap", "launches", "key")}
+    n0 = phase2.LAUNCHES
+    ab = {k: [] for k in tiers}
+    for k in [*tiers, *reversed(tiers)]:
+        ab[k].append(device_ms(lambda: phase2.phase2_rounds_launch(
+            *args, tier=k, **kw), n=50))
+    phase2.LAUNCHES = n0
     bound_ms, bound_by = phase2_bound(cap, rounds)
     T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
+    size = {"grid_blocks": tiers["grid"]} if "grid" in tiers else {}
+    seeded = bool(cap.get("seed"))
     log(f"phase2-{path}", smi=json.dumps(smi), T=T, R=R, Wr=Wr,
-        n_leaves=cap["n_leaves"], rounds=rounds, max_abs_err=err,
-        **fmt_times(t), bound_ms=f"{bound_ms:.7f}", bound_by=bound_by,
-        launches=launches)
+        n_leaves=cap["n_leaves"], rounds=rounds, seed=seeded, tier=rule,
+        **size, max_abs_err=err, **fmt_times(t),
+        ab_ms=json.dumps(ab), bound_ms=f"{bound_ms:.7f}",
+        bound_by=bound_by, launches=launches)
     return {"name": "phase2_rounds", "route": "cuda",
             "source": "foundationdb_tpu_torch/csrc/phase2.cu",
             "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": err, "ms": t["ms"], "ms_cold": t["ms_cold"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "rounds": rounds}
+            "bound_by": bound_by, "library_ms": None, "rounds": rounds,
+            "tier": rule, **size, "seed": seeded, "ab_ms": ab}
 
 
 P2_REPLACES = {"gpu": "foundationdb_tpu/resolver/tpu.py:435",
@@ -658,8 +734,8 @@ def phase_phase2(device=None) -> None:
     one round a link, n rounds for n txns in T = 16, across the plain
     version's round groups). Statuses alternate; each call's operands
     hold the kernel bit-exact against the plain version, conflict vector
-    and round counter, and again with the cap cut to 5 rounds, where both
-    stop mid-chain."""
+    and round counter, under each tier (block and grid), and again with
+    the cap cut to 5 rounds, where both stop mid-chain."""
     from foundationdb_tpu_torch.kv.keys import KeyRange
     from foundationdb_tpu_torch.resolver.gpu import ConflictSetGPU
     from foundationdb_tpu_torch.resolver.rankfed import ConflictSetRankFed
@@ -685,20 +761,27 @@ def phase_phase2(device=None) -> None:
                 fail(f"phase2: {kind} chain of {n}: {tap.calls} kernel "
                      "calls, 1 expected")
             cap = tap.captured
-            err, rounds, _ = phase2_check(cap, f"phase2-{kind}-{n}")
             T = cap["base_conf"].shape[0]
             want = 1 if kind == "gpu" else n
-            if rounds != want:
-                fail(f"phase2: {kind} chain of {n} in T = {T}: {rounds} "
-                     f"rounds, {want} expected")
-            err_cap, cut, _ = phase2_check(dict(cap, cap=cap["it0"] + 5),
-                                           f"phase2-{kind}-{n}-cap")
-            if cut != min(want, 5):
-                fail(f"phase2: {kind} chain of {n} with the cap at 5 "
-                     f"rounds: {cut} rounds")
-            log("phase2", caller=kind, chain=n, T=T, rounds=rounds,
-                max_abs_err=max(err, err_cap), statuses_alternate=True,
-                capped_rounds=cut)
+            errs, cuts = [], []
+            for tier in ("block", "grid"):
+                err, rounds, _ = phase2_check(cap, f"phase2-{kind}-{n}",
+                                              tier=tier)
+                if rounds != want:
+                    fail(f"phase2: {kind} chain of {n} in T = {T} ({tier} "
+                         f"tier): {rounds} rounds, {want} expected")
+                err_cap, cut, _ = phase2_check(
+                    dict(cap, cap=cap["it0"] + 5), f"phase2-{kind}-{n}-cap",
+                    tier=tier)
+                if cut != min(want, 5):
+                    fail(f"phase2: {kind} chain of {n} with the cap at 5 "
+                         f"rounds ({tier} tier): {cut} rounds")
+                errs += [err, err_cap]
+                cuts.append(cut)
+            log("phase2", caller=kind, chain=n, T=T, rounds=want,
+                seed=bool(cap.get("seed")), tiers="block,grid",
+                max_abs_err=max(errs), statuses_alternate=True,
+                capped_rounds=cuts[0])
 
 
 # ---------------------------------------------------------------- phase 3
@@ -967,9 +1050,9 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     if launches <= 0:
         fail("full width: the probe kernel was not launched on the main path")
     on_card = cs.device.type == "cuda"
-    if on_card and p2_launches < n_chunks[0]:
+    if on_card and p2_launches != n_chunks[0]:
         fail(f"full width: {p2_launches} phase-2 kernel launches for "
-             f"{n_chunks[0]} resolved chunks")
+             f"{n_chunks[0]} resolved chunks (one each expected)")
     if on_card and any(p2_reads):
         fail(f"full width: phase 2 read the host in a submit: {p2_reads}")
     st = np.concatenate([np.asarray(s) for s in statuses])
@@ -1001,8 +1084,12 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     if cs.device.type == "cuda":
         vp = v0 + n_batches * step
         wb = config5_batch(rng, n_txn, vp)
-        profile_batch(lambda: cs.resolve(vp, max(0, vp - window), wb),
-                      batch_ms=1e3 * n_txn / steady)
+        prof = profile_batch(lambda: cs.resolve(vp, max(0, vp - window), wb),
+                             batch_ms=1e3 * n_txn / steady)
+        if prof:
+            log("full-profile-ops", device_ops=prof[1],
+                seed_as_torch_ops_device_ops=SEED_AS_TORCH_OPS_DEVICE_OPS,
+                fewer=SEED_AS_TORCH_OPS_DEVICE_OPS - prof[1])
         n_batches += 1
         audit_syncs(cs, config5_batch(rng, n_txn, v0 + n_batches * step),
                     v0 + n_batches * step, window)
@@ -1730,7 +1817,8 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     committed. Every verdict is replayed through a
     fresh ConflictSetCPU and every read reply is held against an
     independent VersionedMap. Returns the probe's operands and launches
-    on each path."""
+    on each path, and the resolver's phase-2 launches under each tier
+    phase2.choose_tier picked with that tier's largest operands."""
     import torch
     from foundationdb_tpu_torch.cluster import LocalCluster
     from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
@@ -1752,7 +1840,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     cs = RecordingConflictSet(ConflictSetGPU(
         0, max_key_bytes=16, initial_capacity=capacity, device=device),
         replays.send)
-    with ProbeTap() as tap:
+    with ProbeTap() as tap, Phase2Tap() as p2_tap:
         with loop_context(loop):
             cluster = LocalCluster(conflict_set=cs, device=device)
             win = CheckedWindow(cluster.storage.data)
@@ -1857,6 +1945,8 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
             if launches[path] <= 0:
                 fail(f"cluster: the probe kernel was not launched on the "
                      f"{path} path")
+        if not p2_tap.by_tier:
+            fail("cluster: the phase-2 kernel was not launched")
 
     extra = []  # (version, statuses) of the profiled resolves
     if card:
@@ -1922,8 +2012,12 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     if card:
         sync_audit("cluster", cs.syncs, cs.known, cs.sites)
     log("cluster-phase", wall_s=f"{time.perf_counter() - t_phase:.2f}")
-    return tap.paths(**{"cluster-resolver": "resolver",
-                        "cluster-storage": "storage"})
+    paths = tap.paths(**{"cluster-resolver": "resolver",
+                         "cluster-storage": "storage"})
+    # phase 2 under each tier the rule picked, on its largest batch
+    paths["cluster-resolver"]["phase2"] = {
+        f"cluster-resolver-{t}": c for t, c in p2_tap.by_tier.items()}
+    return paths
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2274,8 +2368,8 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
     if card and launches <= 0:
         fail("sharded: the probe kernel was not launched on the main path")
     paths = tap.paths(sharded="resolver")
-    paths["sharded"]["phase2"] = dict(
-        p2_cap, launches=sum(r["p2_launches"] for r in runs))
+    paths["sharded"]["phase2"] = {"sharded": dict(
+        p2_cap, launches=sum(r["p2_launches"] for r in runs))}
     return paths
 
 
@@ -5626,10 +5720,11 @@ def main() -> int:
                              rng, smi, load_keys=SHARDED_CLUSTER_LOAD_KEYS,
                              target=CONFIG1_CHIP_TARGET))):
         paths = phase(rng, smi)
-        p2_caps = {k: c.pop("phase2") for k, c in paths.items()
-                   if "phase2" in c}
+        p2_caps = {k: v for c in paths.values()
+                   for k, v in c.pop("phase2", {}).items()}
         kernels += probe_entries(paths, smi, base)
-        for path, c in p2_caps.items():   # [sharded]'s last shard step
+        # [cluster]'s last batch under each tier, [sharded]'s last step
+        for path, c in p2_caps.items():
             kernels.append(phase2_entry(path, c, c["launches"], smi,
                                         P2_REPLACES["gpu"]))
         del paths, p2_caps

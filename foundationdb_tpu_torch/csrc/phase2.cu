@@ -1,71 +1,93 @@
 // Phase 2 of the resolver, the intra-batch fixed point, for Hopper (sm_90a).
 //
-// Replaces the verification loop `lax.while_loop` of the JAX package in
-// foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (loop :419-437,
-// the block and dense kernels' phase 2) and in
-// foundationdb_tpu/resolver/rankfed.py::_rank_kernel_impl (:223-253, the
-// rank-fed set's phase 2). Both are XLA-jitted; neither reaches a
-// pallas_call. The plain torch version is
-// foundationdb_tpu_torch/resolver/phase2.py `phase2_rounds_ref`.
+// Replaces what follows the geometry in the JAX package's
+// foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (:385-437: the
+// pointer-jumping seed, then the verification `lax.while_loop`, run by
+// the block and dense kernels) and the verification loop of
+// foundationdb_tpu/resolver/rankfed.py::_rank_kernel_impl (:223-253, no
+// seed). Both are XLA-jitted; neither reaches a pallas_call. The plain
+// torch version is foundationdb_tpu_torch/resolver/phase2.py
+// `phase2_rounds_ref`.
 //
-// Why it was written: the resolvers' dispatch contract. The JAX package's
-// submit enqueues its whole resolve and never waits for the device
-// (tpu.py:103-107); its loop stops on a device boolean. Eager torch cannot
-// stop on a device value without reading it on the host, so the port ran
-// the rounds in groups with one host read per group, and each read waited
-// for everything queued before it. This kernel runs every round on the
-// device, so a submit makes no host read and the host packs the next
-// chunk while the card resolves this one.
+// Why it exists: the resolvers' dispatch contract. The JAX package's
+// submit enqueues its whole resolve and never waits for the device; its
+// loop stops on a device boolean. This kernel runs the seed and every
+// round on the device in one launch, so a submit makes no host read and
+// launches no seed op.
 //
-// One round, Jacobi style (it reads only the old conflict vector `cur`
-// and writes the new one `nxt`, so the round count equals the JAX loop's):
-//   wval[w] = w_valid[w] && cur[wtxn[w]] == 0 ? wtxn[w] : INT32_MAX
-//   case A  = min wval[perm[j]] over j in [lo[r], hi[r])   (writes that
-//             begin strictly inside read r's span)
-//   case B  = min wval[w] over writes w whose segment [seg_lo, seg_hi)
-//             covers leaf[r] (no stab where leaf[r] < 0)
-//   ev[t]   = 1 if some read r of txn t = rtxn[r] has min(A, B) < t
-//   nxt[t]  = max(base[t], ev[t]); repeat while nxt != cur and it < cap.
-// The loop counter starts at it0 (gpu.py: the pointer-jumping rounds that
-// seeded conflict0; rankfed.py: 0) and is returned.
+// What it computes. The min-writer of a read r under write values wval:
+//   case A = min wval[perm[j]] over j in [lo[r], hi[r])  (writes that
+//            begin strictly inside read r's span, in begin-rank order)
+//   case B = min wval[w] over writes w whose segment [seg_lo, seg_hi)
+//            covers leaf[r] (none where leaf[r] < 0)
+//   mw(r)  = min(case A, case B)
+// The seed (when asked, tpu.py:385-417): pot = mw under wval = w_valid ?
+// wtxn : INF, kept where pot < rtxn; parent[t] = min pot over t's reads;
+// per txn the link table (a, b) = (f(0), f(1)) of its committed-ness as a
+// function of its parent's (base conflict: const 0; a parent: NOT; none:
+// const 1), composed along the parent chain to its end; seed[t] =
+// max(base[t], 1 - a[t]). JAX composes by n_jump = bit_length(T - 1)
+// synchronous doublings, enough for any chain (parent < t), so its tables
+// are the whole chains' compositions; here each txn's thread composes its
+// chain asynchronously, reading whatever its ancestors have composed so
+// far (a word is a valid prefix composition at every moment), to the same
+// tables with one barrier. One round (Jacobi: it reads only c_j):
+//   wval[w] = w_valid[w] && c_j[wtxn[w]] == 0 ? wtxn[w] : INF
+//   ev[t]   = 1 if some read r of t = rtxn[r] has mw(r) < t
+//   c_{j+1} = max(base, ev); repeat while c changes and it < cap.
+// The counter starts at it0 (the seed's n_jump, or 0) and is returned.
 //
-// Bound on the card: bytes. One round must read the conflict vector and
-// write the new one (8*T bytes), read rtxn, lo, hi and leaf per read
-// (16*R) and wtxn, w_valid, perm, seg_lo and seg_hi per write (17*Wr);
-// times the rounds. At the resolver's shapes that is a few microseconds a
-// round, below the cost of the three grid-wide barriers a round takes and
-// of the launch: those bound this kernel in practice.
+// Bound on the card: bytes, in theory. Each operand is read once and the
+// vector written once (12 T + 16 R + 17 Wr + 4 bytes; 8 T with the seed,
+// which does not read conflict0), well under a microsecond at the
+// resolver's shapes. What bounds the kernel is
+// latency: every stage is a chain of dependent accesses to state other
+// threads wrote (an L2 or shared-memory round trip each), and a barrier
+// ends it; a stage costs 1.5-6 us on an H100 whatever its size below
+// ~10^5 items. So the design cuts stages and round trips:
 //
-// The design:
-// - One cooperative grid (cudaLaunchCooperativeKernel), every block
-//   resident: as many blocks of kThreads per SM as the occupancy query
-//   allows, times the SMs of the current device, computed at each launch.
-//   Every stage is a grid-stride loop, so any T, R and Wr run on one grid;
-//   cooperative_groups' grid sync separates the stages. A launch the CUDA
-//   runtime refuses returns its error; the wrapper raises naming the grid.
-// - Case A is a min segment tree over the rank order (leaves Wr + j,
-//   node i = min(2i, 2i+1), any Wr), built in one stage: each leaf's
-//   thread walks up with atomicMin and stops at the first node already at
-//   or below its value (whoever lowered that node walks on above it). A
-//   read queries the O(log Wr) canonical nodes of [lo, hi). The JAX
-//   package builds a sparse table instead; both give the exact minimum.
-// - Case B is the interval tree of the JAX loop: each committed write
-//   atomicMins its value into the canonical nodes of its segment, computed
-//   here from the two bounds with the JAX loop's step count. An unused
-//   canonical slot sends nothing, where the torch version scatters every
-//   unused slot to dump node 0 (never read by a stab).
-// - Writes of value INT32_MAX (uncommitted or invalid) touch no tree.
-// - Data written inside the kernel is read with ld.global.cg (L2), never
-//   from a stale L1 line of an earlier stage or round.
-// - Between rounds the trees are reset to INT32_MAX and the evidence to 0
-//   in the stage after their last read; a per-round changed flag (two
-//   slots, by round parity) is cleared one stage after every thread read
-//   it.
-//
-// Interface: a plain C entry point (loaded with ctypes). It launches on
-// the caller's stream, allocates nothing (the wrapper passes a scratch
-// buffer of fdb_phase2_scratch_ints() int32) and returns the cudaError_t of
-// the launch; the grid it used is written to *grid_blocks.
+// - One launch from the geometry on: the seed (one min-writer pass, then
+//   the chains composed asynchronously, one barrier) and every round.
+// - Inserts the next stage alone reads are reductions nobody waits for
+//   (red.global / red.shared); the level word and the changed
+//   flag take one reduction a block, after a block-wide maximum or OR.
+// - Two barriers a round, no reset stage. Tree nodes hold keys
+//   (field << vbits | value), field = fmax - 1 - tag with one tag per
+//   build, so one unsigned atomicMin keeps the least value of the newest
+//   build and any older key (or the fill, field fmax) reads as INF. The
+//   evidence holds the round that set it, the changed flag the last
+//   round that changed. c_{j+1} is computed where it is used from base
+//   and the evidence of round j, and kept per txn by its owning thread
+//   for the changed test. When the tags of one fill run out (over 32,767
+//   builds at T 65,536) the trees are filled again behind one barrier.
+// - A stab reads only the levels at or below the highest canonical node
+//   of its build (one atomicMax per build): point writes cost a read 2-3
+//   loads, not log2(n_leaves). A case-A range of up to kScan ranks is
+//   read directly, and the case-A tree (a min segment tree over begin
+//   rank, leaves Wr + j, built by walks up that stop at the first node
+//   at or below their key) is built only when some read's range is
+//   longer: config-5 traffic never builds it. A walk up takes one atomic
+//   round trip a level.
+// - Two tiers; phase2.choose_tier picks one from the shapes before the
+//   launch, the one the card measured faster (chip_smoke.py's
+//   phase2-cluster-* entries time both on config-1 batches). BLOCK: one
+//   thread block of 1,024 threads holding the state and copies of the
+//   read-only operands in its shared memory (the write's validity folded
+//   into its txn), barriers __syncthreads(): no stage leaves the SM, so
+//   it bounds on the block's own latency and issue rate and wins on
+//   small batches. GRID: a cooperative grid sized to the work (one thread
+//   a read, write or txn, at most every resident block), state in global
+//   memory read through L2 (ld.global.cg: other blocks write it),
+//   barriers grid.sync(); it bounds on those round trips and barriers,
+//   and takes everything larger.
+
+// Interface: plain C entry points (loaded with ctypes).
+// fdb_phase2_limits() queries a device once (SMs, shared memory, the grid
+// kernel's occupancy) and sets the block kernel's shared memory limit on
+// it; fdb_phase2_rounds() launches the tier it is told on the caller's
+// stream, allocates nothing (the grid tier takes a scratch of
+// fdb_phase2_scratch_ints() int32) and returns the cudaError_t of the
+// launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,12 +97,26 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kGridThreads = 256;
+constexpr int kBlockThreads = 1024;
+constexpr int kMaxT = 1 << 24;           // keeps vbits, builds and ptr in range
+constexpr int kScan = 16;                // case-A ranges read directly
+constexpr int kMaxLeaves = 1 << 25;      // L and Wr below it (exclusive)
+constexpr int kLevels = 26;              // tree levels: 2 L and 2 Wr < 2^26
 constexpr int32_t kInf = INT32_MAX;
+constexpr uint32_t kEmpty = 0xFFFFFFFFu;  // fill: a node of no build, no word
+constexpr uint32_t kPtrMask = (1u << 30) - 1;
+// Words beside the state: the changed flag, the level word, the block's
+// own level word and its long-range bit (block tier).
+constexpr int kFlag = 0, kLevel = 1, kBlockLevel = 2, kLong = 3, kMisc = 4;
+
+// State arrays, in this order in a tier's memory: conf, ev and the seed's
+// link words T each, the case-A tree 2 Wr, the case-B tree 2 L.
+enum { kConf, kEv, kWord, kTreeA, kTreeB, kArrays };
 
 struct Args {
   const int32_t* base;       // (T,) phase-1 conflicts (history, tooOld)
-  const int32_t* conflict0;  // (T,) the loop's initial conflict vector
+  const int32_t* conflict0;  // (T,) the loop's initial vector (no seed)
   const int32_t* perm;       // (Wr,) write row at each begin rank (case A)
   const int32_t* lo;         // (R,) case A range [lo, hi) in rank order
   const int32_t* hi;         // (R,)
@@ -92,148 +128,512 @@ struct Args {
   const uint8_t* w_valid;    // (Wr,) bool
   int32_t* out;              // (T,) the fixed point
   int32_t* it_out;           // (1,) the round counter at exit
-  int32_t* tmp;              // (T,) second conflict buffer
-  int32_t* ev;               // (T,) evidence per txn
-  int32_t* tree_a;           // (2*Wr,) case A min tree
-  int32_t* tree_b;           // (2*L,) case B interval tree
-  int32_t* flags;            // (2,) changed flag per round parity
-  int T, R, Wr, L, it0, cap;
+  int32_t* scratch;          // grid tier: state and a long-range bit a block
+  int T, R, Wr, L, it0, cap, seed;
 };
 
-__device__ __forceinline__ int32_t ld(const int32_t* p) { return __ldcg(p); }
+// The read-only operands, where a tier reads them: global memory through
+// the read-only path (grid), or copies in shared memory (block), the
+// write's validity folded into its txn (-1: not valid).
+struct Operands {
+  const int32_t *lo, *hi, *leaf, *rtxn, *perm, *seg_lo, *seg_hi, *wtxn,
+      *base;
+  const uint8_t* valid;
+  bool smem;
 
-__device__ __forceinline__ void min_at(int32_t* p, int32_t v) {
-  if (ld(p) > v) atomicMin(p, v);
-}
-
-// wval of write w under conflict vector cur (the gather index clamped as
-// JAX clamps it).
-__device__ __forceinline__ int32_t wval(const Args& a, const int32_t* cur,
-                                        int w) {
-  if (!a.w_valid[w]) return kInf;
-  const int32_t t = __ldg(a.wtxn + w);
-  return ld(cur + min(max(t, 0), a.T - 1)) == 0 ? t : kInf;
-}
-
-__global__ void __launch_bounds__(kThreads) phase2_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
-  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int T = a.T, R = a.R, Wr = a.Wr, L = a.L;
-  const int levels = L > 0 ? 32 - __clz(L) : 0;  // L.bit_length()
-
-  // Initial state: trees empty, no evidence, flags clear.
-  for (long long i = gtid; i < 2LL * Wr; i += stride) a.tree_a[i] = kInf;
-  for (long long i = gtid; i < 2LL * L; i += stride) a.tree_b[i] = kInf;
-  for (long long i = gtid; i < T; i += stride) a.ev[i] = 0;
-  if (gtid < 2) a.flags[gtid] = 0;
-  grid.sync();
-
-  const int32_t* cur = a.conflict0;
-  int it = a.it0, parity = 0;  // round parity: buffer and flag slot
-  while (it < a.cap) {
-    int32_t* nxt = parity ? a.tmp : a.out;
-    // Stage 1: the two trees from the committed writes.
-    for (long long w = gtid; w < Wr; w += stride) {
-      const int32_t v = wval(a, cur, (int)w);
-      if (v == kInf) continue;
-      long long l = (long long)__ldg(a.seg_lo + w) + L;
-      long long r = (long long)__ldg(a.seg_hi + w) + L;
-      for (int s = 0; s < levels && l < r; ++s) {
-        if (l & 1) {
-          if (l >= 0 && l < 2LL * L) min_at(a.tree_b + l, v);
-          ++l;
-        }
-        if (r & 1) {
-          --r;
-          if (r >= 0 && r < 2LL * L) min_at(a.tree_b + r, v);
-        }
-        l >>= 1;
-        r >>= 1;
-      }
-    }
-    for (long long j = gtid; j < Wr; j += stride) {
-      const int w = min(max(__ldg(a.perm + j), 0), Wr - 1);
-      const int32_t v = wval(a, cur, w);
-      long long node = Wr + j;
-      a.tree_a[node] = v;
-      if (v == kInf) continue;
-      for (node >>= 1; node >= 1; node >>= 1) {
-        if (ld(a.tree_a + node) <= v) break;
-        atomicMin(a.tree_a + node, v);
-      }
-    }
-    grid.sync();
-
-    // Stage 2: per read, the least committed writer covering it.
-    if (gtid == 0) a.flags[parity ^ 1] = 0;  // read by all before sync 1
-    for (long long r = gtid; r < R; r += stride) {
-      int32_t m = kInf;
-      long long l = min(max(__ldg(a.lo + r), 0), Wr) + (long long)Wr;
-      long long h = min(max(__ldg(a.hi + r), 0), Wr) + (long long)Wr;
-      while (l < h) {
-        if (l & 1) m = min(m, ld(a.tree_a + l++));
-        if (h & 1) m = min(m, ld(a.tree_a + --h));
-        l >>= 1;
-        h >>= 1;
-      }
-      const int32_t x = __ldg(a.leaf + r);
-      if (x >= 0) {
-        const long long node = (long long)x + L;
-        for (int k = 0; k < levels; ++k) {
-          const long long n = node >> k;
-          if (n < 2LL * L) m = min(m, ld(a.tree_b + n));
-        }
-      }
-      const int32_t t = __ldg(a.rtxn + r);
-      if (m < t && t >= 0 && t < T) a.ev[t] = 1;
-    }
-    grid.sync();
-
-    // Stage 3: the new conflict vector; reset what stages 1-2 used.
-    bool changed = false;
-    for (long long t = gtid; t < T; t += stride) {
-      const int32_t v = max(__ldg(a.base + t), ld(a.ev + t));
-      changed |= v != ld(cur + t);
-      nxt[t] = v;
-      a.ev[t] = 0;
-    }
-    for (long long i = gtid + 1; i < Wr; i += stride) a.tree_a[i] = kInf;
-    for (long long i = gtid; i < 2LL * L; i += stride) a.tree_b[i] = kInf;
-    if (__syncthreads_or(changed) && threadIdx.x == 0) a.flags[parity] = 1;
-    grid.sync();
-
-    ++it;
-    cur = nxt;
-    const bool more = ld(a.flags + parity) != 0;
-    parity ^= 1;
-    if (!more) break;
+  __device__ int32_t get(const int32_t* p, long long i) const {
+    return smem ? p[i] : __ldg(p + i);
   }
-  // The last round wrote `cur` (out or tmp). With no round, conflict0.
-  if (cur != a.out)
-    for (long long t = gtid; t < T; t += stride) a.out[t] = ld(cur + t);
-  if (gtid == 0) *a.it_out = it;
+  // The txn of write w, or -1 where it is not valid.
+  __device__ int32_t txn(long long w) const {
+    if (smem) return wtxn[w];
+    return valid[w] ? __ldg(wtxn + w) : -1;
+  }
+};
+
+// int32 slots of the state, and of the block tier's operand copies.
+__host__ __device__ inline long long state_ints(int T, int Wr, int L) {
+  return 3LL * T + 2LL * Wr + 2LL * L + kMisc;
+}
+__host__ __device__ inline long long operand_ints(int T, int R, int Wr) {
+  return 4LL * R + 4LL * Wr + T;
+}
+
+__device__ inline long long clampll(long long x, long long lo, long long hi) {
+  return x < lo ? lo : x > hi ? hi : x;
+}
+
+// ---------------------------------------------------------------- tiers
+
+// Grid tier: state in global memory (conf is the output itself), read
+// through L2 (ld.global.cg) since other blocks write it.
+struct GridTier {
+  int32_t* arr[kArrays];
+  int32_t* misc;
+  int32_t* longs;  // a long-range bit per block
+  int32_t* mine;   // this block's level word, in its shared memory
+  long long first, stride;
+  Operands o;
+
+  __device__ GridTier(const Args& a, int32_t* block_level) {
+    o.lo = a.lo; o.hi = a.hi; o.leaf = a.leaf; o.rtxn = a.rtxn;
+    o.perm = a.perm; o.seg_lo = a.seg_lo; o.seg_hi = a.seg_hi;
+    o.wtxn = a.wtxn; o.base = a.base; o.valid = a.w_valid;
+    o.smem = false;
+    mine = block_level;
+    arr[kConf] = a.out;
+    int32_t* s = a.scratch;
+    arr[kEv] = s;
+    arr[kWord] = s + a.T;
+    arr[kTreeA] = s + 2LL * a.T;
+    arr[kTreeB] = arr[kTreeA] + 2LL * a.Wr;
+    misc = arr[kTreeB] + 2LL * a.L;
+    longs = misc + kMisc;
+    first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    stride = (long long)gridDim.x * blockDim.x;
+  }
+  __device__ int32_t* at(int k, long long i) const { return arr[k] + i; }
+  __device__ static int32_t ld(const int32_t* p) { return __ldcg(p); }
+  __device__ static void st(int32_t* p, int32_t v) { __stcg(p, v); }
+  __device__ void sync() const { cg::this_grid().sync(); }
+  __device__ bool leader() const { return first == 0; }
+  // Items every thread shares out; a txn is always on the same thread
+  // (it keeps c_j[t] for the changed test).
+  template <class F> __device__ void items(long long n, F f) const {
+    for (long long i = first; i < n; i += stride) f(i);
+  }
+  template <class F> __device__ void own(int T, F f) const {
+    for (long long t = first; t < T; t += stride) f((int)t);
+  }
+  template <class F> __device__ void fill(int k, long long n, F f) const {
+    for (long long i = first; i < n; i += stride) f(arr[k] + i);
+  }
+  // Flag and level words to -1, before a barrier.
+  __device__ void init_misc() const {
+    if (first == 0) {
+      st(misc + kFlag, -1);
+      st(misc + kLevel, -1);
+    }
+    if (threadIdx.x == 0) *mine = -1;
+  }
+  // Any read's case-A range over kScan, anywhere: a bit a block, stored
+  // before a barrier, read after it.
+  __device__ void long_put(bool seen) const {
+    const int any = __syncthreads_or(seen);
+    if (threadIdx.x == 0) st(longs + blockIdx.x, any);
+  }
+  __device__ bool long_get() const {
+    bool any = false;
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x)
+      any |= ld(longs + b) != 0;
+    return __syncthreads_or(any) != 0;
+  }
+  // Round j changed c somewhere in this block: one reduction a block.
+  __device__ void flag_set(bool changed, int32_t j) const {
+    if (__syncthreads_or(changed) && threadIdx.x == 0)
+      atomicMax(misc + kFlag, j);
+  }
+  __device__ int32_t flag() const { return ld(misc + kFlag); }
+  __device__ int32_t* level() const { return misc + kLevel; }
+  __device__ int32_t* block_level() const { return mine; }
+  __device__ void out(const Args&) const {}  // conf is out
+  __device__ void load_operands(const Args&) const {}
+};
+
+// Block tier: one thread block, the state and the operand copies in its
+// shared memory.
+struct BlockTier {
+  int32_t* arr[kArrays];
+  int32_t* misc;
+  int32_t* copies;  // lo, hi, leaf, rtxn (R each); perm, seg_lo, seg_hi,
+                    // wtxn (Wr each); base (T)
+  Operands o;
+
+  __device__ BlockTier(const Args& a, int32_t* smem) {
+    int32_t* p = smem;
+    const long long n[kArrays] = {a.T, a.T, a.T, 2LL * a.Wr, 2LL * a.L};
+    for (int k = 0; k < kArrays; ++k) {
+      arr[k] = p;
+      p += n[k];
+    }
+    misc = p;
+    p += kMisc;
+    copies = p;
+    o.lo = p; o.hi = p + a.R; o.leaf = p + 2LL * a.R; o.rtxn = p + 3LL * a.R;
+    p += 4LL * a.R;
+    o.perm = p; o.seg_lo = p + a.Wr; o.seg_hi = p + 2LL * a.Wr;
+    o.wtxn = p + 3LL * a.Wr;
+    o.base = p + 4LL * a.Wr;
+    o.valid = nullptr;
+    o.smem = true;
+  }
+  // The operand copies, before the first barrier.
+  __device__ void load_operands(const Args& a) const {
+    int32_t* c = copies;
+    for (int i = threadIdx.x; i < a.R; i += blockDim.x) {
+      c[i] = __ldg(a.lo + i);
+      c[a.R + i] = __ldg(a.hi + i);
+      c[2 * a.R + i] = __ldg(a.leaf + i);
+      c[3 * a.R + i] = __ldg(a.rtxn + i);
+    }
+    c += 4 * a.R;
+    for (int i = threadIdx.x; i < a.Wr; i += blockDim.x) {
+      c[i] = __ldg(a.perm + i);
+      c[a.Wr + i] = __ldg(a.seg_lo + i);
+      c[2 * a.Wr + i] = __ldg(a.seg_hi + i);
+      c[3 * a.Wr + i] = a.w_valid[i] ? __ldg(a.wtxn + i) : -1;
+    }
+    c += 4 * a.Wr;
+    for (int i = threadIdx.x; i < a.T; i += blockDim.x)
+      c[i] = __ldg(a.base + i);
+  }
+  __device__ int32_t* at(int k, long long i) const { return arr[k] + i; }
+  __device__ static int32_t ld(const int32_t* p) {
+    return *(const volatile int32_t*)p;
+  }
+  __device__ static void st(int32_t* p, int32_t v) {
+    *(volatile int32_t*)p = v;
+  }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ bool leader() const { return threadIdx.x == 0; }
+  template <class F> __device__ void items(long long n, F f) const {
+    for (long long i = threadIdx.x; i < n; i += blockDim.x) f(i);
+  }
+  template <class F> __device__ void own(int T, F f) const {
+    for (int t = threadIdx.x; t < T; t += blockDim.x) f(t);
+  }
+  template <class F> __device__ void fill(int k, long long n, F f) const {
+    for (long long i = threadIdx.x; i < n; i += blockDim.x) f(arr[k] + i);
+  }
+  __device__ void init_misc() const {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < kMisc; ++i) st(misc + i, -1);
+  }
+  __device__ void long_put(bool seen) const {
+    const int any = __syncthreads_or(seen);
+    if (threadIdx.x == 0) st(misc + kLong, any);
+  }
+  __device__ bool long_get() const { return ld(misc + kLong) != 0; }
+  __device__ void flag_set(bool changed, int32_t j) const {
+    if (__syncthreads_or(changed) && threadIdx.x == 0) st(misc + kFlag, j);
+  }
+  __device__ int32_t flag() const { return ld(misc + kFlag); }
+  __device__ int32_t* level() const { return misc + kLevel; }
+  __device__ int32_t* block_level() const { return misc + kBlockLevel; }
+  __device__ void out(const Args& a) const {
+    own(a.T, [&](int t) { a.out[t] = ld(at(kConf, t)); });
+  }
+};
+
+// ------------------------------------------------------------- the loop
+
+template <class S>
+struct Phase2 {
+  const Args& a;
+  const S& s;
+  int T, R, Wr, L, vbits;
+  uint32_t vinf, fmax;
+  int tag = -1, build = -1;
+  bool tree_a = false;  // some read's case-A range is over kScan
+
+  __device__ Phase2(const Args& a_, const S& s_) : a(a_), s(s_) {
+    T = a.T; R = a.R; Wr = a.Wr; L = a.L;
+    vbits = 32 - __clz(T);   // a value field holding 0..T-1 and INF
+    vinf = (1u << vbits) - 1;
+    fmax = (1u << (32 - vbits)) - 1;
+  }
+
+  __device__ uint32_t key(int32_t v) const {
+    const uint32_t f = fmax - 1 - (uint32_t)tag;
+    return (f << vbits) | (v >= 0 && v < T ? (uint32_t)v : vinf);
+  }
+  __device__ int32_t value(uint32_t k) const {
+    if ((k >> vbits) != fmax - 1 - (uint32_t)tag) return kInf;
+    const uint32_t v = k & vinf;
+    return v == vinf ? kInf : (int32_t)v;
+  }
+  // A tree node: the reduction alone, waited for by nobody until the
+  // barrier.
+  __device__ static void min_red(int32_t* p, uint32_t k) {
+    atomicMin((unsigned int*)p, k);
+  }
+
+  // The trees to the fill, before a barrier.
+  __device__ void fill_trees() const {
+    s.fill(kTreeA, 2LL * Wr, [](int32_t* p) { *p = (int32_t)kEmpty; });
+    s.fill(kTreeB, 2LL * L, [](int32_t* p) { *p = (int32_t)kEmpty; });
+  }
+
+  // The next build's tag; a new fill of the trees when a fill's tags
+  // are spent (between stages: after a barrier, before the build).
+  __device__ void next_build() {
+    ++build;
+    if (++tag < (int)fmax) return;
+    fill_trees();
+    s.sync();
+    tag = 0;
+  }
+
+  // c_j[t] for any t: j == 0 the start vector (the seed or conflict0),
+  // else max(base, the evidence of round j - 1).
+  __device__ int32_t conf_at(int t, int j) const {
+    const int32_t b = s.o.get(s.o.base, t);
+    if (j > 0) return max(b, S::ld(s.at(kEv, t)) == j - 1 ? 1 : 0);
+    if (!a.seed) return __ldg(a.conflict0 + t);
+    const uint32_t w = (uint32_t)S::ld(s.at(kWord, t));
+    return max(b, 1 - (int32_t)((w >> 30) & 1));
+  }
+
+  // Key k into the canonical nodes of leaves [l, r) of the case-B tree;
+  // returns the height of the highest (-1: none).
+  __device__ int insert(long long l, long long r, uint32_t k) const {
+    int top = -1;
+    l += L;
+    r += L;
+    for (int h = 0; l < r; ++h, l >>= 1, r >>= 1) {
+      if (l & 1) { min_red(s.at(kTreeB, l++), k); top = h; }
+      if (r & 1) { min_red(s.at(kTreeB, --r), k); top = h; }
+    }
+    return top;
+  }
+
+  // Stage 1: the trees from the write values wval(t) of each write's txn
+  // t (-1: not valid; kInf: the write does not count).
+  template <class W> __device__ void build_trees(W wval) const {
+    int hmax = -1;
+    s.items(Wr, [&](long long w) {
+      const long long lo = clampll(s.o.get(s.o.seg_lo, w), 0, L);
+      const long long hi = clampll(s.o.get(s.o.seg_hi, w), 0, L);
+      if (lo >= hi) return;
+      const int32_t v = wval(s.o.txn(w));
+      if (v != kInf) hmax = max(hmax, insert(lo, hi, key(v)));
+    });
+    // The level word: a maximum over the block first (the word of an
+    // older build is below any of this one's), one reduction a block.
+    if (hmax >= 0) atomicMax(s.block_level(), (build << 6) | hmax);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int32_t lw = *(volatile int32_t*)s.block_level();
+      if (lw >> 6 == build) atomicMax(s.level(), lw);
+    }
+    if (!tree_a) return;
+    s.items(Wr, [&](long long j) {
+      const int32_t v =
+          wval(s.o.txn(min(max(s.o.get(s.o.perm, j), 0), Wr - 1)));
+      const uint32_t k = key(v);
+      long long node = Wr + j;
+      S::st(s.at(kTreeA, node), (int32_t)k);
+      if (v == kInf) return;
+      // Up while this key lowers the node: one atomic round trip a level
+      // (a node already at or below it has a walker of its own above).
+      for (node >>= 1; node >= 1; node >>= 1)
+        if (atomicMin((unsigned int*)s.at(kTreeA, node), k) <= k) break;
+    });
+  }
+
+  // Stage 2: per read, its min-writer mw under wval; hit(t, mw) where
+  // mw < t. Without the case-A tree every range is at most kScan ranks,
+  // read directly. The read's operands load together, ahead of the state
+  // they index; a case-A query's nodes load together, ahead of their
+  // minimum (kLevels steps, a predicate each: no load waits on another).
+  template <class W, class H> __device__ void query(W wval, H hit) const {
+    const int32_t lw = S::ld(s.level());
+    const int top = (lw >> 6) == build ? (lw & 63) : -1;
+    s.items(R, [&](long long r) {
+      long long l = clampll(s.o.get(s.o.lo, r), 0, Wr);
+      long long h = clampll(s.o.get(s.o.hi, r), 0, Wr);
+      const int32_t x = s.o.get(s.o.leaf, r);
+      const int32_t t = s.o.get(s.o.rtxn, r);
+      if (t < 0 || t >= T) return;  // no txn to hit
+      uint32_t m = kEmpty;
+      int32_t direct = kInf;
+      if (x >= 0 && x < L) {
+        const long long node = L + (long long)x;
+#pragma unroll 4
+        for (int k = 0; k <= top && (node >> k) >= 1; ++k)
+          m = min(m, (uint32_t)S::ld(s.at(kTreeB, node >> k)));
+      }
+      if (!tree_a) {
+#pragma unroll 4
+        for (; l < h; ++l)
+          direct = min(direct, wval(s.o.txn(
+                                   min(max(s.o.get(s.o.perm, l), 0), Wr - 1))));
+      } else {
+        l += Wr;
+        h += Wr;
+#pragma unroll
+        for (int k = 0; k < kLevels; ++k, l >>= 1, h >>= 1) {
+          if (l < h && (l & 1)) m = min(m, (uint32_t)S::ld(s.at(kTreeA, l++)));
+          if (l < h && (h & 1)) m = min(m, (uint32_t)S::ld(s.at(kTreeA, --h)));
+        }
+      }
+      const int32_t v = min(value(m), direct);
+      if (v < t) hit(t, v);
+    });
+  }
+
+  // The link word of txn t from its parent (kept in conf until the jumps
+  // end): ptr (T: none) | a << 30 | b << 31.
+  __device__ uint32_t link(int t) const {
+    const int32_t p = S::ld(s.at(kConf, t));
+    const bool has = p != kInf, bc = s.o.get(s.o.base, t) > 0;
+    return (has ? (uint32_t)p : (uint32_t)T) | (uint32_t)(!bc) << 30 |
+           (uint32_t)(!(bc || has)) << 31;
+  }
+
+  __device__ void seed_stage() {
+    next_build();
+    auto wval0 = [](int32_t t) { return t < 0 ? kInf : t; };
+    build_trees(wval0);
+    s.sync();
+    query(wval0, [&](int t, int32_t v) {
+      min_red(s.at(kConf, t), (uint32_t)v);
+    });
+    s.sync();
+    // Each txn composes its chain; a word read is its owner's progress
+    // (kEmpty: none yet, so the parent's own link).
+    s.own(T, [&](int t) {
+      uint32_t w = link(t);
+      while ((w & kPtrMask) != (uint32_t)T) {
+        const int p = (int)(w & kPtrMask);
+        uint32_t wp = (uint32_t)S::ld(s.at(kWord, p));
+        if (wp == kEmpty) wp = link(p);
+        const uint32_t a0 = (w >> 30) & 1, b0 = w >> 31;
+        const uint32_t na = (wp >> 30) & 1 ? b0 : a0;
+        const uint32_t nb = wp >> 31 ? b0 : a0;
+        w = (wp & kPtrMask) | na << 30 | nb << 31;
+        S::st(s.at(kWord, t), (int32_t)w);
+      }
+      S::st(s.at(kWord, t), (int32_t)w);
+    });
+    s.sync();
+  }
+
+  __device__ void run() {
+    fill_trees();
+    s.fill(kEv, T, [](int32_t* p) { *p = -1; });
+    if (a.seed) {
+      s.fill(kConf, T, [](int32_t* p) { *p = kInf; });
+      s.fill(kWord, T, [](int32_t* p) { *p = (int32_t)kEmpty; });
+    }
+    s.init_misc();
+    bool seen = false;  // a case-A range over kScan among this thread's
+    s.items(R, [&](long long r) {
+      seen |= clampll(__ldg(a.hi + r), 0, Wr) -
+                  clampll(__ldg(a.lo + r), 0, Wr) > kScan;
+    });
+    s.load_operands(a);
+    s.long_put(seen);
+    s.sync();
+    tree_a = s.long_get();
+    if (a.seed) seed_stage();
+
+    for (int j = 0;; ++j) {
+      const bool more = a.it0 + j < a.cap;  // it0 <= cap < 2^31
+      if (more) next_build();
+      bool changed = false;
+      s.own(T, [&](int t) {
+        const int32_t c = conf_at(t, j);
+        int32_t* p = s.at(kConf, t);
+        if (j > 0 && S::ld(p) != c) changed = true;
+        S::st(p, c);
+      });
+      // wval under c_j: computed in stage 1, where conf is being
+      // written; read from conf in stage 2, where the evidence is.
+      auto wval = [&](int32_t t) {
+        return t >= 0 && conf_at(min(t, T - 1), j) == 0 ? t : kInf;
+      };
+      auto wval_kept = [&](int32_t t) {
+        return t >= 0 && S::ld(s.at(kConf, min(t, T - 1))) == 0 ? t : kInf;
+      };
+      if (more) {
+        s.flag_set(changed, j);
+        build_trees(wval);
+        s.sync();
+      }
+      if (!more || (j > 0 && s.flag() != j)) {
+        s.out(a);
+        if (s.leader()) *a.it_out = a.it0 + j;
+        return;
+      }
+      query(wval_kept, [&](int t, int32_t) { S::st(s.at(kEv, t), j); });
+      s.sync();
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kGridThreads) grid_kernel(Args a) {
+  __shared__ int32_t block_level;
+  GridTier s(a, &block_level);
+  Phase2<GridTier>(a, s).run();
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1) block_kernel(Args a) {
+  extern __shared__ int32_t smem[];
+  BlockTier s(a, smem);
+  Phase2<BlockTier>(a, s).run();
 }
 
 }  // namespace
 
-// Threads of each block of the grid.
-extern "C" int fdb_phase2_block_threads() { return kThreads; }
-
-// int32 slots of the scratch buffer the launch takes.
-extern "C" long long fdb_phase2_scratch_ints(int T, int Wr, int L) {
-  return 2LL * T + 2LL * Wr + 2LL * L + 2;
+// Threads of each block of a tier: 0 grid, 1 block.
+extern "C" int fdb_phase2_block_threads(int tier) {
+  return tier ? kBlockThreads : kGridThreads;
 }
 
+// int32 slots of the grid tier's scratch for a grid of `blocks`: the
+// state but the conflict vector (the output), a long-range bit a block.
+extern "C" long long fdb_phase2_scratch_ints(int T, int Wr, int L,
+                                             int blocks) {
+  return state_ints(T, Wr, L) - T + blocks;
+}
+
+// Bytes of shared memory the block tier takes: the state and the
+// operand copies.
+extern "C" long long fdb_phase2_block_bytes(int T, int R, int Wr, int L) {
+  return 4 * (state_ints(T, Wr, L) + operand_ints(T, R, Wr));
+}
+
+// One query of the current device, and the block kernel's shared memory
+// limit set on it: out = [SMs, shared memory a block may opt in to, grid
+// kernel blocks per SM].
+extern "C" int fdb_phase2_limits(int* out) {
+  int dev = 0, sms = 0, smem = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_kernel,
+                                                      kGridThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(block_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = sms;
+  out[1] = smem;
+  out[2] = per_sm;
+  return 0;
+}
+
+// Launch tier 0 (a cooperative grid of `size` blocks) or 1 (one block,
+// size 1, with smem_bytes of shared memory, at least
+// fdb_phase2_block_bytes) on `stream`; seed != 0 runs the
+// pointer-jumping seed first (conflict0 is then not read).
 extern "C" int fdb_phase2_rounds(
     const void* base, const void* conflict0, const void* perm,
     const void* lo, const void* hi, const void* seg_lo, const void* seg_hi,
     const void* leaf, const void* rtxn, const void* wtxn,
     const void* w_valid, void* out, void* it_out, void* scratch, int T,
-    int R, int Wr, int L, int it0, int cap, void* stream,
-    int* grid_blocks) {
-  *grid_blocks = 0;
-  if (T < 1 || R < 0 || Wr < 0 || L < 1) return (int)cudaErrorInvalidValue;
+    int R, int Wr, int L, int it0, int cap, int seed, int tier, int size,
+    long long smem_bytes, void* stream) {
+  if (T < 1 || T >= kMaxT || R < 0 || Wr < 0 || Wr >= kMaxLeaves ||
+      L < 1 || L >= kMaxLeaves || size < 1 || it0 > cap ||
+      (tier == 1 &&
+       (size != 1 || smem_bytes < fdb_phase2_block_bytes(T, R, Wr, L))))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.base = (const int32_t*)base;
   a.conflict0 = (const int32_t*)conflict0;
@@ -248,33 +648,24 @@ extern "C" int fdb_phase2_rounds(
   a.w_valid = (const uint8_t*)w_valid;
   a.out = (int32_t*)out;
   a.it_out = (int32_t*)it_out;
-  auto* s = (int32_t*)scratch;
-  a.tmp = s;
-  a.ev = s + T;
-  a.tree_a = s + 2LL * T;
-  a.tree_b = s + 2LL * T + 2LL * Wr;
-  a.flags = s + 2LL * T + 2LL * Wr + 2LL * L;
+  a.scratch = (int32_t*)scratch;
   a.T = T;
   a.R = R;
   a.Wr = Wr;
   a.L = L;
   a.it0 = it0;
   a.cap = cap;
-
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, phase2_kernel,
-                                                      kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  *grid_blocks = per_sm * sms;
-  void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)phase2_kernel,
-                                  dim3(per_sm * sms), dim3(kThreads), params,
-                                  0, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  a.seed = seed != 0;
+  if (tier == 0) {
+    void* params[] = {&a};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        (const void*)grid_kernel, dim3(size), dim3(kGridThreads), params, 0,
+        (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    block_kernel<<<1, kBlockThreads, (size_t)smem_bytes,
+                   (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,11 +21,12 @@ What differs from the JAX package, and why:
   JAX donated those buffers (tpu.py:1105-1116), so the per-batch cost
   stays batch-scaled with no O(capacity) copy.
 - Phase 2's `lax.while_loop` stops on a device boolean, which eager torch
-  cannot do without a host read; its rounds run in a hand-written CUDA
-  kernel instead (phase2.py, csrc/phase2.cu), every round on the device,
-  so submit makes no host read there, as tpu.py makes none. On CPU
-  tensors the plain version runs the rounds in groups with one `.item()`
-  per group, counted in P2_SYNCS. The mirror readback the next dispatch
+  cannot do without a host read; its pointer-jumping seed and its rounds
+  run in one launch of a hand-written CUDA kernel instead (phase2.py,
+  csrc/phase2.cu), so submit makes no host read there, as tpu.py makes
+  none, and launches no seed op. On CPU tensors the plain version runs
+  the seed as torch ops and the rounds in groups with one `.item()` per
+  group, counted in P2_SYNCS. The mirror readback the next dispatch
   after a compaction makes (as tpu.py does) is the one host sync left
   inside submit on the card.
 - The verdict bytes (st_aux) start their D2H right after each dispatch,
@@ -230,46 +231,26 @@ def _decode_fused(fused, *, lay: FusedLayout):
 
 def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
                         rtxn, wtxn, w_valid, T, Wr, P2):
-    """Intra-batch fixed point (checkIntraBatchConflicts): the pointer-
-    jumping seed, then the verification rounds until nothing changes (cap
-    n_jump+T+2), exactly as tpu._phase2_fixed_point. The rounds are
-    phase2.phase2_rounds: the CUDA kernel on the card, the plain version
-    (one host read per round group, counted in P2_SYNCS) on the CPU.
-    Returns the per-txn conflict vector and the round count (0-d int32)."""
+    """Intra-batch fixed point (checkIntraBatchConflicts): the geometry
+    (torch ops), then the pointer-jumping seed and the verification
+    rounds until nothing changes (cap n_jump+T+2), exactly as
+    tpu._phase2_fixed_point, in one phase2.phase2_rounds call: one launch
+    of the CUDA kernel on the card, the plain version (one host read per
+    round group, counted in P2_SYNCS) on the CPU. Returns the per-txn
+    conflict vector and the round count (0-d int32)."""
     global P2_SYNCS
     dev = base_conf.device
-    inf = I32_INF
     is_wb = scatter_new(P2, 0, s_begin, 1, "set")
     wb_excl = cumsum32(is_wb) - is_wb   # #write-begins strictly before pos
     lo_r, hi_r = wb_excl[q_begin], wb_excl[q_end]
     rank_w = wb_excl[s_begin]             # rank of each write among wb's
     perm_w = scatter_new(Wr, 0, rank_w, _arange(Wr, dev), "set")
-    geometry = dict(perm=perm_w, lo=lo_r, hi=hi_r, seg_lo=s_begin,
-                    seg_hi=s_end, n_leaves=P2, leaf=q_begin)
-
-    # Pointer-doubling seed over the read -> min-potential-writer chain.
-    pot = phase2.min_writer_fn(**geometry)(torch.where(w_valid, wtxn, inf))
-    pot = torch.where(pot < rtxn, pot, inf)
-    parent = scatter_new(T + 1, inf, rtxn, pot, "min")[:T]
-    has_par = parent < inf
-    ptr = torch.cat([torch.where(has_par, parent, T),
-                     torch.full((1,), T, dtype=I32, device=dev)])
-    base_b = base_conf > 0
-    a = torch.cat([torch.where(base_b, 0, 1).to(I32),
-                   torch.zeros(1, dtype=I32, device=dev)])
-    b = torch.cat([torch.where(base_b | has_par, 0, 1).to(I32),
-                   torch.ones(1, dtype=I32, device=dev)])
-    n_jump = max((T - 1).bit_length(), 1)
-    for _ in range(n_jump):
-        ap, bp = a[ptr], b[ptr]
-        a, b, ptr = (torch.where(ap == 1, b, a), torch.where(bp == 1, b, a),
-                     ptr[ptr])
-    seed = torch.maximum(base_conf, 1 - a[:T])
-
-    # The verification rounds: lax.while_loop(changed & it < cap).
+    n_jump = phase2.n_jump(T)
     conflict, it, reads = phase2.phase2_rounds(
-        base_conf, seed, n_jump, n_jump + T + 2, rtxn=rtxn, wtxn=wtxn,
-        w_valid=w_valid, groups=_P2_GROUPS, **geometry)
+        base_conf, base_conf, n_jump, n_jump + T + 2, seed=True,
+        perm=perm_w, lo=lo_r, hi=hi_r, seg_lo=s_begin, seg_hi=s_end,
+        n_leaves=P2, leaf=q_begin, rtxn=rtxn, wtxn=wtxn, w_valid=w_valid,
+        groups=_P2_GROUPS)
     P2_SYNCS += reads
     return conflict, it
 

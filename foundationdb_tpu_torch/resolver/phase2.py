@@ -1,23 +1,29 @@
-"""Phase 2's verification loop: the intra-batch fixed point.
+"""Phase 2's fixed point: the intra-batch conflicts after the geometry.
 
-The counterpart of the JAX package's two `lax.while_loop`s of phase 2:
-foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (the loop at
-:419-437, run by the block and dense kernels, after a pointer-jumping
-seed) and foundationdb_tpu/resolver/rankfed.py::_rank_kernel_impl
-(:223-253, no seed). Both bodies compute the same round on different
+The counterpart of what the JAX package computes after phase 2's
+geometry: foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (the
+pointer-jumping seed at :385-417, then the verification loop at
+:419-437, run by the block and dense kernels) and
+foundationdb_tpu/resolver/rankfed.py::_rank_kernel_impl (the loop at
+:223-253, no seed). Both loop bodies compute the same round on different
 index arrays: per read, the least committed writer among the writes that
 begin strictly inside its span (case A, a range-min over begin-rank
 order) and among the writes whose segment covers the read's leaf (case
 B, an interval-tree stab); evidence where that writer precedes the
 reader; per txn, new = max(base_conf, evidence). The loop repeats while
-anything changed and the round counter is below its cap.
+anything changed and the round counter is below its cap. The seed runs
+one such round with the commit mask dropped and composes each txn's
+chain of least potential writers.
 
 On a CUDA tensor `phase2_rounds` launches the hand-written kernel
-csrc/phase2.cu (built by _build.py), which runs every round on the
-device: no host read, as the JAX loop makes none. It counts the launch
-in LAUNCHES. On a CPU tensor it runs `phase2_rounds_ref`, the plain torch
-version, which runs the rounds in groups under a device `active` flag
-with one host read per group and returns the number of reads it made.
+csrc/phase2.cu (built by _build.py), seed and rounds in one launch with
+no host read, as the JAX loop makes none; `choose_tier` picks, from the
+shapes alone and before the launch, whether it runs in one thread block
+(state and operands in its shared memory) or in a cooperative grid
+(state in global memory). It counts the launch in LAUNCHES. On a CPU
+tensor it runs `phase2_rounds_ref`, the plain torch version, which runs
+the rounds in groups under a device `active` flag with one host read per
+group and returns the number of reads it made.
 """
 
 from __future__ import annotations
@@ -38,6 +44,12 @@ from ._ops import (
 LAUNCHES = 0  # kernel launches since the caller last reset it
 
 _c_ptr = ctypes.c_void_p
+
+
+def n_jump(T: int) -> int:
+    """The seed's pointer-doubling jumps (tpu.py:409): the round counter
+    the verification rounds start at."""
+    return max((T - 1).bit_length(), 1)
 
 
 def min_writer_fn(*, perm, lo, hi, seg_lo, seg_hi, n_leaves: int, leaf):
@@ -68,18 +80,53 @@ def min_writer_fn(*, perm, lo, hi, seg_lo, seg_hi, n_leaves: int, leaf):
     return min_writer
 
 
+def seed_ref(base_conf, min_writer, *, rtxn, wtxn, w_valid):
+    """The pointer-doubling seed over the read -> min-potential-writer
+    chain (tpu.py:385-417): one min-writer round with the commit mask
+    dropped gives each txn's parent (the least earlier writer covering
+    any of its reads; none: sentinel T); each txn's link table (a, b) =
+    (f(parent committed = 0), f(1)) is const 0 at a base conflict, NOT
+    along a live link, const 1 without a parent; n_jump doublings compose
+    the chains. Returns max(base_conf, 1 - a)."""
+    T = base_conf.shape[0]
+    dev = base_conf.device
+    inf = I32_INF
+    pot = min_writer(torch.where(w_valid, wtxn, inf))
+    pot = torch.where(pot < rtxn, pot, inf)
+    parent = scatter_new(T + 1, inf, rtxn, pot, "min")[:T]
+    has_par = parent < inf
+    ptr = torch.cat([torch.where(has_par, parent, T),
+                     torch.full((1,), T, dtype=I32, device=dev)])
+    base_b = base_conf > 0
+    a = torch.cat([torch.where(base_b, 0, 1).to(I32),
+                   torch.zeros(1, dtype=I32, device=dev)])
+    b = torch.cat([torch.where(base_b | has_par, 0, 1).to(I32),
+                   torch.ones(1, dtype=I32, device=dev)])
+    for _ in range(n_jump(T)):
+        ap, bp = a[ptr], b[ptr]
+        a, b, ptr = (torch.where(ap == 1, b, a), torch.where(bp == 1, b, a),
+                     ptr[ptr])
+    return torch.maximum(base_conf, 1 - a[:T])
+
+
 def phase2_rounds_ref(base_conf, conflict0, it0: int, cap: int, *, perm,
                       lo, hi, seg_lo, seg_hi, n_leaves: int, leaf, rtxn,
-                      wtxn, w_valid, groups=(1, 2, 4, 8)):
-    """Plain torch version: lax.while_loop(changed & it < cap) in groups
-    of rounds (`groups`, the last size repeating). A round applies only
-    while `active`, so the conflict vector and the counter freeze after
-    the first unchanged round (or at the cap) exactly where the JAX loop
-    stops, with ONE `.item()` per group. Returns (conflict, it, reads)."""
+                      wtxn, w_valid, seed: bool = False,
+                      groups=(1, 2, 4, 8)):
+    """Plain torch version: with `seed`, the start vector is seed_ref's
+    (conflict0 is not read); then lax.while_loop(changed & it < cap) in
+    groups of rounds (`groups`, the last size repeating). A round applies
+    only while `active`, so the conflict vector and the counter freeze
+    after the first unchanged round (or at the cap) exactly where the JAX
+    loop stops, with ONE `.item()` per group. Returns (conflict, it,
+    reads)."""
     T = base_conf.shape[0]
     inf = I32_INF
     min_writer = min_writer_fn(perm=perm, lo=lo, hi=hi, seg_lo=seg_lo,
                                seg_hi=seg_hi, n_leaves=n_leaves, leaf=leaf)
+    if seed:
+        conflict0 = seed_ref(base_conf, min_writer, rtxn=rtxn, wtxn=wtxn,
+                             w_valid=w_valid)
 
     def body(conflict):
         committed_w = w_valid & (conflict[wtxn] == 0)
@@ -108,6 +155,86 @@ def phase2_rounds_ref(base_conf, conflict0, it0: int, cap: int, *, perm,
     return conflict, it, reads
 
 
+# ------------------------------------------------------------ the tiers
+
+TIERS = ("grid", "block")         # the C entry point's tier numbers
+MAX_T = 1 << 24                   # csrc/phase2.cu kMaxT (exclusive)
+MAX_LEAVES = 1 << 25              # csrc/phase2.cu kMaxLeaves: n_leaves, Wr
+GRID_THREADS = 256                # csrc/phase2.cu kGridThreads
+BLOCK_THREADS = 1024              # csrc/phase2.cu kBlockThreads
+# Items a thread of the block tier may take where the rule picks it:
+# chip_smoke.py's [cluster] entries (NVIDIA H100 80GB HBM3, 700 W) had
+# the block ahead of the grid on config-1 batches up to 4 a thread (T
+# 832, R 4,096, Wr 1,664: 0.01634 ms vs 0.01954), the most one block
+# held there; larger is untimed.
+BLOCK_ITEMS = 4
+_MISC_INTS = 4                    # csrc/phase2.cu kMisc
+
+
+def block_bytes(T: int, R: int, Wr: int, L: int) -> int:
+    """Shared memory the block tier holds: the conflict vector (the
+    seed's parents until its jumps end), the evidence and the seed's link
+    words (T each), the case-A tree (2 Wr), the case-B tree (2 L), four
+    words, and copies of the read-only operands (4 words a read, 4 a
+    write, base_conf) (csrc/phase2.cu fdb_phase2_block_bytes)."""
+    return 4 * (3 * T + 2 * Wr + 2 * L + _MISC_INTS
+                + 4 * R + 4 * Wr + T)
+
+
+def choose_tier(T: int, R: int, Wr: int, L: int, limits: dict,
+                tier: str | None = None) -> tuple[str, int, int]:
+    """(tier, blocks, shared bytes) of one launch, from the shapes and
+    the device's limits (device_limits: "sms", "smem_per_block",
+    "grid_blocks_per_sm"), whichever the card measured faster: the block
+    tier, one block of BLOCK_THREADS holding the state and copies of the
+    operands in its shared memory, where that fits and each of its
+    threads takes at most BLOCK_ITEMS reads, writes or txns; else the
+    cooperative grid, one thread per read, write or txn up to every
+    resident block. `tier` forces one, for the checks; a forced block
+    tier the shape does not fit raises, naming the shapes."""
+    if tier not in (None, *TIERS):
+        raise ValueError(f"phase-2 tier {tier!r}: 'block' or 'grid'")
+    if not 1 <= T < MAX_T:
+        raise ValueError(f"phase 2 takes 1 <= T < {MAX_T}, got T={T}")
+    smem = block_bytes(T, R, Wr, L)
+    fits = smem <= limits["smem_per_block"]
+    small = max(T, R, Wr) <= BLOCK_ITEMS * BLOCK_THREADS
+    if tier == "block" and not fits:
+        raise ValueError(
+            f"phase-2 block tier: T={T} R={R} Wr={Wr} n_leaves={L} take "
+            f"{smem} bytes of shared memory, over the "
+            f"{limits['smem_per_block']} one block may hold")
+    if tier == "block" or (tier is None and fits and small):
+        return "block", 1, smem
+    resident = limits["sms"] * limits["grid_blocks_per_sm"]
+    work = -(-max(T, R, Wr) // GRID_THREADS)
+    return "grid", max(1, min(resident, work)), 0
+
+
+_LIMITS: dict[int, dict] = {}     # device index -> its limits, queried once
+
+
+def device_limits(dev) -> dict:
+    """The limits choose_tier reads, queried from the card once per
+    device (csrc/phase2.cu fdb_phase2_limits), which also sets the block
+    kernel's shared memory limit on it."""
+    idx = torch.device(dev).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    lim = _LIMITS.get(idx)
+    if lim is None:
+        lib = _lib()
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(idx):
+            rc = lib.fdb_phase2_limits(out)
+        if rc != 0:
+            raise RuntimeError(
+                f"phase-2 kernel: querying cuda:{idx} failed: CUDA error "
+                f"{rc} ({lib.fdb_cuda_error_string(rc).decode()})")
+        lim = _LIMITS[idx] = {"sms": out[0], "smem_per_block": out[1],
+                              "grid_blocks_per_sm": out[2]}
+    return lim
+
+
 # The kernel's operands, in the C entry point's order, and the size each
 # one's length is.
 _ROWS = {"base_conf": "T", "conflict0": "T", "perm": "Wr", "lo": "R",
@@ -131,9 +258,12 @@ def _check(it0: int, cap: int, n_leaves: int, ts: dict) -> dict:
             raise ValueError(f"{name} must be contiguous")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, base_conf on {dev}")
-    if sizes["T"] < 1 or n_leaves < 1:
-        raise ValueError(f"phase 2 needs T >= 1 and n_leaves >= 1, got "
-                         f"T={sizes['T']} n_leaves={n_leaves}")
+    if sizes["T"] < 1 or not 1 <= n_leaves < MAX_LEAVES or (
+            sizes["Wr"] >= MAX_LEAVES):
+        raise ValueError(f"phase 2 needs T >= 1, 1 <= n_leaves < "
+                         f"{MAX_LEAVES} and Wr < {MAX_LEAVES}, got "
+                         f"T={sizes['T']} n_leaves={n_leaves} "
+                         f"Wr={sizes['Wr']}")
     if not -2**31 <= it0 <= cap < 2**31:
         raise ValueError(f"round counter {it0} and cap {cap} must be int32, "
                          "it0 <= cap")
@@ -144,10 +274,12 @@ def _check(it0: int, cap: int, n_leaves: int, ts: dict) -> dict:
 # and the stream are c_void_p; as a c_int ctypes would cut them to 32 bits.
 ENTRY_POINTS = {
     "fdb_phase2_rounds": (ctypes.c_int, [
-        *([_c_ptr] * 14), *([ctypes.c_int] * 6), _c_ptr,
-        ctypes.POINTER(ctypes.c_int)]),
-    "fdb_phase2_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 3),
-    "fdb_phase2_block_threads": (ctypes.c_int, []),
+        *([_c_ptr] * 14), *([ctypes.c_int] * 9), ctypes.c_longlong,
+        _c_ptr]),
+    "fdb_phase2_limits": (ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]),
+    "fdb_phase2_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "fdb_phase2_block_bytes": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "fdb_phase2_block_threads": (ctypes.c_int, [ctypes.c_int]),
     "fdb_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -166,20 +298,22 @@ def _lib():
 
 def phase2_rounds(base_conf, conflict0, it0: int, cap: int, *, perm, lo, hi,
                   seg_lo, seg_hi, n_leaves: int, leaf, rtxn, wtxn, w_valid,
-                  groups=(1, 2, 4, 8)):
-    """The fixed point from conflict0 with the round counter at it0:
-    rounds until nothing changes or the counter reaches cap. Returns the
-    conflict vector (T,) int32, the counter (0-d int32), both on the
-    device, and the host reads made (0 on the card; the plain version's
-    group reads on the CPU, `groups` giving its group sizes).
+                  seed: bool = False, groups=(1, 2, 4, 8)):
+    """The fixed point from conflict0 (with `seed`, from the pointer-
+    jumping seed instead) with the round counter at it0: rounds until
+    nothing changes or the counter reaches cap. Returns the conflict
+    vector (T,) int32, the counter (0-d int32), both on the device, and
+    the host reads made (0 on the card; the plain version's group reads
+    on the CPU, `groups` giving its group sizes).
 
     base_conf, conflict0: (T,) int32; perm, seg_lo, seg_hi, wtxn: (Wr,)
     int32; w_valid: (Wr,) bool; lo, hi, leaf, rtxn: (R,) int32. Case A
     ranges [lo, hi) index rank order (0..Wr), segments [seg_lo, seg_hi)
-    and leaves index n_leaves leaves, leaf < 0 meaning no stab."""
+    and leaves index n_leaves leaves, leaf < 0 meaning no stab; txn ids
+    lie in [0, T)."""
     kw = dict(perm=perm, lo=lo, hi=hi, seg_lo=seg_lo, seg_hi=seg_hi,
               n_leaves=n_leaves, leaf=leaf, rtxn=rtxn, wtxn=wtxn,
-              w_valid=w_valid)
+              w_valid=w_valid, seed=seed)
     if base_conf.device.type == "cpu":
         _check(it0, cap, n_leaves, _operands(base_conf, conflict0, kw))
         return phase2_rounds_ref(base_conf, conflict0, it0, cap,
@@ -193,11 +327,14 @@ def _operands(base_conf, conflict0, kw: dict) -> dict:
     return {k: ts[k] for k in _ROWS}
 
 
-def phase2_rounds_launch(base_conf, conflict0, it0: int, cap: int, **kw):
+def phase2_rounds_launch(base_conf, conflict0, it0: int, cap: int, *,
+                         seed: bool = False, tier: str | None = None, **kw):
     """Launch the kernel on CUDA tensors (phase2_rounds' operands):
     (conflict (T,), counter 0-d), views of one fresh device tensor,
-    enqueued on the current stream of their device with no host read. A
-    CPU tensor, a failed build or a refused launch raises."""
+    enqueued on the current stream of their device with no host read.
+    The tier is choose_tier's for the shapes (`tier` forces one, for the
+    checks). A CPU tensor, a failed build, a forced tier the shape does
+    not fit or a refused launch raises."""
     global LAUNCHES
     n_leaves = kw["n_leaves"]
     ts = _operands(base_conf, conflict0, kw)
@@ -205,24 +342,28 @@ def phase2_rounds_launch(base_conf, conflict0, it0: int, cap: int, **kw):
     dev = base_conf.device
     if dev.type != "cuda":
         raise ValueError(f"the phase-2 kernel needs CUDA tensors, got {dev}")
+    name, size, smem = choose_tier(T, R, Wr, n_leaves, device_limits(dev),
+                                   tier)
     lib = _lib()
     out = torch.empty(T + 1, dtype=I32, device=dev)   # conflict ++ counter
-    scratch = torch.empty(lib.fdb_phase2_scratch_ints(T, Wr, n_leaves),
-                          dtype=I32, device=dev)
-    grid = ctypes.c_int(0)
+    scratch = (torch.empty(lib.fdb_phase2_scratch_ints(T, Wr, n_leaves, size),
+                           dtype=I32, device=dev) if name == "grid" else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fdb_phase2_rounds(
             *(t.data_ptr() for t in ts.values()), out.data_ptr(),
-            out[T:].data_ptr(), scratch.data_ptr(), T, R, Wr, n_leaves,
-            it0, cap, stream, ctypes.byref(grid),
+            out[T:].data_ptr(),
+            None if scratch is None else scratch.data_ptr(), T, R, Wr,
+            n_leaves, it0, cap, int(seed), TIERS.index(name), size, smem,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"phase-2 kernel launch failed on {dev} (cooperative grid of "
-            f"{grid.value} blocks of {lib.fdb_phase2_block_threads()} "
-            f"threads; T={T} R={R} Wr={Wr} n_leaves={n_leaves}): CUDA "
-            f"error {rc} ({lib.fdb_cuda_error_string(rc).decode()})"
+            f"phase-2 kernel launch failed on {dev} ({name} tier of {size} "
+            f"blocks of {lib.fdb_phase2_block_threads(TIERS.index(name))} "
+            f"threads, {smem} shared bytes each; T={T} R={R} Wr={Wr} "
+            f"n_leaves={n_leaves} seed={bool(seed)}): CUDA error {rc} "
+            f"({lib.fdb_cuda_error_string(rc).decode()})"
         )
     LAUNCHES += 1
     return out[:T], out[T]

@@ -124,6 +124,38 @@ def gpu_synthetic(rng, T: int, R: int, Wr: int):
     return arrays, dict(T=T, Wr=Wr, P2=P2)
 
 
+def gpu_chain(T: int, aborted=()):
+    """gpu._phase2_fixed_point operands of an abort chain of T >= 2 txns
+    drawn directly, for any T (the packer's buckets are powers of two):
+    txn i writes key i and txn i >= 1 reads key i - 1; key k's four
+    sorted slots hold txn k's write begin, txn k+1's read begin and end,
+    and the write's end. base_conf is 1 at `aborted`."""
+    w = np.arange(T, dtype=np.int32)
+    r = np.arange(T - 1, dtype=np.int32)
+    arrays = dict(q_begin=4 * r + 1, q_end=4 * r + 2, s_begin=4 * w,
+                  s_end=4 * w + 3, rtxn=r + 1, wtxn=w,
+                  w_valid=np.ones(T, dtype=bool))
+    base = np.zeros(T, dtype=np.int32)
+    base[list(aborted)] = 1
+    return ({k: torch.from_numpy(v) for k, v in arrays.items()},
+            dict(T=T, Wr=T, P2=4 * T), base)
+
+
+def chain_operands(T: int) -> dict:
+    """phase2.phase2_rounds' index operands (no geometry step) of an abort
+    chain of T txns in the rank-fed layout: write w = txn w covers leaf
+    2w, read r of txn r stabs leaf 2(r - 1) (read 0 stabs nothing), no
+    case-A range. Without a seed the loop settles one link a round: T
+    rounds."""
+    ar = torch.arange(T, dtype=torch.int32)
+    zero = torch.zeros(T, dtype=torch.int32)
+    return dict(perm=ar.clone(), lo=zero, hi=zero.clone(), seg_lo=2 * ar,
+                seg_hi=2 * ar + 1, n_leaves=2 * T,
+                leaf=torch.where(ar > 0, 2 * (ar - 1), -1).to(torch.int32),
+                rtxn=ar.clone(), wtxn=ar.clone(),
+                w_valid=torch.ones(T, dtype=torch.bool))
+
+
 # ------------------------------------------------ the rank-fed set
 
 RANK_FIELDS = ("wb2", "we2", "qb2", "loA", "hiA", "perm", "rtxn", "wtxn",

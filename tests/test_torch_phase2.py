@@ -16,8 +16,12 @@ pure abort chain of 15 and of 16 txns in T = 16 (crossing the plain
 version's round groups; without a seed the rank-fed loop runs 16 to its
 T + 2 cap), a batch on which gpu.py's pointer-jumping seed undershoots
 (3 verification rounds), a batch with no valid write, T = 1, and a read
-whose rank-fed qb2 is 0. A static test holds the kernel's C entry point
-to the wrapper's ctypes argtypes. The kernel itself runs only on a card:
+whose rank-fed qb2 is 0. gpu.py's one call runs the seed too (seed=True):
+abort chains of T = 1, 2^k and 2^k + 1 txns (the edges of its n_jump
+doublings) hold it to the JAX package's seed and loop. The tier rule
+(phase2.choose_tier) is checked as the pure function it is. A static
+test holds the kernel's C entry points to the wrapper's ctypes
+argtypes. The kernel itself runs only on a card:
 tests/test_torch_phase2_card.py.
 """
 
@@ -34,7 +38,9 @@ import torch
 
 from _torch_phase2_cases import (
     before_every_write_raw,
+    chain_operands,
     chain_raw,
+    gpu_chain,
     gpu_operands,
     gpu_synthetic,
     random_raw,
@@ -130,6 +136,173 @@ def test_gpu_phase2_one_txn(base0):
     assert list(conflict) == [base0] and rounds == n_jump(1) + 1
 
 
+class SeedTap:
+    """phase2.phase2_rounds while open, its calls' seed, it0 and cap kept."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        real = phase2.phase2_rounds
+
+        def rounds(base_conf, conflict0, it0, cap, **kw):
+            self.calls.append((kw.get("seed", False), it0, cap))
+            return real(base_conf, conflict0, it0, cap, **kw)
+
+        monkeypatch.setattr(phase2, "phase2_rounds", rounds)
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 5, 8, 9, 16, 17, 32, 33])
+def test_gpu_phase2_seeded_at_the_n_jump_edges(T, monkeypatch):
+    """gpu.py's one phase-2 call asks for the seed, from it0 = n_jump with
+    cap n_jump + T + 2; the plain version's seed and rounds equal the JAX
+    package's on an abort chain of T txns (a base conflict mid-chain),
+    which the seed resolves exactly: one verification round."""
+    tap = SeedTap(monkeypatch)
+    if T == 1:
+        arrays, statics = gpu_synthetic(np.random.default_rng(5), T=1, R=3,
+                                        Wr=2)
+        base = np.zeros(1, np.int32)
+    else:
+        arrays, statics, base = gpu_chain(T, aborted=[T // 2] if T > 2
+                                          else [])
+    conflict, rounds, reads = gpu_check(arrays, statics, base)
+    assert tap.calls == [(True, n_jump(T), n_jump(T) + T + 2)]
+    assert rounds == n_jump(T) + 1 and reads == 1
+    if T > 2:
+        m = T // 2
+        want = [i % 2 for i in range(m)] + [
+            1 - (i - m) % 2 for i in range(m, T)]
+        assert list(conflict) == want
+
+
+def test_gpu_phase2_launches_only_the_geometry_around_its_call(monkeypatch):
+    """gpu._phase2_fixed_point runs the geometry's ops and hands the seed
+    and the rounds to one phase2.phase2_rounds call (one kernel launch on
+    the card): with that call stubbed, under 40 ops that are not views
+    remain, none of them the min-writer's tree scatter or its stab."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    arrays, statics = gpu_operands(random_raw(np.random.default_rng(0), 14),
+                                   caps=RANDOM_CAPS)
+    base = torch.zeros(statics["T"], dtype=torch.int32)
+    calls = []
+    monkeypatch.setattr(phase2, "phase2_rounds", lambda b, c0, it0, cap,
+                        **kw: calls.append(kw["seed"]) or (b, it0, 0))
+    with Ops() as seen:
+        gpu._phase2_fixed_point(base, smat=None, **arrays, **statics)
+    assert calls == [True]
+    assert len(seen.ops) < 40, seen.ops
+    assert not [o for o in seen.ops if "scatter_reduce" in o or "amin" in o]
+
+
+def test_seed_undershoots_and_the_rounds_repair_it():
+    """On the undershoot batch the seed (phase2.seed_ref, the plain
+    version's seed stage) is wrong at txns 2 and 3: the verification
+    rounds, 3 of them, repair it to the JAX package's fixed point."""
+    arrays, statics = gpu_operands(undershoot_raw(), caps=SMALL_CAPS)
+    base = np.zeros(statics["T"], np.int32)
+    base[0] = 1
+    captured = {}
+    real = phase2.phase2_rounds
+
+    def tap(base_conf, conflict0, it0, cap, **kw):
+        captured.update(kw, base_conf=base_conf)
+        return real(base_conf, conflict0, it0, cap, **kw)
+
+    phase2.phase2_rounds = tap
+    try:
+        conflict, rounds, _ = gpu_check(arrays, statics, base)
+    finally:
+        phase2.phase2_rounds = real
+    geom = {k: captured[k] for k in ("perm", "lo", "hi", "seg_lo", "seg_hi",
+                                     "n_leaves", "leaf")}
+    seed = phase2.seed_ref(
+        captured["base_conf"], phase2.min_writer_fn(**geom),
+        rtxn=captured["rtxn"], wtxn=captured["wtxn"],
+        w_valid=captured["w_valid"]).numpy()
+    assert list(conflict[:4]) == [1, 0, 1, 0]
+    assert list(seed[:4]) != list(conflict[:4])
+    assert rounds == n_jump(statics["T"]) + 3
+
+
+@pytest.mark.parametrize("T", [16, 17])
+def test_plain_version_chain_one_link_a_round(T):
+    """Without the seed the plain version settles an abort chain one link
+    a round (T rounds); with it, in one round, to the same vector."""
+    kw = chain_operands(T)
+    base = torch.zeros(T, dtype=torch.int32)
+    c, it, _ = phase2.phase2_rounds(base, base, 0, T + 2, **kw)
+    assert c.tolist() == [i % 2 for i in range(T)] and int(it) == T
+    j = n_jump(T)
+    c2, it2, reads = phase2.phase2_rounds(base, base, j, j + T + 2,
+                                          seed=True, **kw)
+    assert torch.equal(c, c2) and int(it2) == j + 1 and reads == 1
+
+
+# ------------------------------------------------ the tier rule
+
+H100 = dict(sms=132, smem_per_block=232_448, grid_blocks_per_sm=8)
+FULL = (8192, 40960, 16384, 114688)        # [full]'s chunk: T, R, Wr, L
+SHARDED = (65536, 90112, 36864, 262144)    # [sharded]'s shard step
+RANKFED = (65536, 524288, 131072, 262144)  # [rankfed]'s batch
+
+
+def test_tier_rule_puts_each_path_where_it_ran_faster():
+    """One block holding the state and copies of the operands (4 bytes
+    each of 4 T + 6 Wr + 2 L + 4 R and 4 words) runs the block tier where
+    each of its 1,024 threads takes at most four items (config 1's
+    largest batch on the card: T 832, R 4,096, Wr 1,664, 12,288 leaves);
+    anything larger the grid, sized to the work: a batch one block holds
+    with 4,608 reads, 1,024 config-5 txns (one block does not hold them),
+    [full]'s chunk, [sharded]'s step, [rankfed]'s batch. Forced, the
+    block tier runs wherever it fits."""
+    edge = (832, 4096, 1664, 12288)
+    smem = phase2.block_bytes(*edge)
+    assert smem == 4 * (4 * 832 + 6 * 1664 + 2 * 12288 + 4 * 4096 + 4)
+    assert smem <= H100["smem_per_block"]
+    assert phase2.choose_tier(*edge, H100) == ("block", 1, smem)
+    assert phase2.choose_tier(256, 1280, 512, 3584, H100)[:2] == ("block", 1)
+    assert phase2.choose_tier(16, 80, 32, 224, H100)[:2] == ("block", 1)
+    held = (512, 4608, 512, 2048)
+    assert phase2.block_bytes(*held) <= H100["smem_per_block"]
+    assert phase2.choose_tier(*held, H100) == ("grid", 18, 0)
+    assert phase2.choose_tier(*held, H100, "block") == (
+        "block", 1, phase2.block_bytes(*held))
+    big = (1024, 5120, 2048, 14336)
+    assert phase2.block_bytes(*big) > H100["smem_per_block"]
+    assert phase2.choose_tier(*big, H100) == ("grid", 20, 0)
+    assert phase2.choose_tier(*FULL, H100) == ("grid", 160, 0)
+    assert phase2.choose_tier(*SHARDED, H100) == ("grid", 352, 0)
+    assert phase2.choose_tier(*RANKFED, H100) == ("grid", 132 * 8, 0)
+    assert phase2.choose_tier(1, 0, 0, 1, H100, "grid") == ("grid", 1, 0)
+
+
+@pytest.mark.parametrize("shape,tier", [(FULL, "block"), (RANKFED, "block"),
+                                        (SHARDED, "bogus")])
+def test_forced_tier_that_does_not_fit_raises(shape, tier):
+    with pytest.raises(ValueError, match="block|bogus") as e:
+        phase2.choose_tier(*shape, H100, tier)
+    if tier == "block":
+        T, R, Wr, L = shape
+        assert f"T={T} R={R} Wr={Wr} n_leaves={L}" in str(e.value)
+
+
+def test_tier_rule_refuses_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="T="):
+        phase2.choose_tier(phase2.MAX_T, 1, 1, 1, H100)
+    with pytest.raises(ValueError, match="T="):
+        phase2.choose_tier(0, 1, 1, 1, H100, "grid")
+
+
 # ------------------------------------------------ the rank-fed set
 
 @functools.lru_cache(maxsize=None)
@@ -223,7 +396,7 @@ def test_kernel_entry_point_matches_the_wrapper():
         phase2.ENTRY_POINTS)
     for name, (restype, argtypes) in phase2.ENTRY_POINTS.items():
         assert c_signature(src, name) == (restype, argtypes), name
-    assert len(phase2.ENTRY_POINTS["fdb_phase2_rounds"][1]) == 22
+    assert len(phase2.ENTRY_POINTS["fdb_phase2_rounds"][1]) == 25
 
 
 def test_launch_takes_only_cuda_tensors():

@@ -2,7 +2,12 @@
 card: through both callers, gpu._phase2_fixed_point and
 rankfed._phase2_fixed_point, on the cases of tests/test_torch_phase2.py
 (the same numpy-made operands, moved to the card), the conflict vector
-and gpu.py's round count bit for bit, and the kernel's launch counted.
+and gpu.py's round count bit for bit, and the kernel's launch counted
+(gpu.py's one call, seed included, is one launch). Then each case's
+operands through each tier (block and grid, forced), with and without
+the seed; an abort chain of 65,536 txns, whose 65,536 rounds spend the
+trees' tags twice over, on both tiers; the shared-memory formula of the
+tier rule against the kernel's; and a forced tier that does not fit.
 The kernel has no CPU mode: without a card every case skips. Run on a
 machine with a card:
 
@@ -18,6 +23,7 @@ import torch
 
 from _torch_phase2_cases import (
     before_every_write_raw,
+    chain_operands,
     chain_raw,
     gpu_operands,
     gpu_synthetic,
@@ -99,3 +105,138 @@ def test_kernel_equals_plain_version(card, case):
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == torch.int32
         assert torch.equal(g.cpu(), w)
+
+
+CASES = ["gpu:random", "gpu:chain15", "gpu:chain16", "gpu:undershoot",
+         "gpu:no_writes", "gpu:one_txn", "rankfed:random", "rankfed:chain15",
+         "rankfed:chain16", "rankfed:no_writes", "rankfed:one_txn",
+         "rankfed:before_every_write"]
+
+
+def captured(card, case):
+    """The operands the caller hands phase2.phase2_rounds on the card."""
+    caller, name = case.split(":")
+    got = {}
+    real = phase2.phase2_rounds
+
+    def tap(base_conf, conflict0, it0, cap, **kw):
+        got.update(kw, base_conf=base_conf, conflict0=conflict0, it0=it0,
+                   cap=cap)
+        got.pop("groups", None)
+        return real(base_conf, conflict0, it0, cap, **kw)
+
+    phase2.phase2_rounds = tap
+    try:
+        if caller == "gpu":
+            arrays, statics, base = gpu_case(name)
+            gpu._phase2_fixed_point(
+                torch.from_numpy(base).to(card), smat=None,
+                **{k: v.to(card) for k, v in arrays.items()}, **statics)
+        else:
+            _, _, lay, base, kw = rank_case(name)
+            prf._phase2_fixed_point(
+                base.to(card), **{k: v.to(card) for k, v in kw.items()},
+                T=lay.T, M=lay.M)
+    finally:
+        phase2.phase2_rounds = real
+    return got
+
+
+def launch_vs_plain(op, tier):
+    args = [op.pop(k) for k in ("base_conf", "conflict0", "it0", "cap")]
+    n0 = phase2.LAUNCHES
+    got = phase2.phase2_rounds_launch(*args, tier=tier, **op)
+    torch.cuda.synchronize()
+    assert phase2.LAUNCHES == n0 + 1
+    want = phase2.phase2_rounds_ref(*[a.cpu() if torch.is_tensor(a) else a
+                                      for a in args],
+                                    **{k: v.cpu() if torch.is_tensor(v)
+                                       else v for k, v in op.items()})[:2]
+    return [g.cpu() for g in got], want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [True, False])
+@pytest.mark.parametrize("tier", ["block", "grid"])
+@pytest.mark.parametrize("case", CASES)
+def test_each_tier_equals_plain_version(card, case, tier, seed):
+    """Each case's operands through one tier, forced, from the seed
+    (it0 n_jump, cap n_jump + T + 2) or without it (it0 0, cap T + 2, the
+    loop from base_conf): conflict vector and counter bit for bit."""
+    op = captured(card, case)
+    T = op["base_conf"].shape[0]
+    j = phase2.n_jump(T) if seed else 0
+    op.update(seed=seed, conflict0=op["base_conf"], it0=j, cap=j + T + 2)
+    got, want = launch_vs_plain(op, tier)
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [True, False])
+@pytest.mark.parametrize("tier,T", [("grid", 65536), ("block", 3072)])
+def test_long_chain_refills_the_trees(card, tier, T, seed):
+    """An abort chain of T txns: without the seed T rounds, with it one.
+    On the grid 65,536 rounds outrun one fill's 32,767 tags twice, so the
+    trees are filled again mid-loop; the block tier runs the longest
+    chain its shared memory holds (72 T + 16 bytes). Statuses
+    alternate."""
+    kw = {k: v.to(card) if torch.is_tensor(v) else v
+          for k, v in chain_operands(T).items()}
+    base = torch.zeros(T, dtype=torch.int32, device=card)
+    j = phase2.n_jump(T) if seed else 0
+    c, it = phase2.phase2_rounds_launch(base, base, j, j + T + 2, seed=seed,
+                                        tier=tier, **kw)
+    want = torch.arange(T, dtype=torch.int32) % 2
+    assert torch.equal(c.cpu(), want)
+    assert int(it) == (j + 1 if seed else T)
+
+
+@pytest.mark.cuda
+def test_block_bytes_formula_is_the_kernels(card):
+    lib = phase2._lib()
+    for T, R, Wr, L in [(1, 0, 0, 1), (16, 80, 16, 64),
+                        (8192, 40960, 16384, 114688),
+                        (65536, 90112, 36864, 262144), (1000, 7, 3, 7777)]:
+        assert lib.fdb_phase2_block_bytes(T, R, Wr, L) == (
+            phase2.block_bytes(T, R, Wr, L))
+
+
+@pytest.mark.cuda
+def test_forced_block_tier_that_does_not_fit_raises(card):
+    """n_leaves 2^22 puts 32 MB of interval tree in the state: no block
+    holds it, so a forced block tier raises before any launch and the
+    rule's own choice is the grid."""
+    kw = {k: v.to(card) if torch.is_tensor(v) else v
+          for k, v in chain_operands(16).items()}
+    kw["n_leaves"] = 1 << 22
+    base = torch.zeros(16, dtype=torch.int32, device=card)
+    lim = phase2.device_limits(card)
+    assert phase2.choose_tier(16, 16, 16, 1 << 22, lim)[0] == "grid"
+    n0 = phase2.LAUNCHES
+    with pytest.raises(ValueError, match="block tier"):
+        phase2.phase2_rounds_launch(base, base, 0, 18, tier="block", **kw)
+    assert phase2.LAUNCHES == n0
+    c, it = phase2.phase2_rounds_launch(base, base, 0, 18, **kw)
+    assert c.cpu().tolist() == [i % 2 for i in range(16)] and int(it) == 16
+
+
+@pytest.mark.cuda
+def test_gpu_phase2_is_one_kernel_and_its_geometry(card):
+    """On the card gpu._phase2_fixed_point's device work is the
+    geometry's few kernels and one phase-2 kernel: the seed launches
+    nothing of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    arrays, statics, base = gpu_case("random")
+    args = {k: v.to(card) for k, v in arrays.items()}
+    base = torch.from_numpy(base).to(card)
+    gpu._phase2_fixed_point(base, smat=None, **args, **statics)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gpu._phase2_fixed_point(base, smat=None, **args, **statics)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [k for k in kernels if "grid_kernel" in k or "block_kernel" in k]
+    assert len(ours) == 1, kernels
+    assert len(kernels) < 40, kernels
