@@ -31,10 +31,13 @@ Phases (each prints one line; any failure exits nonzero):
    state. 8 batches (FULL_BATCHES; 24, 16, then 12, before) through
    submit/verdicts at depth 4; the first 2 also through
    ConflictSetGPU(device="cpu"), statuses and entries() equal. The
-   probe's and phase 2's launch counts are reset just before and read
-   just after this run: the probe's must be positive, phase 2's at least
-   one per resolved chunk, and no submit may read the host in phase 2.
-   Prints txns/s, p50/p90 batch latency and more;
+   probe's, phase 2's and the block kernels' launch counts are reset
+   just before and read just after this run: the probe's must be
+   positive, phase 2's one per resolved chunk, the block kernels' decode
+   one per chunk and phase 1 and phase 3 one per fast chunk, and no
+   submit may read the host in phase 2. Prints txns/s, p50/p90 batch
+   latency and more, and the profiled batch's device ops split by chunk
+   (fast step or compaction);
    then 2 batches (FULL_64K_BATCHES; 6, then 3, before) at 64K-txn
    chunks. The
    main run's batches stay for phases 19-21.
@@ -240,7 +243,10 @@ shards by check_replays.
 Phase 2 reads the host nowhere on the card: every sync audit fails a
 submit that made a phase-2 read, and [full], [sharded] and [rankfed]
 count the phase-2 kernel's launches (at least one per chunk, shard step
-or batch).
+or batch). [full], [sharded] and [cluster] count the block kernels'
+launches (csrc/block.cu: decode one per dispatch, phase 1 and phase 3
+one per fast step or shard step) and keep their last operands, on which
+each is held bit-exact against its plain version and timed.
 
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
@@ -255,7 +261,9 @@ sim-backup-resolver, sim-backup-storage; phase 2's kernel on
 [rankfed]'s last batch (rankfed) and [cluster]'s largest batch under
 each tier the rule picked there, one both tiers can run where there is
 one (cluster-resolver-block, cluster-resolver-grid), each with its tier and the other tier's time
-where the shape fits it (ab_ms); and the rank-fed kernel,
+where the shape fits it (ab_ms); the block kernels decode_fused, phase1
+and phase3 on [full]'s (resolver), [sharded]'s and [cluster]'s
+(cluster-resolver) last operands; and the rank-fed kernel,
 route "torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -365,6 +373,10 @@ BACKUP_CHIP_TARGET = 1000
 # as torch ops around the kernel (NVIDIA H100 80GB HBM3, 700 W; PERF.md
 # section 5): [full-profile-ops] prints the count beside it.
 SEED_AS_TORCH_OPS_DEVICE_OPS = 12_880
+# [full-profile] device ops with the block kernel's decode, phase 1 and
+# phase 3 as torch ops (H100 80GB HBM3, 700 W; PERF.md)
+TORCH_BLOCK_DEVICE_OPS = 8_344
+CHUNK_RANGE = "fdb-chunk-"  # profiler range around one chunk's dispatch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -784,6 +796,298 @@ def phase_phase2(device=None) -> None:
                 capped_rounds=cuts[0])
 
 
+# ------------------------------------------------- block kernels (decode,
+# phase 1, phase 3)
+
+BLOCK_REPLACES = {"decode": "foundationdb_tpu/resolver/tpu.py:215",
+                  "phase1": "foundationdb_tpu/resolver/tpu.py:729",
+                  "phase3": "foundationdb_tpu/resolver/tpu.py:768"}
+BLOCK_NAMES = {"decode": "decode_fused", "phase1": "phase1",
+               "phase3": "phase3"}
+
+
+class BlockTap:
+    """The block kernel's decode, phase 1 and phase 3 (resolver/block.py,
+    the kernels of csrc/block.cu on the card) while the block is open:
+    their launches counted by the wrappers (block.LAUNCHES, reset on
+    entry), and the operands of the last fast step on the card kept for
+    block_entries (its decode's, held until its phase 1 shows the step
+    is a fast one and not a compaction): the decode's and phase 1's by
+    reference (fresh per chunk, never written after), phase 1's version
+    row and tree and phase 3's state cloned before the call (phase 3
+    updates them in place)."""
+
+    device_types = ("cuda",)   # where a call's operands are kept
+
+    def __init__(self):
+        self.captured = {}
+
+    def __enter__(self) -> "BlockTap":
+        from foundationdb_tpu_torch.resolver import block
+
+        self._real = real = (block.decode_fused, block.phase1, block.phase3)
+        for k in block.LAUNCHES:
+            block.LAUNCHES[k] = 0
+
+        def dec(fused, *, lay):
+            if fused.device.type in self.device_types:
+                self._decode = dict(fused=fused, lay=lay)
+            return real[0](fused, lay=lay)
+
+        def p1(hv, btree, *args, NB, B):
+            if hv.device.type in self.device_types:
+                self.captured["decode"] = self._decode
+                self.captured["phase1"] = dict(
+                    args=(hv.clone(), btree.clone(), *args), NB=NB, B=B)
+            return real[1](hv, btree, *args, NB=NB, B=B)
+
+        def p3(hmat, counts, btree, n, **kw):
+            if hmat.device.type in self.device_types:
+                self.captured["phase3"] = dict(
+                    state=(hmat.clone(), counts.clone(), btree.clone(), n),
+                    kw=kw)
+            return real[2](hmat, counts, btree, n, **kw)
+
+        block.decode_fused, block.phase1, block.phase3 = dec, p1, p3
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from foundationdb_tpu_torch.resolver import block
+
+        self.launches = dict(block.LAUNCHES)
+        block.decode_fused, block.phase1, block.phase3 = self._real
+
+    def check_launches(self, name: str, fast: int, dispatches: int) -> None:
+        """One decode per dispatch (fast step or compaction), one phase 1
+        and one phase 3 per fast step, or fail."""
+        n = self.launches
+        want = {"decode": dispatches, "phase1": fast, "phase3": fast}
+        if n != want:
+            fail(f"{name}: block kernel launches {n}, {want} expected "
+                 f"({fast} fast steps in {dispatches} dispatches)")
+
+
+def block_run(kernel: str, cap: dict, plain: bool = False):
+    """One call of a block kernel (or its plain version) on the captured
+    operands, the in-place state of phase 3 on copies. Returns its
+    outputs, phase 3's state after it included."""
+    from foundationdb_tpu_torch.resolver import block
+
+    if kernel == "decode":
+        fn = block.decode_fused_ref if plain else block.decode_fused_launch
+        return fn(cap["fused"], lay=cap["lay"])
+    if kernel == "phase1":
+        if plain:
+            return (block.phase1_ref(*cap["args"], NB=cap["NB"],
+                                     B=cap["B"]),)
+        names = ("hv", "btree", "bid", "lb_loc", "eq_loc", "q_begin",
+                 "q_end", "rsnap", "rtxn", "too_old")
+        return (block.phase1_launch(dict(zip(names, cap["args"])),
+                                    NB=cap["NB"], B=cap["B"]),)
+    hmat, counts, btree, n = cap["state"]
+    state = (hmat.clone(), counts.clone(), btree.clone())
+    kw = cap["kw"]
+    if plain:
+        out = block.phase3_ref(*state, n, **kw)
+    else:
+        ts = dict(zip(block.PHASE3_OPERANDS, (*state, n, *(
+            kw[k] for k in block.PHASE3_OPERANDS[4:]))))
+        out = block.phase3_launch(ts, K=kw["K"], NB=kw["NB"], B=kw["B"])
+    return (*out, *state)
+
+
+def block_timer(kernel: str, cap: dict, plain: bool = False):
+    """(fn, restore): one call of the kernel (or its plain version) on the
+    captured operands for device_ms, and for phase 3 the restore of the
+    state it rewrites (the touched blocks' columns, counts and the tree),
+    which fn runs first; its own time is taken apart and subtracted."""
+    import torch
+    from foundationdb_tpu_torch.resolver import block
+
+    if kernel != "phase3":
+        def fn():
+            block_run(kernel, cap, plain)
+        return fn, None
+    hmat0, counts0, btree0, n = cap["state"]
+    kw = cap["kw"]
+    hmat, counts, btree = hmat0.clone(), counts0.clone(), btree0.clone()
+    B, NB = kw["B"], kw["NB"]
+    g = kw["g_ids"][: int(kw["n_g"])].clamp(0, NB - 1).to(torch.int64)
+    cols = (g[:, None] * B + torch.arange(B, device=g.device)).reshape(-1)
+    saved = hmat0[:, cols]
+
+    def restore():
+        hmat.index_copy_(1, cols, saved)
+        counts.copy_(counts0)
+        btree.copy_(btree0)
+
+    ts = dict(zip(block.PHASE3_OPERANDS, (hmat, counts, btree, n, *(
+        kw[k] for k in block.PHASE3_OPERANDS[4:]))))
+
+    def fn():
+        restore()
+        if plain:
+            block.phase3_ref(hmat, counts, btree, n, **kw)
+        else:
+            block.phase3_launch(ts, K=kw["K"], NB=NB, B=B)
+    return fn, restore
+
+
+def block_bound(kernel: str, cap: dict) -> tuple[float, str]:
+    """Least ms for the kernel's work on this card: the bytes it must
+    move, each input read once and each output written once, counted for
+    this run's data, over the memory rate (its integer operations, a few
+    per byte, are far below the card's rate). decode: the fused buffer in;
+    the endpoint matrix, rtxn, rsnap, wtxn (4 bytes a row), w_valid and
+    too_old (a byte a row) out (q_begin and q_end are views of the
+    buffer). phase 1: per read its two positions,
+    snapshot and txn (16), the probe's ranks there (20), the version rows
+    of the distinct blocks its head and tail read (4 B a block), the
+    distinct tree nodes of its interior (4 a node), too_old in and
+    base_conf out (5 T). phase 3: per write its two positions, txn and
+    validity (13 Wr), per endpoint its key column and ranks (4 W1 + 12),
+    the conflict and too_old vectors (5 T), the touched ids (4 K), the
+    touched blocks' state in and out (2 x 4 (W + 2) B a block, their
+    counts, leaves and ancestors' distinct nodes), st_aux out (T + 6)."""
+    import torch
+    from foundationdb_tpu_torch.resolver._ops import _canonical_nodes_flat
+
+    if kernel == "decode":
+        lay = cap["lay"]
+        W1 = lay.n_words + 1
+        nbytes = (4 * lay.total + 4 * W1 * lay.P2 + 8 * lay.R + 5 * lay.Wr
+                  + lay.T)
+    elif kernel == "phase1":
+        hv, btree, bid, lb, eq, qb, qe, rsnap, rtxn, too_old = cap["args"]
+        NB, B = cap["NB"], cap["B"]
+        R, T = qb.shape[0], too_old.shape[0]
+        rb, re = bid[qb.long()], bid[qe.long()]
+        blocks = torch.unique(torch.cat([rb, re])).numel()
+        nodes, _ = _canonical_nodes_flat(torch.minimum(rb + 1, re), re, NB)
+        n_nodes = torch.unique(nodes[nodes > 0]).numel()
+        nbytes = 36 * R + 4 * B * blocks + 4 * n_nodes + 5 * T
+    else:
+        hmat, counts, btree, n = cap["state"]
+        kw = cap["kw"]
+        W1, Wr = kw["smat"].shape[0], kw["s_begin"].shape[0]
+        T, K, NB, B = (kw["conflict"].shape[0], kw["K"], kw["NB"],
+                       kw["B"])
+        ng = int(kw["n_g"])
+        leaves = kw["g_ids"][:ng].long() + NB
+        anc = torch.unique(torch.cat([leaves >> i for i in range(
+            NB.bit_length())]))
+        nbytes = (13 * Wr + 2 * Wr * (4 * W1 + 12) + 5 * T + 4 * K
+                  + ng * 8 * (W1 + 1) * B + 8 * ng + 8 * anc.numel()
+                  + T + 6)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return t_bytes, "bytes"
+
+
+def block_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
+    """Each block kernel held against its plain version on one path's last
+    operands on the card, bit for bit (fails otherwise), timed warm (50
+    launches an event pair) and cold (after an L2 flush), its plain
+    version timed, bounded, logged: one kernel-table entry each."""
+    import torch
+    from foundationdb_tpu_torch.resolver import block
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
+
+    out = []
+    n0 = dict(block.LAUNCHES)
+    for kernel in ("decode", "phase1", "phase3"):
+        c = cap.get(kernel)
+        if not c:
+            fail(f"{path}: the {kernel} kernel was never called on the card")
+        got = block_run(kernel, c)
+        want = block_run(kernel, c, plain=True)
+        torch.cuda.synchronize()
+        err = 0
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{path}: {kernel} output {tuple(g.shape)} {g.dtype} "
+                     f"vs plain {tuple(w.shape)} {w.dtype}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()) if g.numel() else 0)
+        if err:
+            fail(f"{path}: the {kernel} kernel disagrees with its plain "
+                 f"version: max |diff| {err}")
+        fn, restore = block_timer(kernel, c)
+        pfn, _ = block_timer(kernel, c, plain=True)
+        dev = got[0].device
+        flush = l2_flusher(dev)
+        base_w = device_ms(restore, n=50) if restore else 0.0
+        base_c = device_ms(restore, flush=flush) if restore else 0.0
+        t = {"ms": device_ms(fn, n=50) - base_w,
+             "ms_cold": device_ms(fn, flush=flush) - base_c,
+             "plain_ms": device_ms(pfn) - (device_ms(restore) if restore
+                                           else 0.0)}
+        if kernel == "phase3":
+            t.update(phase3_levels(path, c, flush))
+        bound_ms, bound_by = block_bound(kernel, c)
+        shape = _block_shape(kernel, c)
+        log(f"block-{kernel}-{path}", smi=json.dumps(smi), **shape,
+            max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.7f}",
+            bound_by=bound_by, launches=launches[kernel])
+        out.append({"name": BLOCK_NAMES[kernel], "route": "cuda",
+                    "source": "foundationdb_tpu_torch/csrc/block.cu",
+                    "replaces": BLOCK_REPLACES[kernel], "path": path,
+                    "launches": launches[kernel], "max_abs_err": err,
+                    "ms": t["ms"], "ms_cold": t["ms_cold"],
+                    "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None, **shape,
+                    **{k: t[k] for k in ("levels_ms", "levels_ms_cold")
+                       if k in t}})
+    for k, v in n0.items():   # comparison launches do not count
+        block.LAUNCHES[k] = v
+    return out
+
+
+def phase3_levels(path: str, cap: dict, flush) -> dict:
+    """Phase 3's tree update both ways on one path's operands: the same
+    call with the first touched block's stored leaf raised to INT32_MAX,
+    so that the leaf falls and the kernel takes its level-by-level loop
+    instead of the atomicMax walk. Held bit for bit against the plain
+    version (fails otherwise), timed warm and cold like the kernel."""
+    import torch
+    from foundationdb_tpu_torch.timing import device_ms
+
+    hmat, counts, btree, n = cap["state"]
+    kw = cap["kw"]
+    NB = kw["NB"]
+    if int(kw["n_g"]) < 1:
+        return {}
+    leaf = NB + kw["g_ids"][:1].clamp(0, NB - 1).long()
+    raised = btree.clone()
+    raised[leaf] = torch.iinfo(torch.int32).max
+    c = dict(cap, state=(hmat, counts, raised, n))
+    got, want = block_run("phase3", c), block_run("phase3", c, plain=True)
+    if int(want[-1][leaf]) == torch.iinfo(torch.int32).max:
+        fail(f"{path}: the raised leaf did not fall in phase 3")
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            fail(f"{path}: phase 3's level loop disagrees with its plain "
+                 "version")
+    fn, restore = block_timer("phase3", c)
+    return {"levels_ms": device_ms(fn, n=50) - device_ms(restore, n=50),
+            "levels_ms_cold": (device_ms(fn, flush=flush)
+                               - device_ms(restore, flush=flush))}
+
+
+def _block_shape(kernel: str, cap: dict) -> dict:
+    if kernel == "decode":
+        lay = cap["lay"]
+        return {"W1": lay.n_words + 1, "P2": lay.P2, "R": lay.R,
+                "Wr": lay.Wr, "T": lay.T}
+    if kernel == "phase1":
+        a = cap["args"]
+        return {"NB": cap["NB"], "B": cap["B"], "R": a[5].shape[0],
+                "T": a[9].shape[0]}
+    kw = cap["kw"]
+    return {"K": kw["K"], "n_g": int(kw["n_g"]), "NB": kw["NB"],
+            "B": kw["B"], "Wr": kw["s_begin"].shape[0],
+            "W1": kw["smat"].shape[0]}
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -880,12 +1184,13 @@ def audit_syncs(cs, wb, version: int, window: int) -> None:
 
 
 def profile_batch(run, batch_ms: float, phase: str = "full-profile",
-                  smi: str = "", host_ops: bool = True):
+                  smi: str = "", host_ops: bool = True, on_trace=None):
     """One synchronous batch, run(), under torch.profiler: device busy
     time, kernel launches and the kernels that take the most device time;
     the idle share is against the pipelined run's mean batch time
     `batch_ms`. `host_ops=False` traces the device only (a run of
-    seconds of host work records too many host ops to sum quickly).
+    seconds of host work records too many host ops to sum quickly);
+    `on_trace`, if given, receives the profiler after the run.
     Returns (device busy ms, device ops), or None when the trace holds no
     device time."""
     import torch
@@ -899,10 +1204,14 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
     with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
+    if on_trace is not None:
+        on_trace(prof)
     # Device-side events only (kernels, copies): the CPU ops that launched
-    # them report the same device time again.
+    # them report the same device time again, and a chunk's profiler range
+    # (CHUNK_RANGE) spans its kernels' time on the device once more.
     dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and not e.key.startswith(CHUNK_RANGE)]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     launches = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
@@ -923,6 +1232,26 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
         top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 4),
                          e.count) for e in top]))
     return (busy_ms, launches) if dev else None
+
+
+def chunk_device_ops(prof) -> dict:
+    """{i: (device ops, their device us)} of the kernels and copies
+    launched inside the profiler range CHUNK_RANGE + i: each device event
+    counts at the host call that launched it (the profiler links them),
+    and that call under the chunk range above it."""
+    out = {}
+    for e in prof.events():
+        if (not e.name.startswith(CHUNK_RANGE)
+                or e.device_type.name != "CPU"):
+            continue
+        n, us, stack = 0, 0.0, [e]
+        while stack:
+            x = stack.pop()
+            n += len(x.kernels)
+            us += sum(k.duration for k in x.kernels)
+            stack.extend(x.cpu_children)
+        out[int(e.name[len(CHUNK_RANGE):])] = (n, us)
+    return out
 
 
 def config5_batch(rng, n: int, version: int, space: int = 1 << 20,
@@ -1000,6 +1329,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     cs = ConflictSetGPU(device=device, **kw)
     ref = ConflictSetGPU(device="cpu", **kw)
     p2_tap = Phase2Tap().__enter__()
+    b_tap = BlockTap().__enter__()
     probe.LAUNCHES = 0
     phase2.LAUNCHES = 0
     sync(cs.device)
@@ -1046,6 +1376,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     launches = probe.LAUNCHES
     p2_launches = phase2.LAUNCHES
     p2_tap.__exit__()
+    b_tap.__exit__()
     gpu_mod.probe_ranks = real_probe
     if launches <= 0:
         fail("full width: the probe kernel was not launched on the main path")
@@ -1055,6 +1386,8 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
              f"{n_chunks[0]} resolved chunks (one each expected)")
     if on_card and any(p2_reads):
         fail(f"full width: phase 2 read the host in a submit: {p2_reads}")
+    if on_card:
+        b_tap.check_launches("full width", cs.fast_resolves, n_chunks[0])
     st = np.concatenate([np.asarray(s) for s in statuses])
     if st.size != n_txn * n_batches or not np.isin(st, (0, 1, 2)).all():
         fail("full width: malformed statuses")
@@ -1078,18 +1411,53 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         fast_resolves=cs.fast_resolves, probe_launches=launches,
         probe_launches_per_batch=f"{launches / n_batches:.2f}",
         phase2_launches=p2_launches, chunks=n_chunks[0],
-        cpu_twin_batches=2)
+        block_launches=json.dumps(b_tap.launches), cpu_twin_batches=2)
     log("full-stages", **{f"p50_{k}": f"{np.percentile(x, 50):.2f}"
                           for k, x in stages.items()})
     if cs.device.type == "cuda":
         vp = v0 + n_batches * step
         wb = config5_batch(rng, n_txn, vp)
-        prof = profile_batch(lambda: cs.resolve(vp, max(0, vp - window), wb),
-                             batch_ms=1e3 * n_txn / steady)
+        paths, chunk_ops = [], {}
+        real_async = cs.resolve_async
+
+        def tagged(*a, **k):
+            # each chunk's dispatch in a profiler range, its path recorded
+            import torch
+            f0 = cs.fast_resolves
+            with torch.profiler.record_function(
+                    f"{CHUNK_RANGE}{len(paths)}"):
+                h = real_async(*a, **k)
+            paths.append("fast" if cs.fast_resolves > f0 else "compaction")
+            return h
+
+        cs.resolve_async = tagged
+        try:
+            prof = profile_batch(
+                lambda: cs.resolve(vp, max(0, vp - window), wb),
+                batch_ms=1e3 * n_txn / steady,
+                on_trace=lambda p: chunk_ops.update(chunk_device_ops(p)))
+        finally:
+            del cs.resolve_async
         if prof:
-            log("full-profile-ops", device_ops=prof[1],
+            by_path = {}
+            for i, path in enumerate(paths):
+                by_path.setdefault(path, []).append(chunk_ops.get(i, (0, 0)))
+            log("full-profile-ops", smi=json.dumps(smi), device_ops=prof[1],
+                torch_block_device_ops=TORCH_BLOCK_DEVICE_OPS,
+                fifth_of_torch_block=TORCH_BLOCK_DEVICE_OPS // 5,
+                fewer=TORCH_BLOCK_DEVICE_OPS - prof[1],
                 seed_as_torch_ops_device_ops=SEED_AS_TORCH_OPS_DEVICE_OPS,
-                fewer=SEED_AS_TORCH_OPS_DEVICE_OPS - prof[1])
+                chunks=json.dumps(paths),
+                ops_per_fast_chunk=json.dumps(
+                    [n for n, _ in by_path.get("fast", [])]),
+                ops_per_compaction=json.dumps(
+                    [n for n, _ in by_path.get("compaction", [])]),
+                device_ms_per_fast_chunk=json.dumps(
+                    [round(us / 1e3, 4) for _, us in by_path.get("fast", [])]),
+                device_ms_per_compaction=json.dumps(
+                    [round(us / 1e3, 4)
+                     for _, us in by_path.get("compaction", [])]),
+                attributed_ops=sum(n for n, _ in chunk_ops.values()))
         n_batches += 1
         audit_syncs(cs, config5_batch(rng, n_txn, v0 + n_batches * step),
                     v0 + n_batches * step, window)
@@ -1117,7 +1485,8 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         compactions=cs.compactions - comp0,
         fast_resolves=cs.fast_resolves - fast0)
     return launches, captured, steady, dict(p2_tap.captured,
-                                            launches=p2_launches)
+                                            launches=p2_launches), \
+        (b_tap.captured, b_tap.launches)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1840,7 +2209,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     cs = RecordingConflictSet(ConflictSetGPU(
         0, max_key_bytes=16, initial_capacity=capacity, device=device),
         replays.send)
-    with ProbeTap() as tap, Phase2Tap() as p2_tap:
+    with ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap:
         with loop_context(loop):
             cluster = LocalCluster(conflict_set=cs, device=device)
             win = CheckedWindow(cluster.storage.data)
@@ -1871,6 +2240,9 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
 
             ok, cyc, rw, c0, pipe = loop.run(main(), timeout_sim_seconds=1e6)
         loop.shutdown()
+    if card:
+        b_tap.check_launches("cluster", cs.cs.fast_resolves,
+                             cs.cs.fast_resolves + cs.cs.compactions)
     launches = tap.launches
     sync(dev)
     conflicts = cluster.resolver.conflict_transactions
@@ -2017,6 +2389,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     # phase 2 under each tier the rule picked, on its largest batch
     paths["cluster-resolver"]["phase2"] = {
         f"cluster-resolver-{t}": c for t, c in p2_tap.by_tier.items()}
+    paths["cluster-resolver"]["block"] = (b_tap.captured, b_tap.launches)
     return paths
 
 
@@ -2246,7 +2619,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                                initial_capacity=capacity, devices=devices)
     log_placement("sharded", cs)
     with StreamingReplays(boundaries=bounds) as replays, \
-            ProbeTap() as tap, Phase2Tap() as p2_tap:
+            ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap:
         got, entries, runs = [], [], []
         for li, leg in enumerate(legs):
             for v, oldest, arrays in leg:
@@ -2349,6 +2722,9 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
             sync_audit(leg_name, run["syncs"], run["known"], run["sites"])
     if runs[0]["fast"] <= 0:
         fail("sharded: the fast path never ran at the 8,192-txn batch")
+    if card:
+        b_tap.check_launches("sharded", S * cs.fast_resolves,
+                             S * (cs.fast_resolves + cs.compactions))
     if runs[0].get("profiled_path"):
         log("sharded-profiled-batch", path=runs[0]["profiled_path"],
             txns=n_txn)
@@ -2370,6 +2746,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
     paths = tap.paths(sharded="resolver")
     paths["sharded"]["phase2"] = {"sharded": dict(
         p2_cap, launches=sum(r["p2_launches"] for r in runs))}
+    paths["sharded"]["block"] = (b_tap.captured, b_tap.launches)
     return paths
 
 
@@ -5627,7 +6004,9 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
         ptxas=json.dumps(ptxas), ptxas_phase2=json.dumps(
-            _build.ptxas_summary(_build.BUILD_LOG.get("phase2", ""))))
+            _build.ptxas_summary(_build.BUILD_LOG.get("phase2", ""))),
+        ptxas_block=json.dumps(
+            _build.ptxas_summary(_build.BUILD_LOG.get("block", ""))))
     log("build", kernels=json.dumps(sorted(_build.SOURCES)),
         probe_nvcc_s=f"{build_s:.2f}",
         host_tier_gxx_s=f"{native_s['libfdbtpu_native']:.2f}",
@@ -5660,9 +6039,8 @@ def main() -> int:
     phase_narrow(rng)
     phase_wall("narrow")
     full_keep = {}
-    launches, cap, full_rate, p2_cap = phase_full(rng, card, smi,
-                                                  n_batches=FULL_BATCHES,
-                                                  keep=full_keep)
+    launches, cap, full_rate, p2_cap, (b_cap, b_launches) = phase_full(
+        rng, card, smi, n_batches=FULL_BATCHES, keep=full_keep)
     # The probe held against its plain version on the main path's
     # inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
@@ -5680,7 +6058,9 @@ def main() -> int:
     # Phase 2's kernel on [full]'s last chunk.
     kernels.append(phase2_entry("resolver", p2_cap, p2_cap["launches"],
                                 smi, P2_REPLACES["gpu"]))
-    del cap, h, f, q, p2_cap
+    # The block kernels on [full]'s last chunks.
+    kernels += block_entries("resolver", b_cap, b_launches, smi)
+    del cap, h, f, q, p2_cap, b_cap
     phase_wall("full")
     phase_native(full_keep, smi, card)
     phase_wall("native")
@@ -5722,12 +6102,17 @@ def main() -> int:
         paths = phase(rng, smi)
         p2_caps = {k: v for c in paths.values()
                    for k, v in c.pop("phase2", {}).items()}
+        b_caps = {k: c.pop("block") for k, c in paths.items()
+                  if "block" in c}
         kernels += probe_entries(paths, smi, base)
         # [cluster]'s last batch under each tier, [sharded]'s last step
         for path, c in p2_caps.items():
             kernels.append(phase2_entry(path, c, c["launches"], smi,
                                         P2_REPLACES["gpu"]))
-        del paths, p2_caps
+        # the block kernels on [cluster]'s and [sharded]'s last fast step
+        for path, (bc, bl) in b_caps.items():
+            kernels += block_entries(path, bc, bl, smi)
+        del paths, p2_caps, b_caps
         phase_wall(name)
     entries, rankfed_check = phase_rankfed(
         rng, smi, full_txns_per_s=full_rate, n_batches=RANKFED_BATCHES)

@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"probe": _PKG / "csrc" / "probe.cu",
-           "phase2": _PKG / "csrc" / "phase2.cu"}
+           "phase2": _PKG / "csrc" / "phase2.cu",
+           "block": _PKG / "csrc" / "block.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -14,7 +14,8 @@ tpu.py sites that need it:
   (tpu.py:601-614 `.at[N3]`/`.at[C]`, and the decode/phase-2 scatters).
   The in-place state scatters of the block kernel (`hmat.at[:, C]` :888,
   `counts.at[NB]` :890, `btree.at[2*NB]` :901/:907) redirect their pad
-  rows in gpu.py instead, so the resident state needs no dump column;
+  rows in block.py's plain version instead (its CUDA kernel skips them),
+  so the resident state needs no dump column;
 - gather clamping: JAX clamps an out-of-range gather index, torch faults;
   gpu.py clamps explicitly at every gather whose index is not in range
   by construction (the same sites where tpu.py clips);

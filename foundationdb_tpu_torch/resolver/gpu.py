@@ -10,11 +10,12 @@ tpu.py explains the algorithm and its invariants.
 
 What differs from the JAX package, and why:
 
-- Plain torch ops on explicit devices instead of jit-compiled XLA. The
-  JAX package left these functions to XLA (no Pallas), so they stay torch
-  ops here; the one Pallas kernel, the rank probe, is a hand-written CUDA
-  kernel (probe.py, csrc/probe.cu), called unconditionally by the block
-  kernel's rank stage.
+- Hand-written CUDA kernels where tpu.py has one compiled program: the
+  one Pallas kernel, the rank probe (probe.py, csrc/probe.cu), and the
+  block kernel's decode, phase 1 and phase 3 (block.py, csrc/block.cu;
+  the decode serves the dense kernel too), each one launch on CUDA
+  tensors. The dense and compaction kernels' other stages are plain
+  torch ops on explicit devices.
 - JAX/torch semantic differences (scan dtype, scatter drops, gather
   clamps, int32 wrap, int8 bytes) go through resolver/_ops.py.
 - The fast kernel updates the resident hmat/counts/btree IN PLACE where
@@ -49,23 +50,16 @@ from ..core.knobs import CLIENT_KNOBS, SERVER_KNOBS
 from ..device import resolve_device
 from ._ops import (
     I32,
-    I32_INF,
     _build_table,
-    _canonical_nodes_flat,
+    _canonical_nodes_flat,  # noqa: F401  (tpu.py's twin, for the tests)
     _table_range_query,
-    add_wrap_i32,
     cumsum32,
-    dump_index,
-    int8_twos,
-    le_bytes,
     scatter_cols_new,
     scatter_new,
 )
 from .packing import (
     BIAS,
     INT32_MAX,
-    MODE_EXPLICIT,
-    MODE_INCREMENT,
     PAD_WORD,
     FusedLayout,
     KeyWidthError,
@@ -81,9 +75,10 @@ from .packing import (
     unpack_key,
     widen_state,
 )
-from . import phase2
+from . import block, phase2
+from .block import _arange, _pad_col
 from .probe import probe_ranks
-from .types import COMMITTED, CONFLICT, TOO_OLD, ConflictBatchResult, TxnConflictInfo
+from .types import ConflictBatchResult, TxnConflictInfo
 
 P2_SYNCS = 0  # host reads of phase 2's plain version (CPU tensors only)
 
@@ -91,20 +86,6 @@ P2_SYNCS = 0  # host reads of phase 2's plain version (CPU tensors only)
 # group. Most batches settle in the first verification round (the pointer-
 # jumping seed is exact on pure chains), so the groups start small and grow.
 _P2_GROUPS = (1, 2, 4, 8)
-
-
-def _arange(n: int, dev) -> torch.Tensor:
-    return torch.arange(n, dtype=I32, device=dev)
-
-
-def _pad_col(W: int, dev, with_value: bool = True) -> torch.Tensor:
-    """One pad state column: +inf key words and length (and version 0).
-    Built by device fills: a tensor made from host data would be a
-    blocking copy, i.e. a host sync."""
-    col = torch.full((W + 1,), I32_INF, dtype=I32, device=dev)
-    if not with_value:
-        return col
-    return torch.cat([col, torch.zeros(1, dtype=I32, device=dev)])
 
 
 def _lex_lt_eq(h, q, or_equal: bool = False):
@@ -135,100 +116,6 @@ def _lower_rank(hkeys, qmat):
     return pos
 
 
-def _decode_fused(fused, *, lay: FusedLayout):
-    """Unpack + decode the compact fused buffer (packing.FusedLayout):
-    sorted endpoint matrix, per-row txn ids/snapshots, write validity and
-    the scalars (0-d tensors). Shared by the dense and block kernels."""
-    W = lay.n_words
-    P2, R, Wr, T = lay.P2, lay.R, lay.Wr, lay.T
-    dev = fused.device
-    W1 = W + 1
-
-    def sl(off, size):
-        return fused[off: off + size]
-
-    rbk = sl(lay.off_rb, W1 * R).reshape(W1, R)
-    wbk = sl(lay.off_wb, W1 * Wr).reshape(W1, Wr)
-    q_begin = sl(lay.off_q_begin, R)
-    q_end = sl(lay.off_q_end, R)
-    s_begin = sl(lay.off_s_begin, Wr)
-    s_end = sl(lay.off_s_end, Wr)
-    tmeta = sl(lay.off_tmeta, T)
-    tsnap = sl(lay.off_tsnap, T)
-    version = fused[lay.off_scalars]
-    oldest_eff = fused[lay.off_scalars + 1]
-    nr = fused[lay.off_scalars + 2]
-    nw = fused[lay.off_scalars + 3]
-
-    def decode_cols(bk, ext, n_ext):
-        """(begin, end) key columns (W1, count) of one row segment: pad
-        sentinel -> +inf keys; ends derived per the mode bits (keyAfter /
-        integer increment / explicit side table)."""
-        count = bk.shape[1]
-        lenf = bk[W]
-        ln = lenf & 0x3FFF
-        mode = lenf >> 14
-        is_pad = ln == 0x3FFF
-        bcol = torch.cat([bk[:W], torch.where(is_pad, I32_INF, ln)[None]], 0)
-        # Integer increment: +1 with carry from the last word (biased int32
-        # wraps exactly like the raw unsigned word; the wrap is explicit).
-        # The carry into word j: every word after it is all ones.
-        ones = torch.flip(torch.cumprod(
-            torch.flip((bk[1:W] == I32_INF).to(I32), [0]), 0), [0])
-        carry_in = torch.cat(
-            [ones, torch.ones((1, count), dtype=I32, device=dev)], 0)
-        inc = add_wrap_i32(bk[:W], carry_in)
-        is_inc = (mode == MODE_INCREMENT)[None, :]
-        ewords = torch.where(is_inc, inc, bk[:W])
-        elen = torch.where(mode == MODE_INCREMENT, ln, ln + 1)
-        if n_ext:
-            is_ex = mode == MODE_EXPLICIT
-            ex = is_ex.to(I32)
-            eidx = cumsum32(ex) - ex
-            ecols = ext[:, torch.clamp(eidx, 0, n_ext - 1)]
-            ewords = torch.where(is_ex[None, :], ecols[:W], ewords)
-            elen = torch.where(is_ex, ecols[W] & 0x3FFF, elen)
-        ecol = torch.cat(
-            [
-                torch.where(is_pad[None, :], int(PAD_WORD), ewords),
-                torch.where(is_pad, I32_INF, elen)[None],
-            ],
-            0,
-        )
-        return bcol, ecol
-
-    re_ext = sl(lay.off_re_ext, W1 * lay.Er).reshape(W1, lay.Er) if lay.Er else None
-    we_ext = sl(lay.off_we_ext, W1 * lay.Ew).reshape(W1, lay.Ew) if lay.Ew else None
-    rb_col, re_col = decode_cols(rbk, re_ext, lay.Er)
-    wb_col, we_col = decode_cols(wbk, we_ext, lay.Ew)
-
-    # Sorted endpoint matrix: every sorted slot holds exactly one endpoint
-    # (pads included), so four column scatters rebuild it.
-    smat = _pad_col(W, dev, with_value=False)[:, None].expand(W1, P2 + 1).clone()
-    for pos, col in ((q_begin, rb_col), (q_end, re_col),
-                     (s_begin, wb_col), (s_end, we_col)):
-        smat.index_copy_(1, dump_index(pos, P2), col)
-    smat = smat[:, :P2].contiguous()
-
-    # Per-row txn ids from per-txn counts; rows outside the live prefix
-    # resolve to harmless values (snapshot +inf, validity False).
-    rcount = tmeta & 0x7FFF
-    wcount = (tmeta >> 15) & 0x7FFF
-    too_old = ((tmeta >> 30) & 1).to(torch.bool)
-
-    def row_txn(counts, size):
-        starts = cumsum32(counts) - counts
-        marks = scatter_new(size + 1, 0, starts, 1, "add")
-        return torch.clamp(cumsum32(marks[:size]) - 1, 0, T - 1)
-
-    rtxn = row_txn(rcount, R)
-    wtxn = row_txn(wcount, Wr)
-    rsnap = torch.where(_arange(R, dev) < nr, tsnap[rtxn], I32_INF)
-    w_valid = _arange(Wr, dev) < nw
-    return (smat, q_begin, q_end, s_begin, s_end, rtxn, rsnap, wtxn,
-            w_valid, too_old, version, oldest_eff, nr, nw)
-
-
 def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
                         rtxn, wtxn, w_valid, T, Wr, P2):
     """Intra-batch fixed point (checkIntraBatchConflicts): the geometry
@@ -255,19 +142,6 @@ def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
     return conflict, it
 
 
-def _st_aux(too_old, conflict, n_out, overflow, p2_iters):
-    """The one verdict readback array: statuses ++ 4 LE bytes of n ++
-    overflow ++ clamped phase-2 round count (tpu.py:631-650)."""
-    statuses = torch.where(
-        too_old, TOO_OLD, torch.where(conflict > 0, CONFLICT, COMMITTED)
-    ).to(torch.int8)
-    return torch.cat([
-        statuses, le_bytes(n_out),
-        overflow.to(torch.int8).reshape(1),
-        int8_twos(torch.clamp(p2_iters, max=127)).reshape(1),
-    ])
-
-
 def _resolve_kernel_impl(hmat, n, fused, *, lay: FusedLayout):
     """One DENSE resolve step (full-history merge; the amortized compaction
     pass). hmat: (W+2, C) int32 state [words.., len, version]; n: live
@@ -279,7 +153,8 @@ def _resolve_kernel_impl(hmat, n, fused, *, lay: FusedLayout):
     dev = hmat.device
 
     (smat, q_begin, q_end, s_begin, s_end, rtxn, rsnap, wtxn, w_valid,
-     too_old, version, oldest_eff, nr, nw) = _decode_fused(fused, lay=lay)
+     too_old, version, oldest_eff, nr, nw) = block.decode_fused(
+         fused, lay=lay)
 
     hkeys = hmat[: W + 1]
     hv = hmat[W + 1]
@@ -411,7 +286,8 @@ def _resolve_kernel_impl(hmat, n, fused, *, lay: FusedLayout):
     hmat_out = torch.cat([keys_out, hv_out[None, :]], dim=0)
 
     overflow = new_n > C
-    return hmat_out, new_n, _st_aux(too_old, conflict, new_n, overflow, p2_iters)
+    return hmat_out, new_n, block.st_aux_ref(too_old, conflict, new_n,
+                                              overflow, p2_iters)
 
 
 def _block_probe(hkeys, qmat, start, B: int):
@@ -439,183 +315,44 @@ def _fence_rank(fences, qmat):
 
 def _resolve_block_kernel_impl(hmat, counts, btree, fences, n, fused, *,
                                lay: FusedLayout, K: int, NB: int, B: int):
-    """Batch-scaled resolve over the block-sparse state (tpu.py:690): ranks
-    by the probe, phase 1 via in-block gathers and the block-max segment
-    tree, phase 2 shared with the dense kernel, phase 3 a superset merge
-    confined to the K gathered (touched) blocks.
+    """Batch-scaled resolve over the block-sparse state (tpu.py:690): the
+    decode, the rank probe, phase 1 via in-block gathers and the
+    block-max segment tree, phase 2 shared with the dense kernel, phase 3
+    a superset merge confined to the K gathered (touched) blocks. On the
+    card five kernel launches (block.py's decode, phase 1 and phase 3,
+    probe.py's probe, phase2.py's rounds) and phase 2's geometry ops.
 
     hmat, counts and btree are updated IN PLACE (JAX donated them) and
     returned; returns (hmat, counts, btree, n', st_aux)."""
     W = lay.n_words
-    C = NB * B
-    R, T = lay.R, lay.T
-    P2, Wr = lay.P2, lay.Wr
-    M = 2 * Wr
-    dev = hmat.device
-
     (smat, q_begin, q_end, s_begin, s_end, rtxn, rsnap, wtxn, w_valid,
-     too_old, version, _oldest_eff, nr, nw) = _decode_fused(fused, lay=lay)
+     too_old, version, _oldest_eff, nr, nw) = block.decode_fused(
+         fused, lay=lay)
     g_ids = fused[lay.total: lay.total + K]
     n_g = fused[lay.total + K]
 
-    hkeys = hmat[: W + 1]
-    hv = hmat[W + 1]
-
     # ---- block ranks for every sorted endpoint: the probe kernel ----
-    bid, lb_loc, eq_loc = probe_ranks(hkeys, fences, smat, NB=NB, B=B)
-    ub_loc = lb_loc + eq_loc                              # #block entries <= key
+    bid, lb_loc, eq_loc = probe_ranks(hmat[: W + 1], fences, smat, NB=NB, B=B)
 
     # ============ Phase 1: read-vs-history ============
-    rb_bid = bid[q_begin]
-    rb_ub = ub_loc[q_begin]
-    re_bid = bid[q_end]
-    re_lb = lb_loc[q_end]
-    same_blk = rb_bid == re_bid
-    cols = _arange(B, dev)[None, :]
-    rowsA = hv[torch.clamp(rb_bid[:, None] * B + cols, 0, C - 1)]
-    hiA = torch.where(same_blk, re_lb, B)
-    mA = torch.where(
-        (cols >= (rb_ub - 1)[:, None]) & (cols < hiA[:, None]), rowsA, 0
-    ).amax(dim=1)
-    rowsC = hv[torch.clamp(re_bid[:, None] * B + cols, 0, C - 1)]
-    hiC = torch.where(same_blk, 0, re_lb)
-    mC = torch.where(cols < hiC[:, None], rowsC, 0).amax(dim=1)
-    nodes, n_seg = _canonical_nodes_flat(
-        torch.minimum(rb_bid + 1, re_bid), re_bid, NB
-    )
-    mB = btree[nodes].reshape(n_seg, R).amax(dim=0)       # btree[0] == 0
-    hist_max = torch.maximum(torch.maximum(mA, mB), mC)
-    read_conf = (hist_max > rsnap).to(I32)
-    hist_conf = scatter_new(T, 0, rtxn, read_conf, "max")
-    base_conf = torch.maximum(hist_conf, too_old.to(I32))
+    base_conf = block.phase1(hmat[W + 1], btree, bid, lb_loc, eq_loc,
+                             q_begin, q_end, rsnap, rtxn, too_old, NB=NB, B=B)
 
     # ============ Phase 2: intra-batch fixed point (shared) ============
     conflict, p2_iters = _phase2_fixed_point(
         base_conf, smat=smat, q_begin=q_begin, q_end=q_end,
         s_begin=s_begin, s_end=s_end, rtxn=rtxn, wtxn=wtxn,
-        w_valid=w_valid, T=T, Wr=Wr, P2=P2,
+        w_valid=w_valid, T=lay.T, Wr=lay.Wr, P2=lay.P2,
     )
 
     # ============ Phase 3: touched-block superset merge ============
-    committed_w = w_valid & (conflict[wtxn] == 0)
-    is_w = scatter_new(P2, 0, torch.cat([s_begin, s_end]), 1, "set")
-    w_rank = cumsum32(is_w) - is_w
-    cw = committed_w.to(I32)
-    packed_ep = scatter_new(
-        M, 0, torch.cat([w_rank[s_begin], w_rank[s_end]]),
-        torch.cat([(s_begin << 2) + 2 + cw, (s_end << 2) + cw]), "set",
-    )
-    sidx = packed_ep >> 2
-    is_begin_c = (packed_ep >> 1) & 1
-    committed_c = packed_ep & 1
-    real_ep = _arange(M, dev) < 2 * nw
-    kw_c = smat[:, sidx]
-    zero1 = torch.zeros(1, dtype=torch.bool, device=dev)
-    same_w = torch.cat([zero1, (kw_c[:, 1:] == kw_c[:, :-1]).all(dim=0)])
-    bid_c = bid[sidx]
-    ub_c = ub_loc[sidx]
-    eq_c = eq_loc[sidx].to(torch.bool)
-    gidx = torch.searchsorted(g_ids, bid_c, out_int32=True)
-    gidx = torch.where(real_ep, gidx, K)
-    gidx_c = torch.clamp(gidx, 0, K - 1)
-
-    # Novel-key inserts consume slots; equal-key endpoints overwrite.
-    insert_c = real_ep & (~eq_c) & (~same_w)
-    ins_i32 = insert_c.to(I32)
-    ins_per_blk = scatter_new(K + 1, 0, gidx, ins_i32, "add")[:K]
-    ins_start = cumsum32(ins_per_blk) - ins_per_blk
-    ins_le_loc = cumsum32(ins_i32) - ins_start[gidx_c]
-    delta_pos = ub_c + ins_le_loc - 1
-    flatKB = K * B
-    mpos = torch.where(real_ep, gidx_c * B + delta_pos, flatKB)
-
-    # Gather the touched blocks.
-    gv = _arange(K, dev) < n_g
-    g_clip = torch.clamp(g_ids, 0, NB - 1)
-    j = _arange(B, dev)[None, :]
-    gcol = (g_clip[:, None] * B + j).reshape(-1)
-    blk = hmat[:, gcol]                                   # (W+2, K*B)
-    nblk = torch.where(gv, counts[g_clip], 0)             # (K,)
-
-    # History shift: entry i of gathered block g moves to i + #inserts with
-    # in-block rank <= i.
-    cnt2 = scatter_new(
-        flatKB + 1, 0, torch.where(insert_c, gidx_c * B + ub_c, flatKB), 1, "add"
-    )[:flatKB].reshape(K, B)
-    shift = cumsum32(cnt2, dim=1)
-    live_h = j < nblk[:, None]
-    dest_h = torch.where(
-        live_h, _arange(K, dev)[:, None] * B + j + shift, flatKB
-    ).reshape(-1)
-
-    # Merged blocks, (W+2, flatKB) plus the discard column flatKB.
-    mer = _pad_col(W, dev)[:, None].expand(W + 2, flatKB + 1).clone()
-    mer.index_copy_(1, dump_index(dest_h, flatKB), blk)
-    # Inserted endpoints: keys from the sorted endpoint matrix, value = the
-    # pre-merge in-block predecessor (the step function at the key).
-    pred_v = blk[W + 1][torch.clamp(gidx_c * B + ub_c - 1, 0, flatKB - 1)]
-    dest_e = torch.where(insert_c, mpos, flatKB)
-    mer.index_copy_(1, dump_index(dest_e, flatKB),
-                    torch.cat([kw_c, pred_v[None, :]], dim=0))
-    mer = mer[:, :flatKB]
-
-    # Coverage depth over the merged order (+1 committed begins, -1 ends).
-    delta = torch.where(
-        real_ep & (committed_c == 1), torch.where(is_begin_c == 1, 1, -1), 0
-    ).to(I32)
-    dsum_blk = scatter_new(K + 1, 0, gidx, delta, "add")[:K]
-    depth_in = cumsum32(dsum_blk) - dsum_blk
-    d2 = scatter_new(flatKB + 1, 0, mpos, delta, "add")[:flatKB].reshape(K, B)
-    depth = depth_in[:, None] + cumsum32(d2, dim=1)
-    live2 = torch.zeros(flatKB + 1, dtype=torch.bool, device=dev)
-    true_ = torch.ones(1, dtype=torch.bool, device=dev)
-    live2.index_copy_(0, dump_index(dest_h, flatKB), true_.expand(dest_h.shape[0]))
-    live2.index_copy_(0, dump_index(dest_e, flatKB), true_.expand(dest_e.shape[0]))
-    live2 = live2[:flatKB].reshape(K, B)
-    val2 = torch.where(live2 & (depth > 0), version, mer[W + 1].reshape(K, B))
-
-    # Scatter the rewritten blocks back IN PLACE. JAX drops the pad rows
-    # (beyond n_g) at column C; here they rewrite a block no real row
-    # touches with its own current contents, so the resident state needs
-    # no dump column. The first index where g_ids stops being 0, 1, 2, ...
-    # is such a block (g_ids is sorted and unique over its n_g real rows;
-    # with no pad rows the choice is unused).
-    out = torch.cat([mer[: W + 1], val2.reshape(1, -1)], dim=0)
-    idx_k = _arange(K, dev)
-    # (free_b stays a tensor: indexing with a 0-d tensor would read it on
-    # the host.)
-    free_b = torch.where((g_ids != idx_k) | ~gv, idx_k, K).amin().clamp(max=NB - 1)
-    dest_blk = torch.where(gv, g_clip, free_b)
-    dest_cols = (dest_blk[:, None] * B + j).reshape(-1).to(torch.int64)
-    keep = hmat[:, free_b * B + j[0]].repeat(1, K)
-    gv_cols = gv[:, None].expand(K, B).reshape(1, -1)
-    hmat.index_copy_(1, dest_cols, torch.where(gv_cols, out, keep))
-    counts_new_g = torch.where(gv, nblk + ins_per_blk, 0)
-    counts.index_copy_(0, dest_blk.to(torch.int64),
-                       torch.where(gv, counts_new_g, counts[free_b.reshape(1)]))
-    # A block needs a pad column for the in-block probe; the host's
-    # pessimistic fill bound makes this dead, but the kernel reports it.
-    overflow = (counts_new_g > B - 1).any()
-    n_out = n + ins_per_blk.sum(dtype=I32)
-
-    # Segment-tree maintenance: new leaf max per touched block, then the
-    # logNB ancestor paths (duplicate parents write identical values). Pad
-    # rows write node 0 (never a real node) with its own value, where JAX
-    # drops them at 2*NB.
-    b0 = btree[0]
-    blkmax = torch.where(live2, val2, 0).amax(dim=1)
-    cur = torch.where(gv, NB + g_clip, 0)
-    btree.index_copy_(0, cur.to(torch.int64), torch.where(gv, blkmax, b0))
-    for _ in range(NB.bit_length() - 1):
-        cur = torch.where(gv, cur >> 1, 0)
-        lch = btree[torch.clamp(2 * cur, 0, 2 * NB - 1)]
-        rch = btree[torch.clamp(2 * cur + 1, 0, 2 * NB - 1)]
-        btree.index_copy_(0, cur.to(torch.int64),
-                          torch.where(gv, torch.maximum(lch, rch), b0))
-
-    return hmat, counts, btree, n_out, _st_aux(
-        too_old, conflict, n_out, overflow, p2_iters
-    )
+    n_out, st_aux = block.phase3(
+        hmat, counts, btree, n, smat=smat, s_begin=s_begin, s_end=s_end,
+        wtxn=wtxn, w_valid=w_valid, nw=nw, conflict=conflict,
+        too_old=too_old, p2_iters=p2_iters, bid=bid, lb_loc=lb_loc,
+        eq_loc=eq_loc, g_ids=g_ids, n_g=n_g, version=version, K=K, NB=NB,
+        B=B)
+    return hmat, counts, btree, n_out, st_aux
 
 
 def _compact_resolve_impl(hmat, counts, fused, *, lay: FusedLayout,

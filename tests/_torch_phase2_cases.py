@@ -4,7 +4,7 @@ tests/test_torch_phase2_card.py on a CUDA card against the plain version).
 
 A case is a raw batch [(snapshot, reads, writes)] of 8-byte keys. It goes
 through the port's own packers: gpu.py's FusedLayout buffer, decoded by
-gpu._decode_fused, for the block/dense kernels' phase 2, and a
+block.decode_fused, for the block/dense kernels' phase 2, and a
 ConflictSetRankFed's RankLayout buffer for the rank-fed set's. Nothing
 here imports JAX.
 """
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from foundationdb_tpu_torch.kv.keys import KeyRange
-from foundationdb_tpu_torch.resolver import gpu
+from foundationdb_tpu_torch.resolver import block
 from foundationdb_tpu_torch.resolver import packing
 from foundationdb_tpu_torch.resolver import rankfed
 from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
@@ -94,7 +94,7 @@ def gpu_operands(raw, caps=None):
     decoded from the port's fused buffer), statics T, Wr, P2."""
     pb = packing.pack_batch(txns(raw), 0, N_WORDS, caps=caps)
     lay = pb.layout
-    dec = gpu._decode_fused(torch.from_numpy(pb.buf), lay=lay)
+    dec = block.decode_fused(torch.from_numpy(pb.buf), lay=lay)
     names = ("q_begin", "q_end", "s_begin", "s_end", "rtxn", None, "wtxn",
              "w_valid")
     arrays = {n: dec[i + 1] for i, n in enumerate(names) if n}

@@ -23,6 +23,7 @@ from foundationdb_tpu.resolver import packing as jpack
 from foundationdb_tpu.resolver import tpu as jtpu
 from foundationdb_tpu.resolver.types import TxnConflictInfo as JTxn
 from foundationdb_tpu_torch.kv.keys import KeyRange as PKeyRange
+from foundationdb_tpu_torch.resolver import block
 from foundationdb_tpu_torch.resolver import gpu
 from foundationdb_tpu_torch.resolver import packing as ppack
 from foundationdb_tpu_torch.resolver.types import TxnConflictInfo as PTxn
@@ -155,7 +156,7 @@ def test_decode_fused(seed):
     pb = packed(raw_batch(rng, 40, v + 100), cs.oldest_version)
     pb.set_scalars(123, 45)
     want = jax_decode(pb.layout.key())(jnp.asarray(pb.buf))
-    got = gpu._decode_fused(torch.from_numpy(pb.buf), lay=pb.layout)
+    got = block.decode_fused(torch.from_numpy(pb.buf), lay=pb.layout)
     assert len(got) == len(want) == 14
     for g, w in zip(got, want):
         eq(g, w)
@@ -166,7 +167,7 @@ def test_phase2_fixed_point(seed):
     cs, rng, v = grown_state(seed)
     pb = packed(raw_batch(rng, 25, v + 100, chain=12), cs.oldest_version)
     lay = pb.layout
-    dec = gpu._decode_fused(torch.from_numpy(pb.buf), lay=lay)
+    dec = block.decode_fused(torch.from_numpy(pb.buf), lay=lay)
     base = (rng.random(lay.T) < 0.1).astype(np.int32)
     kw = dict(q_begin=1, q_end=2, s_begin=3, s_end=4, rtxn=5, wtxn=7,
               w_valid=8)
@@ -255,7 +256,7 @@ def test_rank_and_table_helpers():
     cs, rng, v = grown_state(5)
     dense, m = dense_state(cs)
     pb = packed(raw_batch(rng, 30, v + 100), cs.oldest_version)
-    smat = gpu._decode_fused(torch.from_numpy(pb.buf), lay=pb.layout)[0]
+    smat = block.decode_fused(torch.from_numpy(pb.buf), lay=pb.layout)[0]
     W1 = N_WORDS + 1
     hk, q = dense[:W1], smat.numpy()
     eq(gpu._lower_rank(torch.from_numpy(hk), smat),

@@ -27,7 +27,9 @@ device=...)`, a copy from pageable memory) may stand only in
 sharded.py calls the kernels of gpu.py, so its analysis sees gpu.py's
 functions too, its own taking precedence where a name is in both; the
 three resolver modules see resolver/phase2.py, where phase 2's rounds
-are.
+are, and gpu.py and sharded.py see resolver/block.py, where the block
+kernel's decode, phase 1 and phase 3 are: on a CUDA tensor each launches
+its kernel with no host sync and never reaches its plain version.
 """
 
 import ast
@@ -43,14 +45,15 @@ MODULES = {
         "consume": {"verdicts"},
         "departures": {"phase2_rounds_ref", "_refresh_mirror",
                        "_grow_width"},
-        "sees": ("resolver/phase2.py",),
+        "sees": ("resolver/phase2.py", "resolver/block.py"),
     },
     "resolver/sharded.py": {
         "dispatch": {"submit"},
         "consume": {"verdicts"},
         "departures": {"phase2_rounds_ref", "_refresh_mirror",
                        "_grow_width"},
-        "sees": ("resolver/phase2.py", "resolver/gpu.py"),
+        "sees": ("resolver/phase2.py", "resolver/block.py",
+                 "resolver/gpu.py"),
     },
     "storage_engine/gpu_engine.py": {
         "dispatch": {"submit_reads"},
@@ -129,7 +132,9 @@ def analyse(rel):
     spec = MODULES[rel]
     fns = {}
     for other in spec.get("sees", ()):
-        fns.update(functions(ast.parse((ROOT / other).read_text(), other)))
+        seen = functions(ast.parse((ROOT / other).read_text(), other))
+        for name, defs in seen.items():
+            fns.setdefault(name, []).extend(defs)
     fns.update(functions(ast.parse((ROOT / rel).read_text(), rel)))
     reach = closure(spec["dispatch"], fns)
     sinks = closure(spec["consume"], fns)
@@ -203,6 +208,39 @@ def test_phase2_cuda_branch_never_reaches_the_plain_version(rel):
              and isinstance(n.func, ast.Name)
              and n.func.id == "phase2_rounds_ref"]
     assert calls and all(id(c) in guarded for c in calls)
+
+
+def cpu_guarded_calls(fn, callee):
+    """(every call of `callee` in fn, those under an `if` whose test
+    names "cpu")."""
+    guarded = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.If) and any(
+                isinstance(c, ast.Constant) and c.value == "cpu"
+                for c in ast.walk(node.test)):
+            guarded |= {id(n) for stmt in node.body for n in ast.walk(stmt)}
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == callee]
+    return calls, [c for c in calls if id(c) in guarded]
+
+
+@pytest.mark.parametrize("rel", ["resolver/gpu.py", "resolver/sharded.py"])
+@pytest.mark.parametrize("kernel", ["decode_fused", "phase1", "phase3"])
+def test_block_cuda_branch_never_reaches_the_plain_version(rel, kernel):
+    """On a CUDA tensor block.py's dispatcher launches the kernel: the
+    launch's path makes no host sync and never calls a plain version
+    (`*_ref`), and the dispatcher calls its plain version only under its
+    CPU test."""
+    _, fns, reach, _ = analyse(rel)
+    launch = f"{kernel}_launch"
+    assert {kernel, launch} <= reach
+    cuda = closure({launch}, fns)
+    assert not [name for name in cuda if name.endswith("_ref")]
+    assert not [t for name in cuda for fn in fns[name]
+                for _, t in sync_calls(fn)]
+    (fn,) = fns[kernel]
+    calls, guarded = cpu_guarded_calls(fn, f"{kernel}_ref")
+    assert calls and calls == guarded
 
 
 def test_rankfed_gc_round_reads_the_version_vector_once():
