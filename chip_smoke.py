@@ -246,7 +246,12 @@ count the phase-2 kernel's launches (at least one per chunk, shard step
 or batch). [full], [sharded] and [cluster] count the block kernels'
 launches (csrc/block.cu: decode one per dispatch, phase 1 and phase 3
 one per fast step or shard step) and keep their last operands, on which
-each is held bit-exact against its plain version and timed.
+each is held bit-exact against its plain version and timed. They also
+count the compaction kernels' launches (csrc/compact.cu: densify, ranks,
+dense_phase3 and redistribute, one each per compaction or shard step of
+one) and keep their last compaction's operands, on which each is held
+bit-exact against its plain version, timed and bounded
+(`[compact-<kernel>-<path>]`).
 
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
@@ -263,7 +268,9 @@ each tier the rule picked there, one both tiers can run where there is
 one (cluster-resolver-block, cluster-resolver-grid), each with its tier and the other tier's time
 where the shape fits it (ab_ms); the block kernels decode_fused, phase1
 and phase3 on [full]'s (resolver), [sharded]'s and [cluster]'s
-(cluster-resolver) last operands; and the rank-fed kernel,
+(cluster-resolver) last operands; the compaction kernels densify, ranks,
+dense_phase3 and redistribute on the same three paths' last compactions;
+and the rank-fed kernel,
 route "torch"), the
 card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
@@ -1088,6 +1095,268 @@ def _block_shape(kernel: str, cap: dict) -> dict:
             "W1": kw["smat"].shape[0]}
 
 
+# The compaction kernels (csrc/compact.cu): what each replaces in tpu.py.
+COMPACT_REPLACES = {
+    "densify": "foundationdb_tpu/resolver/tpu.py:947",
+    "ranks": "foundationdb_tpu/resolver/tpu.py:457",
+    "dense_phase3": "foundationdb_tpu/resolver/tpu.py:481",
+    "redistribute": "foundationdb_tpu/resolver/tpu.py:978",
+}
+# A [full-profile] batch's device ops, and one compaction's, with the
+# compaction as torch ops around the decode and phase 2 (H100 80GB
+# HBM3, 700 W; PERF.md)
+TORCH_COMPACTION_DEVICE_OPS = 3_520
+TORCH_COMPACTION_OPS_PER_COMPACTION = "836-840"
+
+
+class CompactTap:
+    """The compaction kernels (resolver/compact.py, csrc/compact.cu on the
+    card) while the block is open: their launches counted by the wrappers
+    (compact.LAUNCHES, reset on entry), and the operands of the last
+    compaction on the card kept for compact_entries, by reference (every
+    operand is fresh per compaction and never written after) but
+    redistribute's st_aux, which it raises in place: cloned before the
+    call."""
+
+    device_types = ("cuda",)   # where a call's operands are kept
+    KERNELS = ("densify", "ranks", "dense_phase3", "redistribute")
+
+    def __init__(self):
+        self.captured = {}
+
+    def __enter__(self) -> "CompactTap":
+        from foundationdb_tpu_torch.resolver import compact
+
+        self._real = real = tuple(getattr(compact, k) for k in self.KERNELS)
+        for k in compact.LAUNCHES:
+            compact.LAUNCHES[k] = 0
+        keep = self.device_types
+
+        def densify(hmat, counts, *, B):
+            if hmat.device.type in keep:
+                self.captured["densify"] = dict(args=(hmat, counts), B=B)
+            return real[0](hmat, counts, B=B)
+
+        def ranks(*args):
+            if args[0].device.type in keep:
+                self.captured["ranks"] = dict(args=args)
+            return real[1](*args)
+
+        def dense_phase3(hmat, n, **kw):
+            if hmat.device.type in keep:
+                self.captured["dense_phase3"] = dict(args=(hmat, n), kw=kw)
+            return real[2](hmat, n, **kw)
+
+        def redistribute(hmat_d, new_n, st_aux, *, NB_out, B):
+            if hmat_d.device.type in keep:
+                self.captured["redistribute"] = dict(
+                    args=(hmat_d, new_n, st_aux.clone()), NB_out=NB_out, B=B)
+            return real[3](hmat_d, new_n, st_aux, NB_out=NB_out, B=B)
+
+        for k, f in zip(self.KERNELS, (densify, ranks, dense_phase3,
+                                       redistribute)):
+            setattr(compact, k, f)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from foundationdb_tpu_torch.resolver import compact
+
+        self.launches = dict(compact.LAUNCHES)
+        for k, f in zip(self.KERNELS, self._real):
+            setattr(compact, k, f)
+
+    def check_launches(self, name: str, compactions: int) -> None:
+        """One launch of each compaction kernel per compaction (per shard
+        step of one), or fail."""
+        want = {k: compactions for k in self.KERNELS}
+        if self.launches != want:
+            fail(f"{name}: compaction kernel launches {self.launches}, "
+                 f"{want} expected ({compactions} compactions)")
+
+
+def compact_run(kernel: str, cap: dict, plain: bool = False):
+    """One call of a compaction kernel (or its plain version) on the
+    captured operands; redistribute on a copy of its st_aux, which it
+    returns after its outputs."""
+    from foundationdb_tpu_torch.resolver import compact
+
+    if kernel == "densify":
+        fn = compact.densify_ref if plain else compact.densify_launch
+        return fn(*cap["args"], B=cap["B"])
+    if kernel == "ranks":
+        if plain:
+            return compact.ranks_ref(*cap["args"])
+        return compact.ranks_launch(dict(zip(compact.RANKS_OPERANDS,
+                                             cap["args"])))
+    if kernel == "dense_phase3":
+        hmat, n = cap["args"]
+        if plain:
+            return compact.dense_phase3_ref(hmat, n, **cap["kw"])
+        return compact.dense_phase3_launch(dict(zip(
+            compact.DENSE_PHASE3_OPERANDS,
+            (hmat, n, *(cap["kw"][k]
+                        for k in compact.DENSE_PHASE3_OPERANDS[2:])))))
+    hmat_d, new_n, st_aux = cap["args"]
+    st = st_aux.clone()
+    fn = compact.redistribute_ref if plain else compact.redistribute_launch
+    return (*fn(hmat_d, new_n, st, NB_out=cap["NB_out"], B=cap["B"]), st)
+
+
+def compact_timer(kernel: str, cap: dict, plain: bool = False):
+    """One call of the kernel (or its plain version) on the captured
+    operands for device_ms. redistribute raises one byte of st_aux in
+    place, which is the same after every call: it runs on one copy made
+    here, outside the timed calls."""
+    if kernel != "redistribute":
+        return lambda: compact_run(kernel, cap, plain)
+    from foundationdb_tpu_torch.resolver import compact
+
+    hmat_d, new_n, st_aux = cap["args"]
+    st = st_aux.clone()
+    fn = compact.redistribute_ref if plain else compact.redistribute_launch
+    return lambda: fn(hmat_d, new_n, st, NB_out=cap["NB_out"], B=cap["B"])
+
+
+def compact_bound(kernel: str, cap: dict) -> tuple[float, str]:
+    """Least ms for the kernel's work on this card, the larger of its
+    bytes over the memory rate and its integer operations over the
+    card's 32-bit rate, each counted for this run's data (each input
+    read once, each output written once). densify: the live columns in
+    (W + 2 rows a column) and the counts, the dense state out; ops one
+    compare a key word of each dense column. ranks: the endpoint matrix,
+    the reads' four operands and too_old in, ub, eq and base_conf out,
+    the distinct history columns at the endpoints' lower ranks (W + 1
+    words each) and the distinct version slots of the reads' windows;
+    ops the walk's compares (W + 1 words a step, log2 C steps an
+    endpoint). dense_phase3: the n live columns, the write endpoints'
+    key columns, positions, txns, validity, ranks and eq, the conflict
+    and too_old vectors in, the dense state and st_aux out; ops five
+    counts per merged slot (C + 2 Wr). redistribute: the min(new_n, C)
+    live columns in, the block state, counts, tree and fences out; ops a
+    word per output column row."""
+    import torch
+    from foundationdb_tpu_torch.resolver._ops import _lower_rank
+
+    if kernel == "densify":
+        hmat, counts = cap["args"]
+        W2, C = hmat.shape
+        m = int(counts.sum())
+        nbytes = 4 * W2 * m + 4 * counts.shape[0] + 4 * W2 * C + 4
+        ops = (W2 - 1) * C
+    elif kernel == "ranks":
+        hmat, smat, qb, qe, rsnap, rtxn, too_old = cap["args"]
+        W1, P2 = smat.shape
+        C = hmat.shape[1]
+        R, T = qb.shape[0], too_old.shape[0]
+        lb = _lower_rank(hmat[:W1], smat)
+        cols = torch.unique(torch.clamp(lb, 0, C - 1)).numel()
+        ub = compact_run("ranks", cap, plain=True)[0]
+        lo = torch.clamp(ub[qb.long()] - 1, 0, C).long()
+        hi = torch.clamp(lb[qe.long()], 0, C).long()
+        cover = torch.zeros(C + 1, dtype=torch.int64, device=lo.device)
+        live = hi > lo
+        cover.index_add_(0, lo[live], torch.ones_like(lo[live]))
+        cover.index_add_(0, hi[live], -torch.ones_like(hi[live]))
+        slots = int((torch.cumsum(cover, 0)[:C] > 0).sum())
+        nbytes = (4 * W1 * P2 + 16 * R + T + 5 * P2 + 4 * T
+                  + 4 * W1 * cols + 4 * slots)
+        ops = 2 * W1 * P2 * max(C.bit_length() - 1, 1)
+    elif kernel == "dense_phase3":
+        hmat, n = cap["args"]
+        kw = cap["kw"]
+        W2, C = hmat.shape
+        W1 = W2 - 1
+        Wr, T = kw["s_begin"].shape[0], kw["conflict"].shape[0]
+        M = 2 * Wr
+        nbytes = (4 * W2 * int(n) + M * (4 * W1 + 4 + 5) + 9 * Wr + 5 * T
+                  + 4 * W2 * C + T + 6 + 4)
+        ops = 5 * (C + M)
+    else:
+        hmat_d, new_n, _ = cap["args"]
+        W2, C = hmat_d.shape
+        NB, B = cap["NB_out"], cap["B"]
+        nbytes = (4 * W2 * min(int(new_n), C) + 4 * W2 * NB * B + 4 * NB
+                  + 8 * NB + 4 * (W2 - 1) * NB + 1)
+        ops = W2 * NB * B
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compact_shape(kernel: str, cap: dict) -> dict:
+    if kernel == "densify":
+        hmat, counts = cap["args"]
+        return {"W2": hmat.shape[0], "C": hmat.shape[1],
+                "NB": counts.shape[0], "B": cap["B"]}
+    if kernel == "ranks":
+        hmat, smat, qb, *_, too_old = cap["args"]
+        return {"W1": smat.shape[0], "C": hmat.shape[1], "P2": smat.shape[1],
+                "R": qb.shape[0], "T": too_old.shape[0]}
+    if kernel == "dense_phase3":
+        hmat, n = cap["args"]
+        kw = cap["kw"]
+        return {"C": hmat.shape[1], "n": int(n), "P2": kw["smat"].shape[1],
+                "Wr": kw["s_begin"].shape[0], "T": kw["conflict"].shape[0]}
+    hmat_d, new_n, _ = cap["args"]
+    return {"C": hmat_d.shape[1], "new_n": int(new_n),
+            "NB_out": cap["NB_out"], "B": cap["B"]}
+
+
+def compact_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
+    """Each compaction kernel held against its plain version on one path's
+    last compaction on the card, bit for bit (fails otherwise), timed warm
+    (50 launches an event pair) and cold (after an L2 flush), its plain
+    version timed, bounded, logged: one kernel-table entry each."""
+    import torch
+    from foundationdb_tpu_torch.resolver import compact
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
+
+    out = []
+    n0 = dict(compact.LAUNCHES)
+    for kernel in CompactTap.KERNELS:
+        c = cap.get(kernel)
+        if not c:
+            fail(f"{path}: the {kernel} kernel was never called on the card")
+        got = compact_run(kernel, c)
+        want = compact_run(kernel, c, plain=True)
+        torch.cuda.synchronize()
+        err = 0
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{path}: {kernel} output {tuple(g.shape)} {g.dtype} "
+                     f"vs plain {tuple(w.shape)} {w.dtype}")
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()) if g.numel() else 0)
+        if err:
+            fail(f"{path}: the {kernel} kernel disagrees with its plain "
+                 f"version: max |diff| {err}")
+        fn, pfn = compact_timer(kernel, c), compact_timer(kernel, c, True)
+        flush = l2_flusher(got[0].device)
+        t = {"ms": device_ms(fn, n=50), "ms_cold": device_ms(fn, flush=flush),
+             "plain_ms": device_ms(pfn)}
+        bound_ms, bound_by = compact_bound(kernel, c)
+        shape = compact_shape(kernel, c)
+        log(f"compact-{kernel}-{path}", smi=json.dumps(smi), **shape,
+            max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.7f}",
+            bound_by=bound_by, launches=launches[kernel])
+        out.append({"name": kernel, "route": "cuda",
+                    "source": "foundationdb_tpu_torch/csrc/compact.cu",
+                    "replaces": COMPACT_REPLACES[kernel], "path": path,
+                    "launches": launches[kernel], "max_abs_err": err,
+                    "ms": t["ms"], "ms_cold": t["ms_cold"],
+                    "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None, **shape})
+    # the whole compaction around the decode and phase 2: what tpu.py's
+    # dense and compaction kernels did there as torch ops
+    log(f"compact-total-{path}", smi=json.dumps(smi),
+        ms=f"{sum(e['ms'] for e in out):.5f}",
+        bound_ms=f"{sum(e['bound_ms'] for e in out):.7f}",
+        plain_ms=f"{sum(e['plain_ms'] for e in out):.5f}")
+    for k, v in n0.items():   # comparison launches do not count
+        compact.LAUNCHES[k] = v
+    return out
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -1235,22 +1504,26 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
 
 
 def chunk_device_ops(prof) -> dict:
-    """{i: (device ops, their device us)} of the kernels and copies
-    launched inside the profiler range CHUNK_RANGE + i: each device event
-    counts at the host call that launched it (the profiler links them),
-    and that call under the chunk range above it."""
-    out = {}
+    """{i: (device ops, their device us)} of the kernels and copies that
+    ran inside the profiler range CHUNK_RANGE + i. Each chunk's dispatch
+    ends in a device synchronize inside its range, so a device event is
+    the chunk's when it starts within the range's host interval. (Linking
+    a device event to the host call that launched it misses every kernel
+    launched through ctypes: no torch op stands above it.)"""
+    ranges = [(int(e.name[len(CHUNK_RANGE):]), e.time_range.start,
+               e.time_range.end) for e in prof.events()
+              if e.name.startswith(CHUNK_RANGE)
+              and e.device_type.name == "CPU"]
+    out = {i: (0, 0.0) for i, _, _ in ranges}
     for e in prof.events():
-        if (not e.name.startswith(CHUNK_RANGE)
-                or e.device_type.name != "CPU"):
+        if (e.device_type.name != "CUDA" or e.name.startswith(CHUNK_RANGE)
+                or e.time_range.elapsed_us() <= 0):
             continue
-        n, us, stack = 0, 0.0, [e]
-        while stack:
-            x = stack.pop()
-            n += len(x.kernels)
-            us += sum(k.duration for k in x.kernels)
-            stack.extend(x.cpu_children)
-        out[int(e.name[len(CHUNK_RANGE):])] = (n, us)
+        for i, a, b in ranges:
+            if a <= e.time_range.start <= b:
+                n, us = out[i]
+                out[i] = (n + 1, us + e.time_range.elapsed_us())
+                break
     return out
 
 
@@ -1330,6 +1603,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     ref = ConflictSetGPU(device="cpu", **kw)
     p2_tap = Phase2Tap().__enter__()
     b_tap = BlockTap().__enter__()
+    c_tap = CompactTap().__enter__()
     probe.LAUNCHES = 0
     phase2.LAUNCHES = 0
     sync(cs.device)
@@ -1377,6 +1651,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
     p2_launches = phase2.LAUNCHES
     p2_tap.__exit__()
     b_tap.__exit__()
+    c_tap.__exit__()
     gpu_mod.probe_ranks = real_probe
     if launches <= 0:
         fail("full width: the probe kernel was not launched on the main path")
@@ -1388,6 +1663,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         fail(f"full width: phase 2 read the host in a submit: {p2_reads}")
     if on_card:
         b_tap.check_launches("full width", cs.fast_resolves, n_chunks[0])
+        c_tap.check_launches("full width", cs.compactions)
     st = np.concatenate([np.asarray(s) for s in statuses])
     if st.size != n_txn * n_batches or not np.isin(st, (0, 1, 2)).all():
         fail("full width: malformed statuses")
@@ -1411,7 +1687,8 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         fast_resolves=cs.fast_resolves, probe_launches=launches,
         probe_launches_per_batch=f"{launches / n_batches:.2f}",
         phase2_launches=p2_launches, chunks=n_chunks[0],
-        block_launches=json.dumps(b_tap.launches), cpu_twin_batches=2)
+        block_launches=json.dumps(b_tap.launches),
+        compact_launches=json.dumps(c_tap.launches), cpu_twin_batches=2)
     log("full-stages", **{f"p50_{k}": f"{np.percentile(x, 50):.2f}"
                           for k, x in stages.items()})
     if cs.device.type == "cuda":
@@ -1427,6 +1704,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
             with torch.profiler.record_function(
                     f"{CHUNK_RANGE}{len(paths)}"):
                 h = real_async(*a, **k)
+                torch.cuda.synchronize()   # its device work inside it
             paths.append("fast" if cs.fast_resolves > f0 else "compaction")
             return h
 
@@ -1446,6 +1724,9 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
                 torch_block_device_ops=TORCH_BLOCK_DEVICE_OPS,
                 fifth_of_torch_block=TORCH_BLOCK_DEVICE_OPS // 5,
                 fewer=TORCH_BLOCK_DEVICE_OPS - prof[1],
+                torch_compaction_device_ops=TORCH_COMPACTION_DEVICE_OPS,
+                torch_compaction_ops_per_compaction=json.dumps(
+                    TORCH_COMPACTION_OPS_PER_COMPACTION),
                 seed_as_torch_ops_device_ops=SEED_AS_TORCH_OPS_DEVICE_OPS,
                 chunks=json.dumps(paths),
                 ops_per_fast_chunk=json.dumps(
@@ -1486,7 +1767,7 @@ def phase_full(rng, card: str, smi: str = "", device=None, n_txn: int = 65536,
         fast_resolves=cs.fast_resolves - fast0)
     return launches, captured, steady, dict(p2_tap.captured,
                                             launches=p2_launches), \
-        (b_tap.captured, b_tap.launches)
+        (b_tap.captured, b_tap.launches), (c_tap.captured, c_tap.launches)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1530,6 +1811,29 @@ def zipf_scrambled(rng, n: int, count: int) -> np.ndarray:
     r = np.where(uz < 1.0 + 0.5**ZIPF_THETA, 1, r)
     r = np.where(uz < 1.0, 0, r)
     return fnv64(r) % count
+
+
+def read_kernel_bound(cap: dict, D: int, P: int, R: int,
+                      S: int) -> tuple[float, str]:
+    """Least time for one storage read dispatch (gpu_engine
+    _read_kernel_impl, torch ops around the probe) at this batch's shapes:
+    the probe's walks on the captured queries (probe_walk_bound), the
+    delta window read once (D columns of W2 words), the points' base and
+    delta predecessor columns (W2 words and a slot each), the ranges'
+    base and delta spans (S slots of version, next flag and slot each),
+    the read versions, and the aux vector written once, over the memory
+    rate; against the probe's compares over the integer rate."""
+    q = cap["smat"]
+    W2 = q.shape[0]
+    t_probe, by = probe_walk_bound(cap["hkeys"].cpu().numpy(),
+                                   cap["fences"].cpu().numpy(),
+                                   q.cpu().numpy(), cap["NB"], cap["B"])
+    nbytes = (4 * W2 * D + 2 * 4 * (W2 + 2) * P + 2 * 12 * R * S + 4 * R
+              + 4 * (6 * P + 4 * R + 6 * R * S))
+    t_rest = nbytes / HBM_BYTES_PER_S * 1e3
+    if by == "bytes":
+        return t_probe + t_rest, "bytes"
+    return max(t_probe, t_rest), "operations" if t_probe >= t_rest else "bytes"
 
 
 def probe_walk_bound(hkeys, fences, q, NB: int, B: int) -> tuple[float, str]:
@@ -1835,6 +2139,11 @@ def phase_storage(rng, smi: str = "", device=None,
                 P, R, S = shape[0]
                 log(f"storage-{leg}-d2h", P=P, R=R, S=S,
                     aux_bytes_per_batch=4 * (6 * P + 4 * R + 6 * R * S))
+                bound_ms, bound_by = read_kernel_bound(
+                    captured, eng._d_dmat.shape[1], P, R, S)
+                log(f"storage-{leg}-read-bound", smi=json.dumps(smi),
+                    P=P, R=R, S=S, bound_ms=f"{bound_ms:.7f}",
+                    bound_by=bound_by)
     finally:
         gpu_engine.probe_ranks = real_probe
     if eng.device.type == "cuda":
@@ -2209,7 +2518,8 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     cs = RecordingConflictSet(ConflictSetGPU(
         0, max_key_bytes=16, initial_capacity=capacity, device=device),
         replays.send)
-    with ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap:
+    with ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap, \
+            CompactTap() as c_tap:
         with loop_context(loop):
             cluster = LocalCluster(conflict_set=cs, device=device)
             win = CheckedWindow(cluster.storage.data)
@@ -2243,6 +2553,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     if card:
         b_tap.check_launches("cluster", cs.cs.fast_resolves,
                              cs.cs.fast_resolves + cs.cs.compactions)
+        c_tap.check_launches("cluster", cs.cs.compactions)
     launches = tap.launches
     sync(dev)
     conflicts = cluster.resolver.conflict_transactions
@@ -2390,6 +2701,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
     paths["cluster-resolver"]["phase2"] = {
         f"cluster-resolver-{t}": c for t, c in p2_tap.by_tier.items()}
     paths["cluster-resolver"]["block"] = (b_tap.captured, b_tap.launches)
+    paths["cluster-resolver"]["compact"] = (c_tap.captured, c_tap.launches)
     return paths
 
 
@@ -2619,7 +2931,8 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
                                initial_capacity=capacity, devices=devices)
     log_placement("sharded", cs)
     with StreamingReplays(boundaries=bounds) as replays, \
-            ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap:
+            ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap, \
+            CompactTap() as c_tap:
         got, entries, runs = [], [], []
         for li, leg in enumerate(legs):
             for v, oldest, arrays in leg:
@@ -2725,6 +3038,7 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
     if card:
         b_tap.check_launches("sharded", S * cs.fast_resolves,
                              S * (cs.fast_resolves + cs.compactions))
+        c_tap.check_launches("sharded", S * cs.compactions)
     if runs[0].get("profiled_path"):
         log("sharded-profiled-batch", path=runs[0]["profiled_path"],
             txns=n_txn)
@@ -2747,6 +3061,8 @@ def phase_sharded(rng, smi: str = "", device=None, n_txn: int = 8192,
     paths["sharded"]["phase2"] = {"sharded": dict(
         p2_cap, launches=sum(r["p2_launches"] for r in runs))}
     paths["sharded"]["block"] = (b_tap.captured, b_tap.launches)
+    paths["sharded"]["compact"] = (c_tap.captured, c_tap.launches)
+    paths["sharded"]["shards"] = S
     return paths
 
 
@@ -6006,7 +6322,9 @@ def main() -> int:
         ptxas=json.dumps(ptxas), ptxas_phase2=json.dumps(
             _build.ptxas_summary(_build.BUILD_LOG.get("phase2", ""))),
         ptxas_block=json.dumps(
-            _build.ptxas_summary(_build.BUILD_LOG.get("block", ""))))
+            _build.ptxas_summary(_build.BUILD_LOG.get("block", ""))),
+        ptxas_compact=json.dumps(
+            _build.ptxas_summary(_build.BUILD_LOG.get("compact", ""))))
     log("build", kernels=json.dumps(sorted(_build.SOURCES)),
         probe_nvcc_s=f"{build_s:.2f}",
         host_tier_gxx_s=f"{native_s['libfdbtpu_native']:.2f}",
@@ -6039,8 +6357,9 @@ def main() -> int:
     phase_narrow(rng)
     phase_wall("narrow")
     full_keep = {}
-    launches, cap, full_rate, p2_cap, (b_cap, b_launches) = phase_full(
-        rng, card, smi, n_batches=FULL_BATCHES, keep=full_keep)
+    (launches, cap, full_rate, p2_cap, (b_cap, b_launches),
+     (c_cap, c_launches)) = phase_full(rng, card, smi,
+                                       n_batches=FULL_BATCHES, keep=full_keep)
     # The probe held against its plain version on the main path's
     # inputs.
     h, f, q, NB, B = (cap[k] for k in ("hkeys", "fences", "smat", "NB",
@@ -6060,7 +6379,9 @@ def main() -> int:
                                 smi, P2_REPLACES["gpu"]))
     # The block kernels on [full]'s last chunks.
     kernels += block_entries("resolver", b_cap, b_launches, smi)
-    del cap, h, f, q, p2_cap, b_cap
+    # The compaction kernels on [full]'s last compaction.
+    kernels += compact_entries("resolver", c_cap, c_launches, smi)
+    del cap, h, f, q, p2_cap, b_cap, c_cap
     phase_wall("full")
     phase_native(full_keep, smi, card)
     phase_wall("native")
@@ -6104,6 +6425,10 @@ def main() -> int:
                    for k, v in c.pop("phase2", {}).items()}
         b_caps = {k: c.pop("block") for k, c in paths.items()
                   if "block" in c}
+        c_caps = {k: c.pop("compact") for k, c in paths.items()
+                  if "compact" in c}
+        shards = {k: c.pop("shards") for k, c in paths.items()
+                  if "shards" in c}
         kernels += probe_entries(paths, smi, base)
         # [cluster]'s last batch under each tier, [sharded]'s last step
         for path, c in p2_caps.items():
@@ -6112,7 +6437,21 @@ def main() -> int:
         # the block kernels on [cluster]'s and [sharded]'s last fast step
         for path, (bc, bl) in b_caps.items():
             kernels += block_entries(path, bc, bl, smi)
-        del paths, p2_caps, b_caps
+        # the compaction kernels on their last compaction
+        for path, (cc, cl) in c_caps.items():
+            kernels += compact_entries(path, cc, cl, smi)
+        for path, n_shards in shards.items():
+            # a fast batch's least device time: each shard step's kernels
+            # (probe, decode, phase 1, phase 2, phase 3) at the last
+            # step's shapes, times the shards
+            step = [k for k in kernels if k.get("path") == path
+                    and k["name"] in ("probe_ranks", "phase2_rounds",
+                                      "decode_fused", "phase1", "phase3")]
+            bound = n_shards * sum(k["bound_ms"] for k in step)
+            log(f"{path}-step-bound", smi=json.dumps(smi),
+                kernels=len(step), shards=n_shards, bound_ms=f"{bound:.7f}",
+                bound_by="+".join(sorted({k["bound_by"] for k in step})))
+        del paths, p2_caps, b_caps, c_caps, shards
         phase_wall(name)
     entries, rankfed_check = phase_rankfed(
         rng, smi, full_txns_per_s=full_rate, n_batches=RANKFED_BATCHES)

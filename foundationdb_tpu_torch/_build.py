@@ -2,9 +2,9 @@
 
 Each source under csrc/ has a plain C interface and compiles with nvcc
 into its own shared library under build/kernels/ (at the checkout root,
-listed in .gitignore), at first use, keyed by a hash of the source and the
-flags. Libraries load with ctypes. A failed build raises with nvcc's
-stderr; there is no fallback.
+listed in .gitignore), at first use, keyed by a hash of the source, the
+shared headers (csrc/*.cuh) and the flags. Libraries load with ctypes. A
+failed build raises with nvcc's stderr; there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"probe": _PKG / "csrc" / "probe.cu",
            "phase2": _PKG / "csrc" / "phase2.cu",
-           "block": _PKG / "csrc" / "block.cu"}
+           "block": _PKG / "csrc" / "block.cu",
+           "compact": _PKG / "csrc" / "compact.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -40,7 +41,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library of one source, keyed by the source, the headers of
+    csrc/ it may include, and the flags."""
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

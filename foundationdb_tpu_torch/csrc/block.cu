@@ -51,7 +51,15 @@
 //   block's slots in the lanes: it places its endpoints (novel keys
 //   insert, keys equal to history or to the previous endpoint overwrite),
 //   shifts its history, takes the depth's prefix and rewrites its block,
-//   counts and leaf in place, row by row through shared memory. The
+//   counts and leaf in place, row by row through shared memory (for B up
+//   to 256; a larger block's rows go through its own region of the
+//   scratch, so every B the knobs allow is taken). Both places are kept
+//   because the scratch rows cost more where the shared ones fit: with
+//   every B's rows in the scratch, phase 3 took 0.10805-0.10842 ms warm
+//   against 0.07270-0.07316 at `[full]`'s last fast chunk (B 32, 12,629
+//   touched blocks) and 0.05284-0.05302 against 0.04487-0.04505 at
+//   `[sharded]`'s (H100 80GB HBM3, 700 W; chip_smoke.py block_entries,
+//   both versions in one run, PERF.md §6). The
 //   segment tree's ancestor paths take one atomicMax a level, stopping at
 //   the first node already at least the leaf: exact because on the fast
 //   path a block's maximum never falls (entries are only inserted or
@@ -68,91 +76,19 @@
 // a scratch of fdb_block_*_scratch_ints int32) and returning the
 // cudaError_t of the launch.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "grid.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxB = 256;               // slots of a block phase 3 takes
-constexpr int32_t kInf = INT32_MAX;      // pad key word, pad length
-constexpr unsigned kFull = 0xFFFFFFFFu;
+using namespace fdb;
+
+// Largest B whose merge rows fit in shared memory (five rows of B words a
+// warp, 40 KB a thread block at 256: under the 48 KB a launch gets
+// without opting in); phase 3 keeps a larger block's rows in its scratch
+// instead.
+constexpr int kSmemB = 256;
 constexpr int kModeIncrement = 1, kModeExplicit = 2;  // packing.MODE_*
 constexpr int kStatusConflict = 1, kStatusTooOld = 2;  // types.py
-
-__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);  // int32 wrap, as XLA's
-}
-
-// A gather index as tpu.py's gathers take it: a negative index wraps
-// once, then the index clamps into [0, n).
-__device__ __forceinline__ long long gat(long long i, long long n) {
-  if (i < 0) i += n;
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-
-// A scatter index as tpu.py's scatters take it: a negative index wraps
-// once; -1 where the update drops.
-__device__ __forceinline__ long long sct(long long i, long long n) {
-  if (i < 0) i += n;
-  return (i >= 0 && i < n) ? i : -1;
-}
-
-__device__ __forceinline__ int32_t ld(const int32_t* p) { return __ldcg(p); }
-
-__device__ __forceinline__ int32_t warp_incl(int32_t v) {
-  const int lane = threadIdx.x & 31;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t t = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v = add32(v, t);
-  }
-  return v;
-}
-
-__device__ __forceinline__ int32_t warp_max(int32_t v) {
-  for (int d = 16; d > 0; d >>= 1) v = max(v, __shfl_xor_sync(kFull, v, d));
-  return v;
-}
-
-__device__ __forceinline__ int32_t warp_sum(int32_t v) {
-  for (int d = 16; d > 0; d >>= 1) v = add32(v, __shfl_xor_sync(kFull, v, d));
-  return v;
-}
-
-// Exclusive prefix of one value a thread over the block (every thread
-// calls it); ws holds kWarps words of shared memory; *total gets the sum.
-__device__ int32_t block_excl(int32_t v, int32_t* ws, int32_t* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int32_t inc = warp_incl(v);
-  if (lane == 31) ws[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t w = lane < kWarps ? ws[lane] : 0;
-    w = warp_incl(w);
-    if (lane < kWarps) ws[lane] = w;
-  }
-  __syncthreads();
-  const int32_t before = warp ? ws[warp - 1] : 0;
-  *total = ws[kWarps - 1];
-  __syncthreads();  // ws is free for the next call
-  return add32(before, inc - v);
-}
-
-struct Grid {
-  long long first, stride;
-  __device__ Grid()
-      : first((long long)blockIdx.x * blockDim.x + threadIdx.x),
-        stride((long long)gridDim.x * blockDim.x) {}
-  template <class F> __device__ void each(long long n, F f) const {
-    for (long long i = first; i < n; i += stride) f(i);
-  }
-  __device__ void sync() const { cg::this_grid().sync(); }
-  __device__ bool leader() const { return first == 0; }
-};
 
 // Exclusive prefix sums of up to four int32 arrays at once, across the
 // grid, in three stages the caller separates by grid barriers: tiles()
@@ -468,16 +404,24 @@ struct Phase3Args {
 // Scratch words beside the two scans' tile sums, in this order.
 enum { kAccIns, kAccOverflow, kAccFell, kAccs };
 
+// The merge rows of the touched blocks when B passes kSmemB: five rows
+// of B words a block, after everything else.
+__host__ __device__ inline long long merge_rows(long long K, long long B) {
+  return B > kSmemB ? 5 * K * B : 0;
+}
+
 struct P3Scratch {
   int32_t *is_w, *packed, *cg, *cinfo, *dscan, *lastv, *leaf, *acc,
-      *tsum_rank, *tsum_depth;
+      *tsum_rank, *tsum_depth, *rows;
   __host__ __device__ static long long words(long long P2, long long M,
-                                             long long K, const Scan& rank,
+                                             long long K, long long B,
+                                             const Scan& rank,
                                              const Scan& depth) {
-    return P2 + 4 * M + 2 * K + kAccs + rank.words() + depth.words();
+    return P2 + 4 * M + 2 * K + kAccs + rank.words() + depth.words() +
+           merge_rows(K, B);
   }
   __device__ P3Scratch(int32_t* s, long long P2, long long M, long long K,
-                       const Scan& rank) {
+                       const Scan& rank, const Scan& depth) {
     is_w = s;
     packed = is_w + P2;
     cg = packed + M;
@@ -488,6 +432,7 @@ struct P3Scratch {
     acc = leaf + K;
     tsum_rank = acc + kAccs;
     tsum_depth = tsum_rank + rank.words();
+    rows = tsum_depth + depth.words();
   }
 };
 
@@ -626,7 +571,7 @@ __global__ void __launch_bounds__(kThreads) phase3_kernel(Phase3Args a) {
   extern __shared__ int32_t smem[];
   const Grid g;
   const long long P2 = a.P2, Wr = a.Wr, M = 2LL * Wr, K = a.K, T = a.T;
-  const P3Scratch s(a.scratch, P2, M, K, a.rank);
+  const P3Scratch s(a.scratch, P2, M, K, a.rank, a.depth);
   int32_t* ws = smem;
   const int32_t nw = *a.nw, n_g = *a.n_g, version = *a.version;
   const long long n_real = 2LL * nw < M ? 2LL * nw : M;
@@ -722,11 +667,15 @@ __global__ void __launch_bounds__(kThreads) phase3_kernel(Phase3Args a) {
   g.sync();
   // Stage 8: one warp a touched block.
   {
+    // The warp's merge rows: in shared memory up to kSmemB slots, else
+    // the touched block's own rows in the scratch.
+    const bool shared = a.B <= kSmemB;
     int32_t* sw = smem + kWarps + (threadIdx.x >> 5) * 5 * a.B;
     const long long warps = (long long)gridDim.x * kWarps;
     for (long long k = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
          k < n_g && k < K; k += warps)
-      merge_block(a, s, sw, k, M, n_real, version);
+      merge_block(a, s, shared ? sw : s.rows + k * 5 * a.B, k, M, n_real,
+                  version);
   }
   g.sync();
   // Stage 9: the verdict bytes' tail, and the leaves' ancestor paths.
@@ -761,31 +710,6 @@ __global__ void __launch_bounds__(kThreads) phase3_kernel(Phase3Args a) {
     });
     g.sync();
   }
-}
-
-// One cooperative grid of `kernel` on `stream`: enough blocks for `work`
-// threads, at most every block resident at once.
-template <class A>
-int launch(void (*kernel)(A), long long work, size_t smem, A* args,
-           void* stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long want = (work + kThreads - 1) / kThreads;
-  const long long most = (long long)sms * per_sm;
-  const int blocks = (int)(want < 1 ? 1 : (want < most ? want : most));
-  void* params[] = {args};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                  dim3(kThreads), params, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
 }
 
 void decode_scan(Scan* sc, const long long* lay) {
@@ -867,14 +791,12 @@ extern "C" int fdb_block_phase1(const void* hv, const void* btree,
   return launch(phase1_kernel, R > T ? R : T, 0, &a, stream);
 }
 
-extern "C" long long fdb_block_phase3_scratch_ints(int P2, int Wr, int K) {
+extern "C" long long fdb_block_phase3_scratch_ints(int P2, int Wr, int K,
+                                                  int B) {
   Scan rank, depth;
   phase3_scans(&rank, &depth, P2, Wr);
-  return P3Scratch::words(P2, 2LL * Wr, K, rank, depth);
+  return P3Scratch::words(P2, 2LL * Wr, K, B, rank, depth);
 }
-
-// The largest B phase 3 takes (its warps keep five rows of B words).
-extern "C" int fdb_block_max_slots() { return kMaxB; }
 
 // Phase 3: the touched-block merge, in place on hmat, counts and btree;
 // n_out and the verdict bytes st_aux (T statuses, n_out's 4 LE bytes,
@@ -884,7 +806,7 @@ extern "C" int fdb_block_max_slots() { return kMaxB; }
 extern "C" int fdb_block_phase3(void* const* ptrs, int W, int P2, int Wr,
                                 int T, int K, int NB, int B, void* stream) {
   if (W < 1 || P2 < 1 || Wr < 0 || T < 1 || K < 1 || NB < 1 ||
-      (NB & (NB - 1)) || B < 1 || B > kMaxB)
+      (NB & (NB - 1)) || B < 1)
     return (int)cudaErrorInvalidValue;
   Phase3Args a;
   a.hmat = (int32_t*)ptrs[0];
@@ -920,7 +842,8 @@ extern "C" int fdb_block_phase3(void* const* ptrs, int W, int P2, int Wr,
   long long work = P2 > 2LL * Wr ? P2 : 2LL * Wr;
   if ((long long)K * 32 > work) work = (long long)K * 32;
   if (T > work) work = T;
-  const size_t smem = (kWarps + (size_t)kWarps * 5 * B) * sizeof(int32_t);
+  const size_t smem =
+      (kWarps + (B <= kSmemB ? (size_t)kWarps * 5 * B : 0)) * sizeof(int32_t);
   return launch(phase3_kernel, work, smem, &a, stream);
 }
 

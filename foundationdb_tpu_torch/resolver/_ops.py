@@ -32,14 +32,20 @@ tpu.py sites that need it:
 - st_aux int8 bytes (tpu.py:914-920): bytes 128..255 become int8 by an
   explicit two's-complement mapping, not a cast of out-of-range int32.
 
-The range helpers that gpu.py, rankfed.py and phase2.py share live here
-too: the sparse range-query table (`_build_table`, `_table_range_query`)
-and a segment tree's canonical nodes (`_canonical_nodes_flat`).
+The range helpers that gpu.py, compact.py, rankfed.py and phase2.py share
+live here too: the lexicographic compare and the halving rank walk
+(`_lex_lt_eq`, `_lower_rank`), the sparse range-query table
+(`_build_table`, `_table_range_query`) and a segment tree's canonical
+nodes (`_canonical_nodes_flat`); and the plain versions' small builders
+that block.py, compact.py and gpu.py share (`_arange`, `_pad_col`, the
+verdict bytes `st_aux_ref`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .types import COMMITTED, CONFLICT, TOO_OLD
 
 I32 = torch.int32
 I64 = torch.int64
@@ -104,6 +110,35 @@ def floor_log2(x: torch.Tensor) -> torch.Tensor:
         m = m + big.to(I32) * s
         x = torch.where(big, x >> s, x)
     return m
+
+
+def _lex_lt_eq(h, q, or_equal: bool = False):
+    """Lexicographic h < q (or <=) over leading-axis word rows (at least
+    one), decided at the first differing word: a fixed handful of ops at
+    any width, where the JAX package's word loop takes 4 a word (the
+    simulator's fuzzers write keys of up to 10,000 bytes, 2,501 words)."""
+    ne = h != q
+    eq = ~ne.any(0)
+    first = ne.to(torch.uint8).argmax(0, keepdim=True)
+    lt = torch.gather(h < q, 0, first)[0]
+    if or_equal:
+        lt = lt | eq
+    return lt, eq
+
+
+def _lower_rank(hkeys, qmat):
+    """#entries of the sorted (C, +inf padded) key matrix strictly less than
+    each query key: log C halving steps, one 2-D column gather each (the
+    largest result is C - 1, as tpu.py's walk gives)."""
+    c = hkeys.shape[1]
+    pos = torch.zeros(qmat.shape[1], dtype=I32, device=qmat.device)
+    s = c // 2
+    while s >= 1:
+        h = hkeys[:, pos + (s - 1)]
+        lt, _ = _lex_lt_eq(h, qmat)
+        pos = pos + lt.to(I32) * s
+        s //= 2
+    return pos
 
 
 def _build_table(v, op, identity: int):
@@ -173,3 +208,30 @@ def le_bytes(n: torch.Tensor) -> torch.Tensor:
     new_n field, tpu.py:914-916)."""
     shifts = torch.arange(0, 32, 8, dtype=I32, device=n.device)
     return int8_twos((n.to(I32) >> shifts) & 0xFF)
+
+
+def _arange(n: int, dev) -> torch.Tensor:
+    return torch.arange(n, dtype=I32, device=dev)
+
+
+def _pad_col(W: int, dev, with_value: bool = True) -> torch.Tensor:
+    """One pad state column: +inf key words and length (and version 0),
+    by device fills (a tensor made from host data would be a blocking
+    copy)."""
+    col = torch.full((W + 1,), I32_INF, dtype=I32, device=dev)
+    if not with_value:
+        return col
+    return torch.cat([col, torch.zeros(1, dtype=I32, device=dev)])
+
+
+def st_aux_ref(too_old, conflict, n_out, overflow, p2_iters):
+    """The one verdict readback array: statuses ++ 4 LE bytes of n ++
+    overflow ++ clamped phase-2 round count (tpu.py:909-920)."""
+    statuses = torch.where(
+        too_old, TOO_OLD, torch.where(conflict > 0, CONFLICT, COMMITTED)
+    ).to(torch.int8)
+    return torch.cat([
+        statuses, le_bytes(n_out),
+        overflow.to(torch.int8).reshape(1),
+        int8_twos(torch.clamp(p2_iters, max=127)).reshape(1),
+    ])

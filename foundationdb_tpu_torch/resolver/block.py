@@ -27,51 +27,31 @@ import ctypes
 
 import torch
 
+from ._launch import (
+    check_operands,
+    check_shapes,
+    cuda_device,
+    run_entry,
+    typed_lib,
+)
 from ._ops import (
     I32,
     I32_INF,
+    _arange,
     _canonical_nodes_flat,
+    _pad_col,
     add_wrap_i32,
     cumsum32,
     dump_index,
-    int8_twos,
-    le_bytes,
     scatter_new,
+    st_aux_ref,
 )
 from .packing import MODE_EXPLICIT, MODE_INCREMENT, PAD_WORD, FusedLayout
-from .types import COMMITTED, CONFLICT, TOO_OLD
 
 # Kernel launches since the caller last reset them, by kernel.
 LAUNCHES = {"decode": 0, "phase1": 0, "phase3": 0}
 
 _c_ptr = ctypes.c_void_p
-
-
-def _arange(n: int, dev) -> torch.Tensor:
-    return torch.arange(n, dtype=I32, device=dev)
-
-
-def _pad_col(W: int, dev, with_value: bool = True) -> torch.Tensor:
-    """One pad state column: +inf key words and length (and version 0),
-    by device fills (a tensor made from host data would be a blocking
-    copy)."""
-    col = torch.full((W + 1,), I32_INF, dtype=I32, device=dev)
-    if not with_value:
-        return col
-    return torch.cat([col, torch.zeros(1, dtype=I32, device=dev)])
-
-
-def st_aux_ref(too_old, conflict, n_out, overflow, p2_iters):
-    """The one verdict readback array: statuses ++ 4 LE bytes of n ++
-    overflow ++ clamped phase-2 round count (tpu.py:909-920)."""
-    statuses = torch.where(
-        too_old, TOO_OLD, torch.where(conflict > 0, CONFLICT, COMMITTED)
-    ).to(torch.int8)
-    return torch.cat([
-        statuses, le_bytes(n_out),
-        overflow.to(torch.int8).reshape(1),
-        int8_twos(torch.clamp(p2_iters, max=127)).reshape(1),
-    ])
 
 
 # ------------------------------------------------------------- decode
@@ -188,7 +168,7 @@ def decode_fused(fused, *, lay: FusedLayout):
     (smat, q_begin, q_end, s_begin, s_end, rtxn, rsnap, wtxn, w_valid,
     too_old, version, oldest_eff, nr, nw), the scalars 0-d views of
     fused. On a CUDA tensor one kernel launch, else decode_fused_ref."""
-    _check({"fused": fused}, fused.device)
+    check_operands({"fused": fused}, fused.device)
     if fused.shape[0] < lay.total:
         raise ValueError(f"fused has {fused.shape[0]} words, the layout "
                          f"{lay.total}")
@@ -199,7 +179,7 @@ def decode_fused(fused, *, lay: FusedLayout):
 
 def decode_fused_launch(fused, *, lay: FusedLayout):
     """decode_fused's kernel on a CUDA tensor."""
-    dev = _cuda(fused, "decode")
+    dev = cuda_device(fused, "decode")
     W1, P2, R, Wr, T = lay.n_words + 1, lay.P2, lay.R, lay.Wr, lay.T
     lib = _lib()
     lw = (ctypes.c_longlong * 18)(*layout_words(lay))
@@ -262,8 +242,8 @@ def phase1(hv, btree, bid, lb_loc, eq_loc, q_begin, q_end, rsnap, rtxn,
     ts = {"hv": hv, "btree": btree, "bid": bid, "lb_loc": lb_loc,
           "eq_loc": eq_loc, "q_begin": q_begin, "q_end": q_end,
           "rsnap": rsnap, "rtxn": rtxn, "too_old": too_old}
-    _check(ts, hv.device)
-    _shapes(ts, {"hv": NB * B, "btree": 2 * NB, "lb_loc": bid.shape[0],
+    check_operands(ts, hv.device, flags=("too_old",))
+    check_shapes(ts, {"hv": NB * B, "btree": 2 * NB, "lb_loc": bid.shape[0],
                  "eq_loc": bid.shape[0], "q_end": q_begin.shape[0],
                  "rsnap": q_begin.shape[0], "rtxn": q_begin.shape[0]})
     if hv.device.type == "cpu":
@@ -274,7 +254,7 @@ def phase1(hv, btree, bid, lb_loc, eq_loc, q_begin, q_end, rsnap, rtxn,
 
 def phase1_launch(ts: dict, *, NB: int, B: int):
     """phase1's kernel on CUDA tensors (phase1's operands by name)."""
-    dev = _cuda(ts["hv"], "phase1")
+    dev = cuda_device(ts["hv"], "phase1")
     T, R, P2 = (ts[k].shape[0] for k in ("too_old", "q_begin", "bid"))
     out = torch.empty(T, dtype=I32, device=dev)
     _run(_lib(), "fdb_block_phase1", dev, "phase1",
@@ -440,10 +420,10 @@ def phase3(hmat, counts, btree, n, *, smat, s_begin, s_end, wtxn, w_valid,
         hmat, counts, btree, n, smat, s_begin, s_end, wtxn, w_valid, nw,
         conflict, too_old, p2_iters, bid, lb_loc, eq_loc, g_ids, n_g,
         version)))
-    _check(ts, hmat.device)
+    check_operands(ts, hmat.device, flags=("w_valid", "too_old"))
     W1, P2 = smat.shape
     Wr = s_begin.shape[0]
-    _shapes(ts, {"hmat": (W1 + 1, NB * B), "counts": NB, "btree": 2 * NB,
+    check_shapes(ts, {"hmat": (W1 + 1, NB * B), "counts": NB, "btree": 2 * NB,
                  "n": (), "s_end": Wr, "wtxn": Wr, "w_valid": Wr, "nw": (),
                  "too_old": conflict.shape[0], "p2_iters": (), "bid": P2,
                  "lb_loc": P2, "eq_loc": P2, "g_ids": K, "n_g": (),
@@ -460,16 +440,13 @@ def phase3(hmat, counts, btree, n, *, smat, s_begin, s_end, wtxn, w_valid,
 
 def phase3_launch(ts: dict, *, K: int, NB: int, B: int):
     """phase3's kernel on CUDA tensors (phase3's operands by name)."""
-    dev = _cuda(ts["hmat"], "phase3")
+    dev = cuda_device(ts["hmat"], "phase3")
     lib = _lib()
-    if B > lib.fdb_block_max_slots():
-        raise ValueError(f"the phase-3 kernel takes B up to "
-                         f"{lib.fdb_block_max_slots()}, got {B}")
     W1, P2 = ts["smat"].shape
     Wr, T = ts["s_begin"].shape[0], ts["conflict"].shape[0]
     n_out = torch.empty((), dtype=I32, device=dev)
     st_aux = torch.empty(T + 6, dtype=torch.int8, device=dev)
-    scratch = torch.empty(lib.fdb_block_phase3_scratch_ints(P2, Wr, K),
+    scratch = torch.empty(lib.fdb_block_phase3_scratch_ints(P2, Wr, K, B),
                           dtype=I32, device=dev)
     ptrs = (_c_ptr * 22)(*(t.data_ptr() for t in ts.values()),
                          n_out.data_ptr(), st_aux.data_ptr(),
@@ -483,34 +460,6 @@ def phase3_launch(ts: dict, *, K: int, NB: int, B: int):
 # ------------------------------------------------------------- plumbing
 
 
-def _check(ts: dict, dev) -> None:
-    """Raise on an operand the kernels do not take: int32 (bool for the
-    flags), contiguous, on one device."""
-    for name, t in ts.items():
-        want = torch.bool if name in ("w_valid", "too_old") else I32
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-
-
-def _shapes(ts: dict, want: dict) -> None:
-    for name, shape in want.items():
-        shape = (shape,) if isinstance(shape, int) else tuple(shape)
-        if tuple(ts[name].shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(ts[name].shape)}, "
-                             f"{shape} expected")
-
-
-def _cuda(t: torch.Tensor, kernel: str) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got "
-                         f"{t.device}")
-    return t.device
-
-
 # The C entry points of csrc/block.cu: (restype, argtypes). Every pointer
 # and the stream are c_void_p; as a c_int ctypes would cut them to 32 bits.
 _LAYOUT = ctypes.POINTER(ctypes.c_longlong)
@@ -521,32 +470,14 @@ ENTRY_POINTS = {
                                         *([ctypes.c_int] * 5), _c_ptr]),
     "fdb_block_phase3": (ctypes.c_int, [ctypes.POINTER(_c_ptr),
                                         *([ctypes.c_int] * 7), _c_ptr]),
-    "fdb_block_phase3_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 3),
-    "fdb_block_max_slots": (ctypes.c_int, []),
+    "fdb_block_phase3_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 4),
     "fdb_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
 def _lib():
-    from .. import _build
-
-    lib = _build.load("block")
-    if not getattr(lib, "_fdb_typed", False):
-        for name, (restype, argtypes) in ENTRY_POINTS.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, argtypes
-        lib._fdb_typed = True
-    return lib
+    return typed_lib("block", ENTRY_POINTS)
 
 
 def _run(lib, entry: str, dev, kernel: str, *args, shapes: str) -> None:
-    """Call one launching entry point on dev's current stream; raise with
-    the CUDA error where it returns one, else count the launch."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"{kernel} kernel launch failed on {dev} ({shapes}): CUDA error "
-            f"{rc} ({lib.fdb_cuda_error_string(rc).decode()})")
-    LAUNCHES[kernel] += 1
+    run_entry(lib, entry, dev, kernel, LAUNCHES, *args, shapes=shapes)

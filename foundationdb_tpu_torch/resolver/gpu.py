@@ -11,11 +11,12 @@ tpu.py explains the algorithm and its invariants.
 What differs from the JAX package, and why:
 
 - Hand-written CUDA kernels where tpu.py has one compiled program: the
-  one Pallas kernel, the rank probe (probe.py, csrc/probe.cu), and the
-  block kernel's decode, phase 1 and phase 3 (block.py, csrc/block.cu;
-  the decode serves the dense kernel too), each one launch on CUDA
-  tensors. The dense and compaction kernels' other stages are plain
-  torch ops on explicit devices.
+  one Pallas kernel, the rank probe (probe.py, csrc/probe.cu), the block
+  kernel's decode, phase 1 and phase 3 (block.py, csrc/block.cu; the
+  decode serves the dense kernel too), and the compaction's densify, the
+  dense kernel's ranks + phase 1 and phase 3, and the redistribution
+  (compact.py, csrc/compact.cu), each one launch on CUDA tensors. Phase
+  2's geometry is the one stage left as plain torch ops.
 - JAX/torch semantic differences (scan dtype, scatter drops, gather
   clamps, int32 wrap, int8 bytes) go through resolver/_ops.py.
 - The fast kernel updates the resident hmat/counts/btree IN PLACE where
@@ -48,13 +49,15 @@ import torch
 
 from ..core.knobs import CLIENT_KNOBS, SERVER_KNOBS
 from ..device import resolve_device
-from ._ops import (
+from ._ops import (  # noqa: F401  (tpu.py's twins, for the tests)
     I32,
+    _arange,
     _build_table,
-    _canonical_nodes_flat,  # noqa: F401  (tpu.py's twin, for the tests)
+    _canonical_nodes_flat,
+    _lex_lt_eq,
+    _lower_rank,
     _table_range_query,
     cumsum32,
-    scatter_cols_new,
     scatter_new,
 )
 from .packing import (
@@ -75,8 +78,7 @@ from .packing import (
     unpack_key,
     widen_state,
 )
-from . import block, phase2
-from .block import _arange, _pad_col
+from . import block, compact, phase2
 from .probe import probe_ranks
 from .types import ConflictBatchResult, TxnConflictInfo
 
@@ -86,34 +88,6 @@ P2_SYNCS = 0  # host reads of phase 2's plain version (CPU tensors only)
 # group. Most batches settle in the first verification round (the pointer-
 # jumping seed is exact on pure chains), so the groups start small and grow.
 _P2_GROUPS = (1, 2, 4, 8)
-
-
-def _lex_lt_eq(h, q, or_equal: bool = False):
-    """Lexicographic h < q (or <=) over leading-axis word rows (at least
-    one), decided at the first differing word: a fixed handful of ops at
-    any width, where the JAX package's word loop takes 4 a word (the
-    simulator's fuzzers write keys of up to 10,000 bytes, 2,501 words)."""
-    ne = h != q
-    eq = ~ne.any(0)
-    first = ne.to(torch.uint8).argmax(0, keepdim=True)
-    lt = torch.gather(h < q, 0, first)[0]
-    if or_equal:
-        lt = lt | eq
-    return lt, eq
-
-
-def _lower_rank(hkeys, qmat):
-    """#entries of the sorted (C, +inf padded) key matrix strictly less than
-    each query key: log C halving steps, one 2-D column gather each."""
-    c = hkeys.shape[1]
-    pos = torch.zeros(qmat.shape[1], dtype=I32, device=qmat.device)
-    s = c // 2
-    while s >= 1:
-        h = hkeys[:, pos + (s - 1)]
-        lt, _ = _lex_lt_eq(h, qmat)
-        pos = pos + lt.to(I32) * s
-        s //= 2
-    return pos
 
 
 def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
@@ -145,149 +119,35 @@ def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
 def _resolve_kernel_impl(hmat, n, fused, *, lay: FusedLayout):
     """One DENSE resolve step (full-history merge; the amortized compaction
     pass). hmat: (W+2, C) int32 state [words.., len, version]; n: live
-    entry count; fused: the batch buffer. Returns (hmat_out, new_n,
-    st_aux)."""
-    W = lay.n_words
-    C = hmat.shape[1]
-    P2, Wr, T = lay.P2, lay.Wr, lay.T
-    dev = hmat.device
+    entry count (0-d int32 on hmat's device); fused: the batch buffer. The
+    decode, the ranks and phase 1 (compact.ranks), phase 2, and phase 3
+    (compact.dense_phase3): on the card four kernel launches and phase 2's
+    geometry ops. Returns (hmat_out, new_n, st_aux).
 
+    On the card the state must not be full with a write endpoint equal to
+    its last key and a later one greater (n = C; see compact.dense_phase3):
+    there tpu.py's merge positions collide, and the kernel's result differs
+    from the plain version's. A compaction never densifies to n = C."""
     (smat, q_begin, q_end, s_begin, s_end, rtxn, rsnap, wtxn, w_valid,
      too_old, version, oldest_eff, nr, nw) = block.decode_fused(
          fused, lay=lay)
 
-    hkeys = hmat[: W + 1]
-    hv = hmat[W + 1]
-
-    # ============ Ranks: one binary search + algebraic derivations ============
-    lb = _lower_rank(hkeys, smat)                        # #h < key
-    _, eq = _lex_lt_eq(hkeys[:, torch.clamp(lb, 0, C - 1)], smat)
-    is_pad_q = smat[W] == int(INT32_MAX)
-    ub = torch.where(is_pad_q, C, lb + eq.to(I32))        # #h <= key
-
-    # ============ Phase 1: read-vs-history ============
-    rank_e = lb[q_end]
-    rank_b = ub[q_begin]
-    vtab = _build_table(hv, torch.maximum, 0)
-    hist_max = _table_range_query(vtab, rank_b - 1, rank_e, torch.maximum, 0)
-    read_conf = (hist_max > rsnap).to(I32)
-    hist_conf = scatter_new(T, 0, rtxn, read_conf, "max")
-    base_conf = torch.maximum(hist_conf, too_old.to(I32))
+    # ============ Ranks + phase 1: read-vs-history ============
+    ub, eq, base_conf = compact.ranks(hmat, smat, q_begin, q_end, rsnap,
+                                      rtxn, too_old)
 
     # ============ Phase 2: intra-batch fixed point ============
     conflict, p2_iters = _phase2_fixed_point(
         base_conf, smat=smat, q_begin=q_begin, q_end=q_end,
         s_begin=s_begin, s_end=s_end, rtxn=rtxn, wtxn=wtxn,
-        w_valid=w_valid, T=T, Wr=Wr, P2=P2,
+        w_valid=w_valid, T=lay.T, Wr=lay.Wr, P2=lay.P2,
     )
 
     # ============ Phase 3: merge-by-rank + coalesce + compact ============
-    committed_w = w_valid & (conflict[wtxn] == 0)
-    M = 2 * Wr
-    N3 = C + M
-
-    is_w = scatter_new(P2, 0, torch.cat([s_begin, s_end]), 1, "set")
-    w_rank = cumsum32(is_w) - is_w
-    wb_slot = w_rank[s_begin]
-    we_slot = w_rank[s_end]
-    # ONE scatter carries everything per compacted endpoint, bit-packed:
-    # bit0 committed, bit1 is-begin, bits2+ global sorted position.
-    cw = committed_w.to(I32)
-    packed_ep = scatter_new(
-        M, 0, torch.cat([wb_slot, we_slot]),
-        torch.cat([(s_begin << 2) + 2 + cw, (s_end << 2) + cw]), "set",
-    )
-    sidx = packed_ep >> 2
-    is_begin_c = (packed_ep >> 1) & 1
-    committed_c = packed_ep & 1
-    cwb = committed_c & is_begin_c
-    cwe = committed_c & (1 - is_begin_c)
-    ub_c = ub[sidx]
-    eq_c = eq[sidx]
-
-    # Merge duality: #write-endpoints < hist[j] = #{p : ub_c[p] <= j}.
-    cnt_ub = scatter_new(C + 1, 0, torch.clamp(ub_c, max=C), 1, "add")
-    lbB = cumsum32(cnt_ub[:C])
-    posA = _arange(C, dev) + lbB          # history -> merged
-    posB = _arange(M, dev) + ub_c         # write endpoints -> merged
-
-    kw_c = smat[:, sidx]                  # (W+1, M) keys + len
-    zero1 = torch.zeros(1, dtype=torch.bool, device=dev)
-    same_w = torch.cat([zero1, (kw_c[:, 1:] == kw_c[:, :-1]).all(dim=0)])
-    prev_is_ep = torch.cat([zero1, posB[1:] == posB[:-1] + 1])
-    same_prev_ep = torch.where(prev_is_ep, same_w, eq_c & (ub_c > 0))
-
-    # Bit-packed merged planes, ONE scatter over all N3 slots: bit0
-    # is_hist, bit1 cwb, bit2 cwe, bit3 same_prev, bits4+ source column in
-    # the concatenated [history | sorted endpoints] key matrix.
-    iota_c = _arange(C, dev)
-    val_a = (iota_c < n).to(I32) + (iota_c << 4)
-    val_b = ((cwb << 1) + (cwe << 2) + (same_prev_ep.to(I32) << 3)
-             + ((C + sidx) << 4))
-    merged = scatter_new(N3, 0, torch.cat([posA, posB]),
-                         torch.cat([val_a, val_b]), "set")
-    is_h_m = merged & 1
-    cwb_m = (merged >> 1) & 1
-    cwe_m = (merged >> 2) & 1
-    same_prev_m = ((merged >> 3) & 1).to(torch.bool)
-    src_m = merged >> 4
-
-    cum_h = cumsum32(is_h_m)
-    cum_wb = cumsum32(cwb_m)
-    cum_we = cumsum32(cwe_m)
-
-    # Runs of equal keys: segment ends via a reversed running minimum.
-    iota = _arange(N3, dev)
-    is_start = ~same_prev_m
-    ns = torch.cummin(torch.where(is_start, iota, N3).flip(0), 0).values.flip(0)
-    next_start = torch.cat([ns[1:], torch.full((1,), N3, dtype=I32, device=dev)])
-    end_idx = next_start - 1
-
-    at_end = torch.stack([cum_h, cum_wb, cum_we])[:, end_idx]
-    covered = at_end[1] > at_end[2]
-    old_val = hv[torch.clamp(at_end[0] - 1, 0, C - 1)]
-    val = torch.where(covered, version, old_val)
-    # Stale clamp + rebase to the new base (= absolute oldest_eff); the
-    # clamp is inclusive, as in ConflictSetCPU._gc.
-    val = torch.where(val <= oldest_eff, 0, val - oldest_eff)
-
-    valid_pt = is_h_m | cwb_m | cwe_m
-    cum_v = cumsum32(valid_pt)
-    seg_base = torch.cummax(torch.where(is_start, cum_v - valid_pt, -1), 0).values
-    first_valid = (valid_pt == 1) & (cum_v == seg_base + 1)
-
-    # Compaction 1 — run representatives to the front (dump slot N3, .max
-    # keeps the result independent of scatter order).
-    cum_fv = cumsum32(first_valid.to(I32))
-    dest1 = torch.where(first_valid, cum_fv - 1, N3)
-    m1 = cum_fv[N3 - 1]
-    csrc = scatter_new(N3 + 1, 0, dest1, src_m, "max")[:N3]
-    cval = scatter_new(N3 + 1, 0, dest1, val, "max")[:N3]
-
-    # Coalesce equal adjacent step values.
-    in1 = iota < m1
-    prev_val = torch.cat([torch.full((1,), -1, dtype=I32, device=dev), cval[:-1]])
-    keep2 = in1 & ((iota == 0) | (cval != prev_val))
-    cum2 = cumsum32(keep2.to(I32))
-    new_n = cum2[N3 - 1]
-
-    # Compaction 2 — into the C-capacity state (dump slot C).
-    dest2 = torch.where(keep2, torch.clamp(cum2 - 1, max=C), C)
-    src2 = scatter_new(C + 1, 0, dest2, csrc, "max")[:C]
-    hv_new = scatter_new(C + 1, 0, dest2, cval, "max")[:C]
-
-    # Materialize keys from [history | sorted endpoints] in one gather.
-    all_keys = torch.cat([hkeys, smat], dim=1)
-    live = iota_c < new_n
-    picked = all_keys[:, torch.clamp(src2, 0, C + P2 - 1)]
-    pad_col = _pad_col(W, dev, with_value=False)
-    keys_out = torch.where(live[None, :], picked, pad_col[:, None])
-    hv_out = torch.where(live, hv_new, 0)
-    hmat_out = torch.cat([keys_out, hv_out[None, :]], dim=0)
-
-    overflow = new_n > C
-    return hmat_out, new_n, block.st_aux_ref(too_old, conflict, new_n,
-                                              overflow, p2_iters)
+    return compact.dense_phase3(
+        hmat, n, smat=smat, s_begin=s_begin, s_end=s_end, wtxn=wtxn,
+        w_valid=w_valid, conflict=conflict, too_old=too_old, ub=ub, eq=eq,
+        version=version, oldest_eff=oldest_eff, p2_iters=p2_iters)
 
 
 def _block_probe(hkeys, qmat, start, B: int):
@@ -359,66 +219,18 @@ def _compact_resolve_impl(hmat, counts, fused, *, lay: FusedLayout,
                           NB: int, NB_out: int, B: int):
     """Amortized compaction + resolve (tpu.py:924): densify, drop superset
     duplicates (last wins), run the DENSE kernel, redistribute into NB_out
-    blocks at fill B//2 and rebuild the directory. Returns (hmat',
-    counts', btree', fences', n', st_aux), all fresh tensors."""
-    W = lay.n_words
-    C = NB * B
-    C_out = NB_out * B
-    F = B // 2
-    dev = hmat.device
-    pad_col = _pad_col(W, dev)
-
-    # Densify: global position of slot (k, i) = prefix[k] + i.
-    slot = _arange(C, dev)
-    k = slot // B
-    j = slot % B
-    prefix = cumsum32(counts) - counts
-    live = j < counts[k]
-    dense_pos = torch.where(live, prefix[k] + j, C)
-    dense = scatter_cols_new(pad_col, C, dense_pos, hmat)
-    m = counts.sum(dtype=I32)
-
-    # Dedup equal-key runs, last wins.
-    dk = dense[: W + 1]
-    same_next = torch.cat([
-        (dk[:, 1:] == dk[:, :-1]).all(dim=0),
-        torch.zeros(1, dtype=torch.bool, device=dev),
-    ])
-    keep = (~same_next) & (slot < m)
-    cum = cumsum32(keep.to(I32))
-    m2 = cum[C - 1]
-    dest = torch.where(keep, cum - 1, C)
-    dense2 = scatter_cols_new(pad_col, C, dest, dense)
-
+    blocks at fill B//2 and rebuild the directory (compact.densify, the
+    dense kernel, compact.redistribute: on the card six kernel launches
+    and phase 2's geometry ops). hmat (W+2, NB*B) and counts (NB,) are
+    the block state. Returns (hmat', counts', btree', fences', n',
+    st_aux), all fresh tensors."""
+    if hmat.shape[1] != NB * B:
+        raise ValueError(f"hmat has {hmat.shape[1]} columns, NB*B = {NB * B}")
+    dense2, m2 = compact.densify(hmat, counts, B=B)
     hmat_d, new_n, st_aux = _resolve_kernel_impl(dense2, m2, fused, lay=lay)
-
-    # Redistribute into NB_out blocks at fill F; fences = each block's
-    # minimum key; segment tree rebuilt bottom-up.
-    blk_o = slot // F
-    dest_o = torch.where(
-        (slot < new_n) & (blk_o < NB_out), blk_o * B + (slot % F), C_out
-    )
-    out = scatter_cols_new(pad_col, C_out, dest_o, hmat_d).contiguous()
-    ib = _arange(NB_out, dev) * F
-    counts_o = torch.clamp(new_n - ib, 0, F)
-    fsrc = torch.clamp(ib, 0, C - 1)
-    fvalid = ib < new_n
-    fences_o = torch.where(
-        fvalid[None, :], hmat_d[: W + 1][:, fsrc], pad_col[: W + 1][:, None]
-    )
-    lv = out[W + 1].reshape(NB_out, B).amax(dim=1)
-    bt = torch.zeros(2 * NB_out, dtype=I32, device=dev)
-    bt[NB_out:] = lv
-    size = NB_out
-    while size > 1:
-        size //= 2
-        bt[size: 2 * size] = bt[2 * size: 4 * size].reshape(size, 2).amax(dim=1)
-    # The fill layout must hold the canonical set (reported through the
-    # same overflow byte).
-    st_aux[lay.T + 4] = torch.maximum(
-        st_aux[lay.T + 4], (new_n > NB_out * F).to(torch.int8)
-    )
-    return out, counts_o, bt, fences_o.contiguous(), new_n, st_aux
+    out, counts_o, bt, fences_o = compact.redistribute(
+        hmat_d, new_n, st_aux, NB_out=NB_out, B=B)
+    return out, counts_o, bt, fences_o, new_n, st_aux
 
 
 def _touched_blocks(fences_enc: np.ndarray, wb_enc, we_enc, nw: int):

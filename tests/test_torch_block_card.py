@@ -11,7 +11,8 @@ cases: config-5-like traffic with range reads across many blocks, writes
 to history keys and to each other, B of 8 to 64, wide keys, fast steps
 with pad rows in the touched list and one at a lower version (a falling
 leaf, which takes the level-by-level tree update), a block filled to B -
-1, and the wrappers' refusals. The kernels have no CPU mode: without a
+1, chains at B 512 and 1,024 (the compaction kernels held to their plain
+versions too), and the wrappers' refusals. The kernels have no CPU mode: without a
 card every case skips. Run on a machine with a card:
 
     python -m pytest tests/test_torch_block_card.py -m cuda -q
@@ -37,6 +38,7 @@ from foundationdb_tpu_torch.kv.keys import KeyRange
 from foundationdb_tpu_torch.resolver import block, gpu
 from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
 from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
+from test_torch_compact_card import CheckedCompact
 
 
 @pytest.fixture
@@ -209,15 +211,38 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="shape"):
         block.phase3(cs.hmat, cs.counts, cs.btree, cs.n, K=1, NB=cs.NB,
                      B=cs.B, **kw)
-    big = torch.zeros((cs.n_words + 2, cs.NB * 512), dtype=torch.int32,
-                      device=card)
-    P2 = dec[0].shape[1]
-    kw.update(conflict=torch.zeros(pb.layout.T, dtype=torch.int32,
-                                   device=card),
-              bid=torch.zeros(P2, dtype=torch.int32, device=card),
-              lb_loc=torch.zeros(P2, dtype=torch.int32, device=card),
-              eq_loc=torch.zeros(P2, dtype=torch.int32, device=card),
-              g_ids=torch.zeros(1, dtype=torch.int32, device=card))
-    with pytest.raises(ValueError, match="B up to"):
-        block.phase3(big, cs.counts, cs.btree, cs.n, K=1, NB=cs.NB, B=512,
-                     **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,seed", [(512, 8), (1024, 9)])
+def test_large_blocks_chain_kernels_equal_plain(card, B, seed):
+    """Blocks past 256 slots (phase 3 keeps their merge rows in its
+    scratch, not in shared memory): a chain of fast steps and compactions
+    through ConflictSetGPU on the card, every block and compaction kernel
+    call equal to its plain version, statuses and entries() equal to
+    ConflictSetCPU's."""
+    rng = np.random.default_rng(seed)
+    old = SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES
+    SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES = 4
+    try:
+        cs = gpu.ConflictSetGPU(max_key_bytes=9, initial_capacity=8 * B,
+                                block_slots=B, device=card)
+        ora = ConflictSetCPU()
+        v = 1000
+        with Checked() as chk, CheckedCompact() as cchk:
+            for i in range(10):
+                v += 60
+                hot = history_keys(ora) if i else None
+                raw = raw_batch(rng, int(rng.integers(2, 60)), v, space=4000,
+                                lag=150, span=600, hot=hot)
+                got = cs.resolve(v, v - 300, port_txns(raw)).statuses
+                want = ora.resolve(v, v - 300, port_txns(raw)).statuses
+                assert list(got) == list(want), i
+        assert cs.entries() == ora.entries()
+    finally:
+        SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES = old
+    assert cs.fast_resolves > 0 and cs.compactions >= 2
+    assert chk.launches() == chk.calls
+    assert chk.calls["phase3"] == cs.fast_resolves
+    assert cchk.launches() == cchk.calls == {
+        k: cs.compactions for k in cchk.calls}

@@ -1,0 +1,207 @@
+"""The compaction kernels of csrc/compact.cu (densify, ranks, dense phase 3,
+redistribute) against their plain versions in resolver/compact.py, on a
+card.
+
+Every case runs gpu.py's dense or compaction kernel (or a whole
+ConflictSetGPU) on the card with compact.py's four dispatchers wrapped:
+each call launches the kernel and runs the plain version on the same
+CUDA tensors (redistribute's in-place st_aux on a copy), and every output
+must agree bit for bit; the launches are counted, one of each kernel per
+compaction. The whole result is held against the same function on CPU
+tensors too. The cases are tests/_torch_compact_cases.py's: an empty
+history, a full dense state (the rank walk's saturation, phase 3's
+overflow), reads with rank_b = 0, pad queries, wide keys, equal-key runs
+across block boundaries, growing and shrinking compactions, a fill layout
+too small for the set, and B of 8, 32 and 512; and a chain through
+ConflictSetGPU against ConflictSetCPU. The kernels have no CPU mode:
+without a card every case skips. Run on a machine with a card:
+
+    python -m pytest tests/test_torch_compact_card.py -m cuda -q
+
+This file imports no JAX (the JAX differential is
+tests/test_torch_compact.py, on the CPU).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_block_cases import history_keys, raw_batch
+from _torch_compact_cases import (
+    BLOCK_CASES,
+    DENSE_CASES,
+    block_case,
+    dense_case,
+    port_txns,
+)
+from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+from foundationdb_tpu_torch.resolver import compact, gpu
+from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the compaction kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def same(got, want, what):
+    assert got.dtype == want.dtype, what
+    assert got.shape == want.shape, what
+    assert torch.equal(got.cpu(), want.cpu()), what
+
+
+class CheckedCompact:
+    """compact.densify/ranks/dense_phase3/redistribute (what gpu.py calls)
+    wrapped: on a CUDA tensor the kernel and the plain version both run
+    and must agree; the calls are counted by kernel."""
+
+    KERNELS = ("densify", "ranks", "dense_phase3", "redistribute")
+
+    def __init__(self):
+        self.calls = {k: 0 for k in compact.LAUNCHES}
+
+    def __enter__(self):
+        self._real = tuple(getattr(compact, k) for k in self.KERNELS)
+        dens, ranks, p3, red = self._real
+
+        def d(hmat, counts, *, B):
+            got = dens(hmat, counts, B=B)
+            if hmat.is_cuda:
+                want = compact.densify_ref(hmat, counts, B=B)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    same(g, w, f"densify output {i}")
+                self.calls["densify"] += 1
+            return got
+
+        def r(*args):
+            got = ranks(*args)
+            if args[0].is_cuda:
+                want = compact.ranks_ref(*args)
+                for g, w, what in zip(got, want, ("ub", "eq", "base_conf")):
+                    same(g, w, what)
+                self.calls["ranks"] += 1
+            return got
+
+        def p(hmat, n, **kw):
+            got = p3(hmat, n, **kw)
+            if hmat.is_cuda:
+                want = compact.dense_phase3_ref(hmat, n, **kw)
+                for g, w, what in zip(got, want, ("hmat_out", "new_n",
+                                                  "st_aux")):
+                    same(g, w, what)
+                self.calls["dense_phase3"] += 1
+            return got
+
+        def rd(hmat_d, new_n, st_aux, *, NB_out, B):
+            if not hmat_d.is_cuda:
+                return red(hmat_d, new_n, st_aux, NB_out=NB_out, B=B)
+            st2 = st_aux.clone()
+            want = compact.redistribute_ref(hmat_d, new_n, st2,
+                                            NB_out=NB_out, B=B)
+            got = red(hmat_d, new_n, st_aux, NB_out=NB_out, B=B)
+            for g, w, what in zip((*got, st_aux), (*want, st2),
+                                  ("hmat", "counts", "btree", "fences",
+                                   "st_aux")):
+                same(g, w, what)
+            self.calls["redistribute"] += 1
+            return got
+
+        for k, f in zip(self.KERNELS, (d, r, p, rd)):
+            setattr(compact, k, f)
+        self.n0 = dict(compact.LAUNCHES)
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in zip(self.KERNELS, self._real):
+            setattr(compact, k, f)
+
+    def launches(self):
+        return {k: compact.LAUNCHES[k] - self.n0[k] for k in compact.LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_cases_equal_plain(card, case):
+    hm, n, pb = dense_case(case)
+    args = (torch.from_numpy(hm), torch.tensor(n, dtype=torch.int32),
+            torch.from_numpy(pb.buf))
+    want = gpu._resolve_kernel_impl(*args, lay=pb.layout)
+    with CheckedCompact() as chk:
+        got = gpu._resolve_kernel_impl(*(a.to(card) for a in args),
+                                       lay=pb.layout)
+    for g, w, what in zip(got, want, ("hmat", "new_n", "st_aux")):
+        same(g, w, what)
+    assert chk.launches() == chk.calls == {
+        "densify": 0, "ranks": 1, "dense_phase3": 1, "redistribute": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLOCK_CASES)
+def test_block_cases_equal_plain(card, case):
+    hm, counts, pb, NB, NB_out, B = block_case(case, device=card)
+    args = (torch.from_numpy(hm), torch.from_numpy(counts),
+            torch.from_numpy(pb.buf))
+    kw = dict(lay=pb.layout, NB=NB, NB_out=NB_out, B=B)
+    want = gpu._compact_resolve_impl(*args, **kw)
+    with CheckedCompact() as chk:
+        got = gpu._compact_resolve_impl(*(a.to(card) for a in args), **kw)
+    for g, w, what in zip(got, want, ("hmat", "counts", "btree", "fences",
+                                      "new_n", "st_aux")):
+        same(g, w, what)
+    assert chk.launches() == chk.calls == {k: 1 for k in compact.LAUNCHES}
+    assert int(got[5][pb.layout.T + 4]) == (case == "overflow")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,seed", [(8, 0), (32, 1), (512, 2)])
+def test_chain_kernels_equal_plain(card, B, seed):
+    """Batches through ConflictSetGPU on the card, fast steps and
+    compactions mixed: every compaction kernel call equals its plain
+    version, one of each per compaction; statuses and entries() equal
+    ConflictSetCPU's."""
+    rng = np.random.default_rng(seed)
+    most = {8: 6}.get(B, 40)
+    old = SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES
+    SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES = 4
+    try:
+        cs = gpu.ConflictSetGPU(max_key_bytes=9,
+                                initial_capacity=max(4096, 8 * B),
+                                block_slots=B, device=card)
+        ora = ConflictSetCPU()
+        v = 1000
+        with CheckedCompact() as chk:
+            for i in range(12):
+                v += 60
+                raw = raw_batch(rng, int(rng.integers(2, most)), v,
+                                space=3000, lag=150, span=400,
+                                hot=history_keys(ora) if i else None)
+                got = cs.resolve(v, v - 300, port_txns(raw)).statuses
+                want = ora.resolve(v, v - 300, port_txns(raw)).statuses
+                assert list(got) == list(want), i
+        assert cs.entries() == ora.entries()
+    finally:
+        SERVER_KNOBS.TPU_COMPACT_EVERY_BATCHES = old
+    assert cs.compactions >= 2 and cs.fast_resolves >= 1
+    n = chk.launches()
+    assert n == chk.calls == {k: cs.compactions for k in compact.LAUNCHES}
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    hm, counts, pb, NB, NB_out, B = block_case("b32")
+    h = torch.from_numpy(hm)
+    with pytest.raises(ValueError, match="CUDA"):
+        compact.densify_launch(h, torch.from_numpy(counts), B=B)
+    with pytest.raises(TypeError):
+        compact.densify(h.to(card).to(torch.int64),
+                        torch.from_numpy(counts).to(card), B=B)
+    with pytest.raises(ValueError, match="shape"):
+        compact.densify(h.to(card), torch.from_numpy(counts).to(card),
+                        B=2 * B)
+    z = torch.zeros((), dtype=torch.int32, device=card)
+    st = torch.zeros(pb.layout.T + 6, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="power of two"):
+        compact.redistribute(h.to(card), z, st, NB_out=3, B=B)

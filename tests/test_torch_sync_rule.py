@@ -28,8 +28,11 @@ sharded.py calls the kernels of gpu.py, so its analysis sees gpu.py's
 functions too, its own taking precedence where a name is in both; the
 three resolver modules see resolver/phase2.py, where phase 2's rounds
 are, and gpu.py and sharded.py see resolver/block.py, where the block
-kernel's decode, phase 1 and phase 3 are: on a CUDA tensor each launches
-its kernel with no host sync and never reaches its plain version.
+kernel's decode, phase 1 and phase 3 are, and resolver/compact.py, where
+the compaction's densify, ranks, phase 3 and redistribution are, and
+resolver/_launch.py, whose run_entry makes each launch: on a CUDA tensor
+each launches its kernel with no host sync and never reaches its plain
+version.
 """
 
 import ast
@@ -45,7 +48,8 @@ MODULES = {
         "consume": {"verdicts"},
         "departures": {"phase2_rounds_ref", "_refresh_mirror",
                        "_grow_width"},
-        "sees": ("resolver/phase2.py", "resolver/block.py"),
+        "sees": ("resolver/phase2.py", "resolver/block.py",
+                 "resolver/compact.py", "resolver/_launch.py"),
     },
     "resolver/sharded.py": {
         "dispatch": {"submit"},
@@ -53,6 +57,7 @@ MODULES = {
         "departures": {"phase2_rounds_ref", "_refresh_mirror",
                        "_grow_width"},
         "sees": ("resolver/phase2.py", "resolver/block.py",
+                 "resolver/compact.py", "resolver/_launch.py",
                  "resolver/gpu.py"),
     },
     "storage_engine/gpu_engine.py": {
@@ -235,12 +240,44 @@ def test_block_cuda_branch_never_reaches_the_plain_version(rel, kernel):
     launch = f"{kernel}_launch"
     assert {kernel, launch} <= reach
     cuda = closure({launch}, fns)
+    assert "run_entry" in cuda
     assert not [name for name in cuda if name.endswith("_ref")]
     assert not [t for name in cuda for fn in fns[name]
                 for _, t in sync_calls(fn)]
     (fn,) = fns[kernel]
     calls, guarded = cpu_guarded_calls(fn, f"{kernel}_ref")
     assert calls and calls == guarded
+
+
+@pytest.mark.parametrize("rel", ["resolver/gpu.py", "resolver/sharded.py"])
+@pytest.mark.parametrize("kernel", ["densify", "ranks", "dense_phase3",
+                                    "redistribute"])
+def test_compact_cuda_branch_never_reaches_the_plain_version(rel, kernel):
+    """On a CUDA tensor compact.py's dispatcher launches the kernel: the
+    launch's path makes no host sync and never calls a plain version
+    (`*_ref`), and the dispatcher calls its plain version only under its
+    CPU test."""
+    _, fns, reach, _ = analyse(rel)
+    launch = f"{kernel}_launch"
+    assert {kernel, launch} <= reach
+    cuda = closure({launch}, fns)
+    assert "run_entry" in cuda
+    assert not [name for name in cuda if name.endswith("_ref")]
+    assert not [t for name in cuda for fn in fns[name]
+                for _, t in sync_calls(fn)]
+    (fn,) = fns[kernel]
+    calls, guarded = cpu_guarded_calls(fn, f"{kernel}_ref")
+    assert calls and calls == guarded
+
+
+def test_compact_plain_versions_make_no_host_sync():
+    """compact.py holds to the no-host-read rule as a whole: submit on a
+    CPU set runs its plain versions, so neither they nor the launches
+    read the device."""
+    fns = functions(ast.parse((ROOT / "resolver/compact.py").read_text()))
+    bad = [f"{name}:{line}: {text}" for name, defs in fns.items()
+           for fn in defs for line, text in sync_calls(fn)]
+    assert not bad, bad
 
 
 def test_rankfed_gc_round_reads_the_version_vector_once():
