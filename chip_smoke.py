@@ -48,8 +48,9 @@ Phases (each prints one line; any failure exits nonzero):
    records, 5% inserts), 720 batches of 128 operations each, at pipeline
    depth 2, the version 10,000 on per batch, forget_before once per 100
    batches. Every reply and each leg's entries() equal an independent
-   VersionedMap fed the same writes; the probe launches once per submit;
-   submit_reads makes no host sync (plain, delta fold, compaction).
+   VersionedMap fed the same writes; the probe and the read gather
+   (csrc/read.cu) launch once each per submit; submit_reads makes no
+   host sync (plain, delta fold, compaction).
 6. the transaction system: the port's LocalCluster under its sim_loop,
    ConflictSetGPU (2^21 slots) behind the resolver role and
    KeyValueStoreGPU behind the storage server's read batcher, knobs at
@@ -100,7 +101,8 @@ Phases (each prints one line; any failure exits nonzero):
 
 10. `[rankfed]`: BASELINE config 5 as in phase 4 through
    ConflictSetRankFed (keys in a sorted host mirror, one int32 version
-   vector of 2^23 slots on the card, the kernel as torch ops): 4 batches
+   vector of 2^23 slots on the card, phases 1 and 3 in csrc/rankfed.cu
+   around phase 2, one launch each a batch): 4 batches
    (RANKFED_BATCHES; 24, 12, 8, then 6, before) of 65,536 txns (converted to
    TxnConflictInfo lists first) through
    prepare/pack/resolve_async at depth 4, one GC round on the cadence;
@@ -251,7 +253,15 @@ count the compaction kernels' launches (csrc/compact.cu: densify, ranks,
 dense_phase3 and redistribute, one each per compaction or shard step of
 one) and keep their last compaction's operands, on which each is held
 bit-exact against its plain version, timed and bounded
-(`[compact-<kernel>-<path>]`).
+(`[compact-<kernel>-<path>]`). Phase 2's geometry runs inside the
+phase-2 kernel on those paths; on each one's last operands that form is
+held against the operand form, its prologue timed as their difference
+(`[phase2-geometry-<path>]`). [storage] and [cluster] count the read
+gather's launches (one per probe launch on the window) and hold its last
+batch bit-exact (`[read-<path>]`); [rankfed] counts phases 1 and 3 (one
+each per batch) and holds its last batch (`[rankfed-phase1]`,
+`[rankfed-phase3]`). Every profiled batch is led by PROFILE_PAD spin
+kernels that its counts leave out (profile_batch).
 
 Then one JSON line with the kernel table (the probe on each path: resolver,
 storage-B, storage-E, cluster-resolver, cluster-storage, sharded,
@@ -270,9 +280,9 @@ where the shape fits it (ab_ms); the block kernels decode_fused, phase1
 and phase3 on [full]'s (resolver), [sharded]'s and [cluster]'s
 (cluster-resolver) last operands; the compaction kernels densify, ranks,
 dense_phase3 and redistribute on the same three paths' last compactions;
-and the rank-fed kernel,
-route "torch"), the
-card's name and power limit,
+phase 2's geometry on the same three paths; the read gather on
+storage-B, storage-E and cluster-storage; and the rank-fed phases 1 and
+3 on [rankfed]'s last batch), the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Without a CUDA card it
 exits nonzero and prints no result.
 """
@@ -384,6 +394,15 @@ SEED_AS_TORCH_OPS_DEVICE_OPS = 12_880
 # phase 3 as torch ops (H100 80GB HBM3, 700 W; PERF.md)
 TORCH_BLOCK_DEVICE_OPS = 8_344
 CHUNK_RANGE = "fdb-chunk-"  # profiler range around one chunk's dispatch
+# Spin kernels (torch.cuda._sleep) that lead every profiled window, and
+# their kernel's name in the trace (profile_batch).
+PROFILE_PAD = 256
+PAD_KERNEL = "spin_kernel"
+# The hand-written kernels' names as a trace shows them (csrc/*.cu).
+HAND_KERNELS = ("probe_kernel", "read_kernel", "grid_kernel", "block_kernel",
+                "decode_kernel", "rankfed_phase1_kernel",
+                "rankfed_phase3_kernel", "phase1_kernel", "phase3_kernel",
+                "densify_kernel", "ranks_kernel", "redist_kernel")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12      # H100 non-tensor 32-bit peak (fp32 column)
 
@@ -592,11 +611,12 @@ class Phase2Tap:
                                 if k != "groups"})
                 shape = (base_conf.shape[0], kw["rtxn"].shape[0],
                          kw["wtxn"].shape[0], kw["n_leaves"])
+                geo = kw.get("q_end") is not None
                 lim = phase2.device_limits(base_conf.device)
-                tier = phase2.choose_tier(*shape, lim)[0]
+                tier = phase2.choose_tier(*shape, lim, geo=geo)[0]
                 # both tiers can run it, then its most items a thread
-                key = (phase2.block_bytes(*shape) <= lim["smem_per_block"],
-                       max(shape[:3]))
+                key = (phase2.block_bytes(*shape, geo)
+                       <= lim["smem_per_block"], max(shape[:3]))
                 kept = self.by_tier.setdefault(tier, {"launches": 0})
                 kept["launches"] += phase2.LAUNCHES - n0
                 if key >= kept.get("key", (False, -1)):
@@ -617,24 +637,29 @@ def phase2_bound(cap: dict, rounds: int) -> tuple[float, str]:
     the larger of its bytes, every operand it reads read once (base_conf
     4 T, and conflict0 4 T where there is no seed: a seeded call does
     not read it; rtxn, lo, hi and leaf 16 R, perm, seg_lo, seg_hi and
-    wtxn 16 Wr, w_valid Wr) and the output written once (4 T + 4), over
-    the memory rate, and its operations over the 32-bit integer
+    wtxn 16 Wr, w_valid Wr; in the geometry form q_end in place of lo and
+    hi, 12 R, and no perm, 12 Wr) and the output written once (4 T + 4),
+    over the memory rate, and its operations over the 32-bit integer
     peak: per round, per read a min over its leaf's ancestors, a
     range-min, a compare and a max (log2 n_leaves + 4), per write a
     gather, a compare and a select (3), per txn a max and a compare (2);
     with the seed, one more such round and n_jump jumps of 3 gathers per
-    txn and the sentinel (3 (T + 1)). The rounds re-read operands that
+    txn and the sentinel (3 (T + 1)); with the geometry, a bit and a rank
+    a write (2), two ranks a read (2) and a clear and a count a slot word
+    (n_leaves / 16). The rounds re-read operands that
     fit in L2 (under 12 MB of the card's 50 MB at the smoke's sizes), so
     only the first read crosses HBM."""
     from foundationdb_tpu_torch.resolver.phase2 import n_jump
 
     T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
     seeded = bool(cap.get("seed"))
-    t_bytes = ((12 - 4 * seeded) * T + 4 + 16 * R + 17 * Wr
-               ) / HBM_BYTES_PER_S * 1e3
+    geo = cap.get("q_end") is not None
+    t_bytes = ((12 - 4 * seeded) * T + 4 + (16 - 4 * geo) * R
+               + (17 - 4 * geo) * Wr) / HBM_BYTES_PER_S * 1e3
     ops = (rounds + seeded) * (R * (cap["n_leaves"].bit_length() + 4)
                                + 3 * Wr + 2 * T)
     ops += seeded * n_jump(T) * 3 * (T + 1)
+    ops += geo * (2 * Wr + 2 * R + -(-cap["n_leaves"] // 16))
     t_ops = ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -646,12 +671,14 @@ def phase2_tiers(cap: dict) -> dict:
 
     T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
     L = cap["n_leaves"]
+    geo = cap.get("q_end") is not None
     lim = phase2.device_limits(cap["base_conf"].device)
-    name, size, _ = phase2.choose_tier(T, R, Wr, L, lim)
+    name, size, _ = phase2.choose_tier(T, R, Wr, L, lim, geo=geo)
     tiers = {name: size}
     if name == "block":
-        tiers["grid"] = phase2.choose_tier(T, R, Wr, L, lim, "grid")[1]
-    elif phase2.block_bytes(T, R, Wr, L) <= lim["smem_per_block"]:
+        tiers["grid"] = phase2.choose_tier(T, R, Wr, L, lim, "grid",
+                                           geo=geo)[1]
+    elif phase2.block_bytes(T, R, Wr, L, geo) <= lim["smem_per_block"]:
         tiers["block"] = 1
     return tiers
 
@@ -726,8 +753,10 @@ def phase2_entry(path: str, cap: dict, launches: int, smi: str,
     T, R, Wr = (cap[k].shape[0] for k in ("base_conf", "rtxn", "wtxn"))
     size = {"grid_blocks": tiers["grid"]} if "grid" in tiers else {}
     seeded = bool(cap.get("seed"))
+    geo = cap.get("q_end") is not None
     log(f"phase2-{path}", smi=json.dumps(smi), T=T, R=R, Wr=Wr,
-        n_leaves=cap["n_leaves"], rounds=rounds, seed=seeded, tier=rule,
+        n_leaves=cap["n_leaves"], rounds=rounds, seed=seeded, geometry=geo,
+        tier=rule,
         **size, max_abs_err=err, **fmt_times(t),
         ab_ms=json.dumps(ab), bound_ms=f"{bound_ms:.7f}",
         bound_by=bound_by, launches=launches)
@@ -737,7 +766,89 @@ def phase2_entry(path: str, cap: dict, launches: int, smi: str,
             "max_abs_err": err, "ms": t["ms"], "ms_cold": t["ms_cold"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "rounds": rounds,
-            "tier": rule, **size, "seed": seeded, "ab_ms": ab}
+            "tier": rule, **size, "seed": seeded, "geometry": geo,
+            "ab_ms": ab}
+
+
+def geometry_bound(cap: dict) -> tuple[float, str]:
+    """Least ms for phase 2's geometry as a function (tpu.py:358-365):
+    its inputs read once (s_begin 4 Wr, q_begin and q_end 8 R) and its
+    outputs written once (perm 4 Wr, lo and hi 8 R) over the memory rate,
+    against its operations (a clear and a count a slot, a bit and a rank
+    a write, two ranks a read) over the integer rate."""
+    R, Wr = cap["rtxn"].shape[0], cap["wtxn"].shape[0]
+    t_bytes = 4 * (2 * Wr + 4 * R) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * cap["n_leaves"] + 2 * Wr + 2 * R) / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def geometry_entry(path: str, cap: dict, launches: int, smi: str) -> dict:
+    """Phase 2's geometry, inside the kernel's geometry form, on one
+    path's last operands: the geometry form held bit for bit against the
+    operand form given geometry_ref's perm, lo and hi (the plain version
+    of the prologue) on the card; the prologue's time as the geometry
+    form's minus the operand form's, both under the rule's tier, warm in
+    turns (geometry, operands, operands, geometry, 50 launches a reading)
+    and cold; geometry_ref's time as the plain version's; its bound."""
+    import torch
+    from foundationdb_tpu_torch.resolver import phase2
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
+
+    args = (cap["base_conf"], cap["conflict0"], cap["it0"], cap["cap"])
+    kw = {k: v for k, v in cap.items() if k not in (
+        "base_conf", "conflict0", "it0", "cap", "launches", "key")}
+    ref = (kw["seg_lo"], kw["leaf"], kw["q_end"], kw["n_leaves"])
+    perm, lo, hi = phase2.geometry_ref(*ref)
+    ops = {k: v for k, v in kw.items() if k != "q_end"}
+    ops.update(perm=perm, lo=lo, hi=hi)
+    tier = next(iter(phase2_tiers(cap)))
+    n0 = phase2.LAUNCHES
+    got = phase2.phase2_rounds_launch(*args, tier=tier, **kw)
+    via = phase2.phase2_rounds_launch(*args, tier=tier, **ops)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, via))
+    if err:
+        fail(f"phase2-geometry-{path}: the geometry form disagrees with the "
+             f"operand form: max |diff| {err}")
+    forms = {"geometry": kw, "operands": ops}
+
+    def run(form):
+        return lambda: phase2.phase2_rounds_launch(*args, tier=tier,
+                                                   **forms[form])
+
+    ab = {k: [] for k in forms}
+    for k in ("geometry", "operands", "operands", "geometry"):
+        ab[k].append(device_ms(run(k), n=50))
+    flush = l2_flusher(cap["base_conf"].device)
+    cold = {k: device_ms(run(k), flush=flush) for k in forms}
+    phase2.LAUNCHES = n0   # comparison launches do not count
+    t = {"ms": float(np.mean(ab["geometry"]) - np.mean(ab["operands"])),
+         "ms_cold": cold["geometry"] - cold["operands"],
+         "plain_ms": device_ms(lambda: phase2.geometry_ref(*ref))}
+    bound_ms, bound_by = geometry_bound(cap)
+    R, Wr = cap["rtxn"].shape[0], cap["wtxn"].shape[0]
+    log(f"phase2-geometry-{path}", smi=json.dumps(smi), R=R, Wr=Wr,
+        P2=cap["n_leaves"], tier=tier, max_abs_err=err, **fmt_times(t),
+        ab_ms=json.dumps(ab), cold_ms=json.dumps(cold),
+        bound_ms=f"{bound_ms:.7f}", bound_by=bound_by, launches=launches)
+    return {"name": "phase2_geometry", "route": "cuda",
+            "source": "foundationdb_tpu_torch/csrc/phase2.cu",
+            "replaces": "foundationdb_tpu/resolver/tpu.py:358", "path": path,
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "ms_cold": t["ms_cold"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tier": tier, "ab_ms": ab, "cold_ms": cold}
+
+
+def phase2_entries(path: str, cap: dict, launches: int, smi: str,
+                   replaces: str) -> list:
+    """phase2_entry, and geometry_entry where the path's calls take the
+    geometry form."""
+    out = [phase2_entry(path, cap, launches, smi, replaces)]
+    if cap.get("q_end") is not None:
+        out.append(geometry_entry(path, cap, launches, smi))
+    return out
 
 
 P2_REPLACES = {"gpu": "foundationdb_tpu/resolver/tpu.py:435",
@@ -1460,8 +1571,12 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
     `batch_ms`. `host_ops=False` traces the device only (a run of
     seconds of host work records too many host ops to sum quickly);
     `on_trace`, if given, receives the profiler after the run.
-    Returns (device busy ms, device ops), or None when the trace holds no
-    device time."""
+    PROFILE_PAD spin kernels lead the window and are left out of every
+    count: the trace drops the first device records of a window, more of
+    them the older the process (PERF.md §6), and a batch of a few
+    launches would otherwise lose them; the line logs how many of the
+    pad the trace kept. Returns (device busy ms, device ops), or None
+    when the trace holds no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1471,6 +1586,9 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
     if host_ops:
         activities.insert(0, ProfilerActivity.CPU)
     with profile(activities=activities) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     if on_trace is not None:
@@ -1478,9 +1596,12 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
     # Device-side events only (kernels, copies): the CPU ops that launched
     # them report the same device time again, and a chunk's profiler range
     # (CHUNK_RANGE) spans its kernels' time on the device once more.
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-           and not e.key.startswith(CHUNK_RANGE)]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith(CHUNK_RANGE)]
+    dev = [e for e in events if PAD_KERNEL not in e.key]
+    pad_kept = sum(e.count for e in events if PAD_KERNEL in e.key)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     launches = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
@@ -1490,6 +1611,13 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
     probe_events = [(e.key[:40], str(e.device_type).split(".")[-1], e.count,
                      e.self_device_time_total) for e in prof.key_averages()
                     if "probe" in e.key.lower()]
+    # the hand-written kernels' device events: count and device ms by name
+    hand = {}
+    for e in dev:
+        name = next((k for k in HAND_KERNELS if k in e.key), None)
+        if name:
+            n, us = hand.get(name, (0, 0.0))
+            hand[name] = (n + e.count, us + e.self_device_time_total)
     log(phase, smi=json.dumps(smi),
         device_busy_ms=f"{busy_ms:.3f}" if dev else "not measured",
         device_ops=launches, batch_ms=f"{batch_ms:.3f}",
@@ -1498,6 +1626,9 @@ def profile_batch(run, batch_ms: float, phase: str = "full-profile",
         probe_kernel_count=sum(e.count for e in pk),
         probe_share=f"{pk_ms / busy_ms:.4f}" if pk and busy_ms else "not measured",
         probe_events=json.dumps(probe_events),
+        pad_kept=f"{pad_kept}/{PROFILE_PAD}",
+        hand_kernels=json.dumps({k: (n, round(us / 1e3, 4))
+                                 for k, (n, us) in sorted(hand.items())}),
         top=json.dumps([(e.key[:48], round(e.self_device_time_total / 1e3, 4),
                          e.count) for e in top]))
     return (busy_ms, launches) if dev else None
@@ -1813,27 +1944,107 @@ def zipf_scrambled(rng, n: int, count: int) -> np.ndarray:
     return fnv64(r) % count
 
 
-def read_kernel_bound(cap: dict, D: int, P: int, R: int,
-                      S: int) -> tuple[float, str]:
-    """Least time for one storage read dispatch (gpu_engine
-    _read_kernel_impl, torch ops around the probe) at this batch's shapes:
-    the probe's walks on the captured queries (probe_walk_bound), the
-    delta window read once (D columns of W2 words), the points' base and
-    delta predecessor columns (W2 words and a slot each), the ranges'
-    base and delta spans (S slots of version, next flag and slot each),
-    the read versions, and the aux vector written once, over the memory
-    rate; against the probe's compares over the integer rate."""
-    q = cap["smat"]
-    W2 = q.shape[0]
-    t_probe, by = probe_walk_bound(cap["hkeys"].cpu().numpy(),
-                                   cap["fences"].cpu().numpy(),
-                                   q.cpu().numpy(), cap["NB"], cap["B"])
-    nbytes = (4 * W2 * D + 2 * 4 * (W2 + 2) * P + 2 * 12 * R * S + 4 * R
+class ReadTap:
+    """The storage read gather (storage_engine/read.py, csrc/read.cu on the
+    card) while the block is open, as gpu_engine calls it: its launches
+    (read.LAUNCHES) and the last call's operands, kept by reference (the
+    window replaces its tensors and builds the queries fresh per batch)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.captured = {}
+
+    def __enter__(self) -> "ReadTap":
+        from foundationdb_tpu_torch.storage_engine import gpu_engine, read
+
+        real = self._real = gpu_engine.read_gather
+
+        def read_gather(*args, **meta):
+            n0 = read.LAUNCHES["read_gather"]
+            out = real(*args, **meta)
+            self.launches += read.LAUNCHES["read_gather"] - n0
+            self.captured = dict(zip(read.OPERANDS, args), **meta)
+            return out
+
+        gpu_engine.read_gather = read_gather
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from foundationdb_tpu_torch.storage_engine import gpu_engine
+
+        gpu_engine.read_gather = self._real
+
+
+def read_kernel_bound(cap: dict) -> tuple[float, str]:
+    """Least time for the read gather (csrc/read.cu) on one batch, counted
+    from what the kernel must move: the probe's bid and pos and the
+    queries read once, the delta columns its walks read (W2 words each),
+    each point's base and delta predecessor column (W2 words and a slot
+    each), each range's read version and its base and delta spans (S
+    slots of version, next flag and slot, and the lookahead's version),
+    and the aux vector written once, over the memory rate; against its
+    compares (W2 words a walk step and an equality test) over the
+    integer rate."""
+    q = cap["qall"]
+    W2, Q = q.shape
+    P, R, S = cap["P"], cap["R"], cap["S"]
+    D = cap["dmat"].shape[1]
+    _, _, cols, _ = walk_columns(cap["dmat"].cpu().numpy(), q.cpu().numpy(),
+                                 0, D, with_eq=False)
+    walked = len(cols)
+    nbytes = (8 * Q + 4 * W2 * Q + 4 * W2 * walked
+              + 2 * P * (4 * W2 + 4) + R * (4 + 2 * (12 * S + 4))
               + 4 * (6 * P + 4 * R + 6 * R * S))
-    t_rest = nbytes / HBM_BYTES_PER_S * 1e3
-    if by == "bytes":
-        return t_probe + t_rest, "bytes"
-    return max(t_probe, t_rest), "operations" if t_probe >= t_rest else "bytes"
+    ops = Q * W2 * (D.bit_length() - 1) + 2 * P * W2 + 2 * R * S * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def read_entry(path: str, cap: dict, launches: int, smi: str) -> dict:
+    """The read gather's kernel held against its plain version on one
+    path's last operands on the card, bit for bit (fails otherwise),
+    timed warm (50 launches an event pair) and cold (after an L2 flush),
+    its plain version timed, bounded, logged: one kernel-table entry."""
+    import torch
+    from foundationdb_tpu_torch.storage_engine import read
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
+
+    if not cap:
+        fail(f"{path}: the read kernel was never called on the card")
+    ts = {k: cap[k] for k in read.OPERANDS}
+    meta = {k: cap[k] for k in ("P", "R", "S", "F", "NB", "B")}
+    n0 = dict(read.LAUNCHES)
+    got = read.read_gather_launch(ts, **meta)
+    want = read.read_gather_ref(*ts.values(), **meta)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"{path}: read kernel aux {tuple(got.shape)} vs plain "
+             f"{tuple(want.shape)}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if err:
+        fail(f"{path}: the read kernel disagrees with its plain version: "
+             f"max |diff| {err}")
+    flush = l2_flusher(got.device)
+    t = {"ms": device_ms(lambda: read.read_gather_launch(ts, **meta), n=50),
+         "ms_cold": device_ms(lambda: read.read_gather_launch(ts, **meta),
+                              flush=flush),
+         "plain_ms": device_ms(lambda: read.read_gather_ref(*ts.values(),
+                                                            **meta))}
+    for k, v in n0.items():   # comparison launches do not count
+        read.LAUNCHES[k] = v
+    bound_ms, bound_by = read_kernel_bound(cap)
+    shape = dict(W2=cap["qall"].shape[0], **meta, D=cap["dmat"].shape[1])
+    log(f"read-{path}", smi=json.dumps(smi), **shape, max_abs_err=err,
+        **fmt_times(t), bound_ms=f"{bound_ms:.7f}", bound_by=bound_by,
+        launches=launches)
+    return {"name": "read_gather", "route": "cuda",
+            "source": "foundationdb_tpu_torch/csrc/read.cu",
+            "replaces": "foundationdb_tpu/storage_engine/tpu_engine.py:113",
+            "path": path, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "ms_cold": t["ms_cold"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **shape}
 
 
 def probe_walk_bound(hkeys, fences, q, NB: int, B: int) -> tuple[float, str]:
@@ -1844,31 +2055,38 @@ def probe_walk_bound(hkeys, fences, q, NB: int, B: int) -> tuple[float, str]:
     compares over the integer rate; whichever is larger. The directory
     and blocks no walk reaches are not counted."""
     W1, P2 = q.shape
-
-    def walk(mat, start, width):
-        pos = np.zeros(P2, dtype=np.int64)
-        seen, steps = set(), 0
-        s = width // 2
-        while s >= 1:
-            col = np.clip(start + pos + s - 1, 0, mat.shape[1] - 1)
-            seen.update(col.tolist())
-            lt, _ = lex_lt_eq(mat[:, col], q)
-            pos += lt * s
-            s //= 2
-            steps += 1
-        col = np.clip(start + pos, 0, mat.shape[1] - 1)
-        seen.update(col.tolist())
-        _, eq = lex_lt_eq(mat[:, col], q)
-        return pos, eq, seen, steps + 1
-
-    lb, eq, fcols, fsteps = walk(fences, 0, NB)
+    lb, eq, fcols, fsteps = walk_columns(fences, q, 0, NB)
     bid = lb + eq - 1
-    _, _, hcols, hsteps = walk(hkeys, np.clip(bid, 0, NB - 1) * B, B)
+    _, _, hcols, hsteps = walk_columns(hkeys, q, np.clip(bid, 0, NB - 1) * B,
+                                       B)
     nbytes = 4 * W1 * (len(fcols) + len(hcols) + P2) + 12 * P2
     ops = P2 * W1 * (fsteps + hsteps)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def walk_columns(mat, q, start, width, with_eq: bool = True):
+    """The halving walk of queries q (W1, P2) over `width` columns of mat
+    from `start` (tpu.py's `_lower_rank` and block probe), numpy: (rank,
+    equality at it, the columns read, the steps taken); with_eq=False
+    leaves the equality step out (the rank alone)."""
+    pos = np.zeros(q.shape[1], dtype=np.int64)
+    seen, steps = set(), 0
+    s = width // 2
+    while s >= 1:
+        col = np.clip(start + pos + s - 1, 0, mat.shape[1] - 1)
+        seen.update(col.tolist())
+        lt, _ = lex_lt_eq(mat[:, col], q)
+        pos += lt * s
+        s //= 2
+        steps += 1
+    if not with_eq:
+        return pos, None, seen, steps
+    col = np.clip(start + pos, 0, mat.shape[1] - 1)
+    seen.update(col.tolist())
+    _, eq = lex_lt_eq(mat[:, col], q)
+    return pos, eq, seen, steps + 1
 
 
 def lex_lt_eq(h, q):
@@ -2119,10 +2337,17 @@ def phase_storage(rng, smi: str = "", device=None,
     load = StorageLoad(rng, eng, ora, n_records, v0)
     out = {}
     gpu_engine.probe_ranks = recording_probe
+    r_tap = ReadTap().__enter__()
     try:
         for leg in ("B", "E"):
+            r_tap.launches = 0
             launches, batch_ms = storage_leg(load, leg, n_batches, smi)
-            out[leg] = dict(captured, launches=launches)
+            if eng.device.type == "cuda" and r_tap.launches != launches:
+                fail(f"storage leg {leg}: {r_tap.launches} read-kernel "
+                     f"launches for {launches} probe launches, one each "
+                     "wanted")
+            out[leg] = dict(captured, launches=launches,
+                            read=(dict(r_tap.captured), r_tap.launches))
             if eng.device.type == "cuda":
                 points, ranges = load.batch(scans=leg == "E")
                 shape = []
@@ -2139,13 +2364,21 @@ def phase_storage(rng, smi: str = "", device=None,
                 P, R, S = shape[0]
                 log(f"storage-{leg}-d2h", P=P, R=R, S=S,
                     aux_bytes_per_batch=4 * (6 * P + 4 * R + 6 * R * S))
-                bound_ms, bound_by = read_kernel_bound(
-                    captured, eng._d_dmat.shape[1], P, R, S)
+                # the dispatch's least time: the probe's walks, then
+                # the read gather
+                t_probe, by_p = probe_walk_bound(
+                    captured["hkeys"].cpu().numpy(),
+                    captured["fences"].cpu().numpy(),
+                    captured["smat"].cpu().numpy(), captured["NB"],
+                    captured["B"])
+                t_read, by_r = read_kernel_bound(r_tap.captured)
                 log(f"storage-{leg}-read-bound", smi=json.dumps(smi),
-                    P=P, R=R, S=S, bound_ms=f"{bound_ms:.7f}",
-                    bound_by=bound_by)
+                    P=P, R=R, S=S, bound_ms=f"{t_probe + t_read:.7f}",
+                    probe_bound_ms=f"{t_probe:.7f}", probe_bound_by=by_p,
+                    read_bound_ms=f"{t_read:.7f}", read_bound_by=by_r)
     finally:
         gpu_engine.probe_ranks = real_probe
+        r_tap.__exit__()
     if eng.device.type == "cuda":
         # one compaction alone, to the end of its upload
         sync(eng.device)
@@ -2519,7 +2752,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
         0, max_key_bytes=16, initial_capacity=capacity, device=device),
         replays.send)
     with ProbeTap() as tap, Phase2Tap() as p2_tap, BlockTap() as b_tap, \
-            CompactTap() as c_tap:
+            CompactTap() as c_tap, ReadTap() as r_tap:
         with loop_context(loop):
             cluster = LocalCluster(conflict_set=cs, device=device)
             win = CheckedWindow(cluster.storage.data)
@@ -2622,12 +2855,16 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
         delta_folds=win.eng.c_delta_folds.total,
         span_fallbacks=win.eng.c_span_fallbacks.total,
         probe_launches=launches["storage"],
-        probe_launches_per_batch=f"{launches['storage'] / len(win.reads):.2f}")
+        probe_launches_per_batch=f"{launches['storage'] / len(win.reads):.2f}",
+        read_launches=r_tap.launches)
     if card:
         for path in ("resolver", "storage"):
             if launches[path] <= 0:
                 fail(f"cluster: the probe kernel was not launched on the "
                      f"{path} path")
+        if r_tap.launches != launches["storage"]:
+            fail(f"cluster: {r_tap.launches} read-kernel launches for "
+                 f"{launches['storage']} storage probe launches")
         if not p2_tap.by_tier:
             fail("cluster: the phase-2 kernel was not launched")
 
@@ -2702,6 +2939,7 @@ def phase_cluster(rng, smi: str = "", device=None, nodes: int = 1000,
         f"cluster-resolver-{t}": c for t, c in p2_tap.by_tier.items()}
     paths["cluster-resolver"]["block"] = (b_tap.captured, b_tap.launches)
     paths["cluster-resolver"]["compact"] = (c_tap.captured, c_tap.launches)
+    paths["cluster-storage"]["read"] = (r_tap.captured, r_tap.launches)
     return paths
 
 
@@ -3398,11 +3636,11 @@ def phase_sharded_cluster(rng, smi: str = "", device=None,
 
 
 class RankTap:
-    """The rank-fed kernel (resolver/rankfed.py `_rank_kernel_impl`, torch
-    ops on the set's device) while the block is open: its calls on the card
-    counted (`launches`) and the last call's operands kept (the kernel
-    replaces the version vector and the fused buffer is fresh per batch,
-    so references do)."""
+    """The rank-fed resolve (resolver/rankfed.py `_rank_kernel_impl`:
+    phase 1, phase 2 and phase 3, a kernel each on the card) while the
+    block is open: its calls on the card counted (`launches`) and the last
+    call's operands kept (it replaces the version vector and the fused
+    buffer is fresh per batch, so references do)."""
 
     def __init__(self):
         self.launches = 0
@@ -3428,15 +3666,37 @@ class RankTap:
         rankfed._rank_kernel_impl = self._real
 
 
-def rank_kernel_entry(tap: RankTap, launches: int, busy, smi: str) -> dict:
-    """The rank-fed kernel's table entry: its output on the card held
-    against the same torch ops on the CPU (the last main-path operands),
-    the profiled batch's device busy ms and op count, the wall of one
-    synchronized call on the card, and its bytes bound."""
+def rankfed_bounds(lay) -> dict:
+    """Least ms of each rank-fed kernel on its inputs, bytes over the
+    memory rate (each reads hv once; their other operands and outputs
+    once): phase 1 hv 4 C, rank_b, rank_e, rsnap, rtxn, qb2 and the leaf
+    out 24 R, too_old and base_conf 8 T, w_valid in and out 5 Wr; phase 3
+    hv in and hv_new out 8 C, conflict, too_old and the statuses 12 T,
+    wtxn and w_valid 8 Wr, ub_c and wsrc 8 M, the scalars 12. Their
+    operations (a few a slot) are far below the integer rate."""
+    p1 = 4 * lay.C + 24 * lay.R + 8 * lay.T + 5 * lay.Wr
+    p3 = 8 * lay.C + 12 * lay.T + 8 * lay.Wr + 8 * lay.M + 12
+    return {k: (b / HBM_BYTES_PER_S * 1e3, "bytes")
+            for k, b in (("phase1", p1), ("phase3", p3))}
+
+
+def rank_kernel_entries(tap: RankTap, launches: dict, busy,
+                        smi: str) -> list:
+    """The rank-fed resolve on its last main-path operands: the whole of
+    it (phases 1-3 on the card) against the same call on the CPU, the
+    profiled batch's device busy ms and op count, the wall of one
+    synchronized call; then each of its two csrc/rankfed.cu kernels held
+    against its plain version on the card bit for bit, timed warm and
+    cold, its plain version timed, bounded: one kernel-table entry each
+    (phase 2's is phase2_entry's)."""
     import torch
+    from foundationdb_tpu_torch.resolver import rankfed, rankfed_ops
+    from foundationdb_tpu_torch.timing import device_ms, l2_flusher
 
     hv, fused, lay = (tap.captured[k] for k in ("hv", "fused", "lay"))
     real = tap._real
+    n0 = dict(rankfed_ops.LAUNCHES)
+    p0 = rankfed.phase2.LAUNCHES
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3447,33 +3707,76 @@ def rank_kernel_entry(tap: RankTap, launches: int, busy, smi: str) -> dict:
     want = real(hv.cpu(), fused.cpu(), lay=lay)
     err = max(int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max())
               for g, w in zip(got, want))
-    # Least bytes: the version vector and the fused buffer read once, the
-    # new vector and the statuses written once (int32).
-    io_bytes = 4 * (lay.C + lay.total + lay.C + lay.T)
-    bound_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-    # As built: _build_table writes log2(C) + 1 rows of C int32 (and reads
-    # each one back), phase 3 writes ~8 arrays over the merged C + M slots.
-    built = 4 * lay.C * 2 * lay.C.bit_length() + 4 * 8 * (lay.C + lay.M)
+    if err:
+        fail(f"rankfed: the resolve on the card differs from the CPU by {err}")
     ms = busy[0] if busy else None
     log("rankfed-kernel", smi=json.dumps(smi), C=lay.C, R=lay.R, Wr=lay.Wr,
         T=lay.T, max_abs_err=err,
         device_busy_ms=f"{ms:.4f}" if ms else "not measured",
         device_ops=busy[1] if busy else "not measured",
         call_wall_ms=f"{sorted(walls)[1]:.4f}",
-        bound_ms=f"{bound_ms:.6f}", bytes=io_bytes,
-        bytes_as_built=built,
-        bound_ms_as_built=f"{built / HBM_BYTES_PER_S * 1e3:.6f}",
-        launches=launches)
-    if err:
-        fail(f"rankfed: the kernel on the card differs from the CPU by {err}")
-    return {"name": "_rank_kernel_impl", "route": "torch",
-            "source": "foundationdb_tpu_torch/resolver/rankfed.py",
-            "replaces": "foundationdb_tpu/resolver/rankfed.py:183",
-            "path": "rankfed", "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": sorted(walls)[1], "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None,
-            "device_ops": busy[1] if busy else None,
-            "bound_ms_as_built": built / HBM_BYTES_PER_S * 1e3}
+        bound_ms=f"{sum(b for b, _ in rankfed_bounds(lay).values()):.6f}",
+        launches=json.dumps(launches))
+
+    def sl(name, size):
+        off = getattr(lay, "off_" + name)
+        return fused[off:off + size]
+
+    R, Wr, T, M = lay.R, lay.Wr, lay.T, lay.M
+    kw1 = dict(rank_b=sl("rank_b", R), rank_e=sl("rank_e", R),
+               rsnap=sl("rsnap", R), rtxn=sl("rtxn", R),
+               too_old=sl("too_old", T), qb2=sl("qb2", R),
+               w_valid=sl("w_valid", Wr))
+    ts1 = dict(hv=hv, **kw1)
+    base_conf, leaf, valid = rankfed_ops.phase1(hv, **kw1, M=M)
+    conflict = rankfed._phase2_fixed_point(
+        base_conf, wb2=sl("wb2", Wr), we2=sl("we2", Wr), leaf=leaf,
+        loA=sl("loA", R), hiA=sl("hiA", R), perm=sl("perm", Wr),
+        rtxn=sl("rtxn", R), wtxn=sl("wtxn", Wr), w_valid=valid, T=T, M=M)
+    kw3 = dict(wtxn=sl("wtxn", Wr), w_valid=sl("w_valid", Wr),
+               ub_c=sl("ub_c", M), wsrc=sl("wsrc", M),
+               too_old=sl("too_old", T),
+               scalars=fused[lay.off_scalars:lay.off_scalars + 3])
+    ts3 = dict(hv=hv, conflict=conflict, **kw3)
+    runs = {
+        "phase1": (lambda: rankfed_ops.phase1_launch(ts1, M=M),
+                   lambda: rankfed_ops.phase1_ref(hv, **kw1, M=M)),
+        "phase3": (lambda: rankfed_ops.phase3_launch(ts3),
+                   lambda: rankfed_ops.phase3_ref(hv, conflict, **kw3)),
+    }
+    replaces = {"phase1": "foundationdb_tpu/resolver/rankfed.py:210",
+                "phase3": "foundationdb_tpu/resolver/rankfed.py:255"}
+    bounds = rankfed_bounds(lay)
+    flush = l2_flusher(hv.device)
+    out = []
+    for kernel, (fn, pfn) in runs.items():
+        g, w = fn(), pfn()
+        torch.cuda.synchronize()
+        e = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in zip(g, w))
+        if e:
+            fail(f"rankfed: the {kernel} kernel disagrees with its plain "
+                 f"version: max |diff| {e}")
+        del g, w
+        t = {"ms": device_ms(fn, n=50), "ms_cold": device_ms(fn, flush=flush),
+             "plain_ms": device_ms(pfn)}
+        bound_ms, bound_by = bounds[kernel]
+        log(f"rankfed-{kernel}", smi=json.dumps(smi), C=lay.C, R=R, Wr=Wr,
+            T=T, M=M, max_abs_err=e, **fmt_times(t),
+            bound_ms=f"{bound_ms:.7f}", bound_by=bound_by,
+            launches=launches[kernel])
+        out.append({"name": f"rankfed_{kernel}", "route": "cuda",
+                    "source": "foundationdb_tpu_torch/csrc/rankfed.cu",
+                    "replaces": replaces[kernel], "path": "rankfed",
+                    "launches": launches[kernel], "max_abs_err": e,
+                    "ms": t["ms"], "ms_cold": t["ms_cold"],
+                    "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None,
+                    "resolve_busy_ms": ms,
+                    "resolve_ops": busy[1] if busy else None})
+    rankfed_ops.LAUNCHES.update(n0)   # comparison launches do not count
+    rankfed.phase2.LAUNCHES = p0
+    return out
 
 
 def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
@@ -3493,7 +3796,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
     phase-2 kernel on this path (none on the CPU) and the check against
     the replay, to call once it may wait for it."""
     import torch
-    from foundationdb_tpu_torch.resolver import phase2
+    from foundationdb_tpu_torch.resolver import phase2, rankfed_ops
     from foundationdb_tpu_torch.resolver.rankfed import ConflictSetRankFed
 
     t_phase = time.perf_counter()
@@ -3542,6 +3845,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
 
         tap.launches = 0
         phase2.LAUNCHES = 0
+        rankfed_ops.LAUNCHES.update(phase1=0, phase3=0)
         gc0 = rf.gc_rounds
         sync(dev)
         for i in range(n_batches):
@@ -3573,10 +3877,15 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
         launches = tap.launches
         p2_launches = phase2.LAUNCHES
         p2_cap = dict(p2_tap.captured, launches=p2_launches)
+        k_launches = dict(rankfed_ops.LAUNCHES)
         gc_rounds = rf.gc_rounds - gc0
         if card and launches != n_batches:
-            fail(f"rankfed: {launches} kernel launches on the card for "
+            fail(f"rankfed: {launches} resolves on the card for "
                  f"{n_batches} batches")
+        if card and k_launches != {"phase1": n_batches,
+                                   "phase3": n_batches}:
+            fail(f"rankfed: kernel launches {k_launches} for {n_batches} "
+                 "batches (one of each a batch)")
         if card and p2_launches < n_batches:
             fail(f"rankfed: {p2_launches} phase-2 kernel launches for "
                  f"{n_batches} batches")
@@ -3597,7 +3906,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
             key_bytes=rf.max_key_bytes,
             p2_reads_per_batch=f"{sum(p2) / len(p2):.2f}",
             launches=launches, phase2_launches=p2_launches,
-            cpu_twin_batches=2,
+            kernel_launches=json.dumps(k_launches), cpu_twin_batches=2,
             convert_s=f"{convert_s:.2f}")
         log("rankfed-stages", **{
             f"p50_{k}": f"{np.percentile(x, 50):.2f}"
@@ -3643,7 +3952,7 @@ def phase_rankfed(rng, smi: str = "", device=None, n_txn: int = 65536,
                 fail(f"rankfed: a GC round made {gc_syncs} host syncs, 1 "
                      "expected")
         entries = rf.entries()
-    table = ([rank_kernel_entry(tap, launches, busy, smi),
+    table = ([*rank_kernel_entries(tap, k_launches, busy, smi),
               phase2_entry("rankfed", p2_cap, p2_launches, smi,
                            P2_REPLACES["rankfed"])] if card else [])
     del p2_cap
@@ -6324,7 +6633,11 @@ def main() -> int:
         ptxas_block=json.dumps(
             _build.ptxas_summary(_build.BUILD_LOG.get("block", ""))),
         ptxas_compact=json.dumps(
-            _build.ptxas_summary(_build.BUILD_LOG.get("compact", ""))))
+            _build.ptxas_summary(_build.BUILD_LOG.get("compact", ""))),
+        ptxas_read=json.dumps(
+            _build.ptxas_summary(_build.BUILD_LOG.get("read", ""))),
+        ptxas_rankfed=json.dumps(
+            _build.ptxas_summary(_build.BUILD_LOG.get("rankfed", ""))))
     log("build", kernels=json.dumps(sorted(_build.SOURCES)),
         probe_nvcc_s=f"{build_s:.2f}",
         host_tier_gxx_s=f"{native_s['libfdbtpu_native']:.2f}",
@@ -6375,8 +6688,8 @@ def main() -> int:
                         ms_cold=t["ms_cold"], plain_ms=t["plain_ms"],
                         bound_ms=bound_ms, bound_by=bound_by))
     # Phase 2's kernel on [full]'s last chunk.
-    kernels.append(phase2_entry("resolver", p2_cap, p2_cap["launches"],
-                                smi, P2_REPLACES["gpu"]))
+    kernels += phase2_entries("resolver", p2_cap, p2_cap["launches"], smi,
+                              P2_REPLACES["gpu"])
     # The block kernels on [full]'s last chunks.
     kernels += block_entries("resolver", b_cap, b_launches, smi)
     # The compaction kernels on [full]'s last compaction.
@@ -6408,6 +6721,7 @@ def main() -> int:
                             ms=t["ms"], ms_cold=t["ms_cold"],
                             plain_ms=t["plain_ms"], bound_ms=bound_ms,
                             bound_by=bound_by))
+        kernels.append(read_entry(f"storage-{leg}", *cap["read"], smi))
     del legs, cap, h, f, q
     phase_wall("storage")
     for name, phase in (("cluster", lambda rng, smi: phase_cluster(
@@ -6429,11 +6743,15 @@ def main() -> int:
                   if "compact" in c}
         shards = {k: c.pop("shards") for k, c in paths.items()
                   if "shards" in c}
+        r_caps = {k: c.pop("read") for k, c in paths.items() if "read" in c}
         kernels += probe_entries(paths, smi, base)
+        # the read kernel on [cluster]'s storage window's last batch
+        for path, (rc, rl) in r_caps.items():
+            kernels.append(read_entry(path, rc, rl, smi))
         # [cluster]'s last batch under each tier, [sharded]'s last step
         for path, c in p2_caps.items():
-            kernels.append(phase2_entry(path, c, c["launches"], smi,
-                                        P2_REPLACES["gpu"]))
+            kernels += phase2_entries(path, c, c["launches"], smi,
+                                      P2_REPLACES["gpu"])
         # the block kernels on [cluster]'s and [sharded]'s last fast step
         for path, (bc, bl) in b_caps.items():
             kernels += block_entries(path, bc, bl, smi)
@@ -6451,7 +6769,7 @@ def main() -> int:
             log(f"{path}-step-bound", smi=json.dumps(smi),
                 kernels=len(step), shards=n_shards, bound_ms=f"{bound:.7f}",
                 bound_by="+".join(sorted({k["bound_by"] for k in step})))
-        del paths, p2_caps, b_caps, c_caps, shards
+        del paths, p2_caps, b_caps, c_caps, shards, r_caps
         phase_wall(name)
     entries, rankfed_check = phase_rankfed(
         rng, smi, full_txns_per_s=full_rate, n_batches=RANKFED_BATCHES)

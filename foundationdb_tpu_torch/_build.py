@@ -23,7 +23,9 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = {"probe": _PKG / "csrc" / "probe.cu",
            "phase2": _PKG / "csrc" / "phase2.cu",
            "block": _PKG / "csrc" / "block.cu",
-           "compact": _PKG / "csrc" / "compact.cu"}
+           "compact": _PKG / "csrc" / "compact.cu",
+           "read": _PKG / "csrc" / "read.cu",
+           "rankfed": _PKG / "csrc" / "rankfed.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -50,7 +50,8 @@
 //   table: the kernel builds maxima of 32, 1,024, ... slots (C / 31 words)
 //   and answers each of tpu.py's two power-of-two windows from them,
 //   with the table's edges (a window past C takes the identity 0, an
-//   empty range gives 0, a negative lo clips to 0). Ranking against the
+//   empty range gives 0, a negative lo clips to 0): grid.cuh's Levels,
+//   which rankfed.cu's phase 1 shares. Ranking against the
 //   block state before densify (the probe) would need the columns dedup
 //   drops subtracted again, so the walk runs on the dense state.
 // - phase3: the write endpoints are compacted in sorted order by a scan
@@ -80,78 +81,10 @@ namespace {
 using namespace fdb;
 
 constexpr int kStatusConflict = 1, kStatusTooOld = 2;  // types.py
-constexpr int kFan = 32;  // slots a range-maximum level folds
 
 __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);  // int32 wrap, as XLA's
 }
-
-// Exclusive prefix sums over n elements of K int32 values each, across
-// the grid, in three stages the caller separates by grid barriers:
-// tiles_stage (each tile's sums), sums_stage (the tile sums' prefixes in
-// place, and the totals after them), apply_stage (each element's
-// prefixes, to put). val(i, v) fills element i's K values; it must give
-// the same values in both stages that call it. Value c's tile sums and
-// total take tiles(n) + 1 words of tsum from c * (tiles(n) + 1).
-template <int K>
-struct TupleScan {
-  long long n;
-  __host__ __device__ static long long tiles(long long n) {
-    return (n + kThreads - 1) / kThreads;
-  }
-  __host__ __device__ static long long words(long long n) {
-    return K * (tiles(n) + 1);
-  }
-  __device__ int32_t total(const int32_t* tsum, int c) const {
-    return ld(tsum + c * (tiles(n) + 1) + tiles(n));
-  }
-  template <class V>
-  __device__ void tiles_stage(int32_t* tsum, int32_t* ws, V val) const {
-    const long long nt = tiles(n);
-    for (long long b = blockIdx.x; b < nt; b += gridDim.x) {
-      const long long i = b * kThreads + threadIdx.x;
-      int32_t v[K], ex[K], tot[K];
-      for (int c = 0; c < K; ++c) v[c] = 0;
-      if (i < n) val(i, v);
-      block_excl_k<K>(v, ex, tot, ws);
-      if (threadIdx.x == 0)
-        for (int c = 0; c < K; ++c) tsum[c * (nt + 1) + b] = tot[c];
-    }
-  }
-  __device__ void sums_stage(int32_t* tsum, int32_t* ws) const {
-    const long long nt = tiles(n);
-    for (int c = blockIdx.x; c < K; c += gridDim.x) {
-      int32_t* t = tsum + c * (nt + 1);
-      int32_t carry = 0;
-      for (long long b = 0; b < nt; b += kThreads) {
-        const long long i = b + threadIdx.x;
-        const int32_t v = i < nt ? ld(t + i) : 0;
-        int32_t tot;
-        const int32_t ex = block_excl(v, ws, &tot);
-        if (i < nt) t[i] = add32(carry, ex);
-        carry = add32(carry, tot);
-      }
-      if (threadIdx.x == 0) t[nt] = carry;
-    }
-  }
-  template <class V, class P>
-  __device__ void apply_stage(const int32_t* tsum, int32_t* ws, V val,
-                              P put) const {
-    const long long nt = tiles(n);
-    for (long long b = blockIdx.x; b < nt; b += gridDim.x) {
-      const long long i = b * kThreads + threadIdx.x;
-      int32_t v[K], ex[K], tot[K];
-      for (int c = 0; c < K; ++c) v[c] = 0;
-      if (i < n) val(i, v);
-      block_excl_k<K>(v, ex, tot, ws);
-      if (i < n) {
-        for (int c = 0; c < K; ++c)
-          ex[c] = add32(ld(tsum + c * (nt + 1) + b), ex[c]);
-        put(i, v, ex);
-      }
-    }
-  }
-};
 
 // Key rows 0..W of column x of a (rows, ld) matrix and column y of
 // another: whether the first is lexicographically smaller (signed words,
@@ -263,32 +196,6 @@ __global__ void __launch_bounds__(kThreads) densify_kernel(DensifyArgs a) {
 
 // ------------------------------------------------------------------ ranks
 
-// Range-maximum levels over the version row: level 0 is the row (C
-// slots), level l + 1 folds kFan slots of level l, up to a level of at
-// most kFan slots.
-struct Levels {
-  int n;                      // levels past 0
-  long long size[8], off[8];  // level l's slots, and its offset in the
-                              // scratch for l >= 1
-  __host__ __device__ void init(long long C) {
-    n = 0;
-    long long s = C, o = 0;
-    size[0] = C;
-    while (s > kFan && n < 7) {
-      s = (s + kFan - 1) / kFan;
-      ++n;
-      size[n] = s;
-      off[n] = o;
-      o += s;
-    }
-  }
-  __host__ __device__ long long words() const {
-    long long w = 0;
-    for (int l = 1; l <= n; ++l) w += size[l];
-    return w;
-  }
-};
-
 struct RanksArgs {
   const int32_t* hmat;     // (W + 2, C) dense state
   const int32_t* smat;     // (W + 1, P2) sorted endpoints
@@ -305,35 +212,6 @@ struct RanksArgs {
   int W, P2, R, T;
   long long C;
 };
-
-// max of the version row over [x, y) (0 <= x < y <= C), INT32_MIN for
-// an empty one.
-__device__ int32_t range_max(const RanksArgs& a, const int32_t* hv,
-                             const int32_t* lvls, long long x, long long y) {
-  int32_t m = INT32_MIN;
-  for (int l = 0;; ++l) {
-    const int32_t* cur = l ? lvls + a.lv.off[l] : hv;
-    const long long xa = (x + kFan - 1) / kFan * kFan, yb = y / kFan * kFan;
-    if (l == a.lv.n || xa >= yb) {
-      for (long long i = x; i < y; ++i) m = max(m, ld(cur + i));
-      return m;
-    }
-    for (long long i = x; i < xa; ++i) m = max(m, ld(cur + i));
-    for (long long i = yb; i < y; ++i) m = max(m, ld(cur + i));
-    x = xa / kFan;
-    y = yb / kFan;
-  }
-}
-
-// Row m of tpu.py's max table at i: the maximum over [i, i + w) with the
-// identity 0 standing in for the slots past C.
-__device__ int32_t table_entry(const RanksArgs& a, const int32_t* hv,
-                               const int32_t* lvls, long long i,
-                               long long w) {
-  const long long end = i + w;
-  int32_t m = range_max(a, hv, lvls, i, end < a.C ? end : a.C);
-  return end > a.C ? max(m, 0) : m;
-}
 
 __global__ void __launch_bounds__(kThreads) ranks_kernel(RanksArgs a) {
   const Grid g;
@@ -355,35 +233,14 @@ __global__ void __launch_bounds__(kThreads) ranks_kernel(RanksArgs a) {
     a.eq[q] = e;
     a.ub[q] = a.smat[W * P2 + q] == kInf ? (int32_t)C : (int32_t)pos + e;
   });
-  for (int l = 1; l <= a.lv.n; ++l) {
-    const int32_t* src = l > 1 ? lvls + a.lv.off[l - 1] : hv;
-    const long long n_src = a.lv.size[l - 1];
-    g.each(a.lv.size[l], [&](long long i) {
-      int32_t m = INT32_MIN;
-      const long long e = (i + 1) * kFan < n_src ? (i + 1) * kFan : n_src;
-      for (long long k = i * kFan; k < e; ++k) m = max(m, ld(src + k));
-      lvls[a.lv.off[l] + i] = m;
-    });
-    g.sync();
-  }
-  if (!a.lv.n) g.sync();
+  a.lv.build(g, hv, lvls);
   // Last stage: each read's history maximum over [rank_b - 1, rank_e) by
   // tpu.py's two overlapping power-of-two windows.
   g.each(a.R, [&](long long i) {
     const int32_t hi = ld(lb + gat(a.q_end[i], P2));
     const int32_t lo = add32(ld(a.ub + gat(a.q_begin[i], P2)), -1);
-    int32_t hist = 0;
-    if (hi > lo) {
-      const int32_t len = sub32(hi, lo);
-      const int m = 31 - __clz(len > 1 ? len : 1);
-      const long long w = 1LL << m;
-      const long long i1 = lo < 0 ? 0 : (lo > C - 1 ? C - 1 : lo);
-      long long i2 = (long long)hi - w;
-      i2 = i2 < 0 ? 0 : (i2 > C - 1 ? C - 1 : i2);
-      hist = max(table_entry(a, hv, lvls, i1, w),
-                 table_entry(a, hv, lvls, i2, w));
-    }
-    if (hist > a.rsnap[i]) a.base_conf[gat(a.rtxn[i], a.T)] = 1;
+    if (a.lv.window_max(hv, lvls, lo, hi, 64) > a.rsnap[i])
+      a.base_conf[gat(a.rtxn[i], a.T)] = 1;
   });
 }
 

@@ -1,13 +1,14 @@
 // Phase 2 of the resolver, the intra-batch fixed point, for Hopper (sm_90a).
 //
-// Replaces what follows the geometry in the JAX package's
-// foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (:385-437: the
-// pointer-jumping seed, then the verification `lax.while_loop`, run by
-// the block and dense kernels) and the verification loop of
+// Replaces the JAX package's
+// foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (:358-437: the
+// geometry, the pointer-jumping seed, then the verification
+// `lax.while_loop`, run by the block and dense kernels) and the
+// verification loop of
 // foundationdb_tpu/resolver/rankfed.py::_rank_kernel_impl (:223-253, no
 // seed). Both are XLA-jitted; neither reaches a pallas_call. The plain
 // torch version is foundationdb_tpu_torch/resolver/phase2.py
-// `phase2_rounds_ref`.
+// `phase2_rounds_ref` (with `geometry_ref` for the geometry).
 //
 // Why it exists: the resolvers' dispatch contract. The JAX package's
 // submit enqueues its whole resolve and never waits for the device; its
@@ -37,6 +38,20 @@
 //   c_{j+1} = max(base, ev); repeat while c changes and it < cap.
 // The counter starts at it0 (the seed's n_jump, or 0) and is returned.
 //
+// The geometry (tpu.py:358-365), where the caller passes q_end in place
+// of perm, lo and hi (the block and dense kernels; the rank-fed set's
+// host computes all three): the operands are then s_begin = seg_lo,
+// q_begin = leaf and P2 = L, and the prologue computes
+//   wb_excl[p] = #write begins at slots < p   (is_wb = s_begin's slots)
+//   lo[r] = wb_excl[q_begin[r]], hi[r] = wb_excl[q_end[r]]
+//   perm[wb_excl[s_begin[w]]] = w            (0 where nothing lands)
+// with tpu.py's index rules (a scatter drops an index out of range, a
+// gather clamps it). is_wb is a bit a slot (P2 / 32 words, set by
+// atomicOr); one thread block scans the words' bit counts, and a rank is
+// that prefix plus a popcount in the word: three stages and barriers
+// before the seed, no P2-long array. perm is deterministic because the
+// host gives every write row, pads included, its own begin slot.
+//
 // Bound on the card: bytes, in theory. Each operand is read once and the
 // vector written once (12 T + 16 R + 17 Wr + 4 bytes; 8 T with the seed,
 // which does not read conflict0), well under a microsecond at the
@@ -46,7 +61,7 @@
 // ends it; a stage costs 1.5-6 us on an H100 whatever its size below
 // ~10^5 items. So the design cuts stages and round trips:
 //
-// - One launch from the geometry on: the seed (one min-writer pass, then
+// - One launch for the geometry on: the seed (one min-writer pass, then
 //   the chains composed asynchronously, one barrier) and every round.
 // - Inserts the next stage alone reads are reductions nobody waits for
 //   (red.global / red.shared); the level word and the changed
@@ -119,17 +134,19 @@ struct Args {
   const int32_t* conflict0;  // (T,) the loop's initial vector (no seed)
   const int32_t* perm;       // (Wr,) write row at each begin rank (case A)
   const int32_t* lo;         // (R,) case A range [lo, hi) in rank order
-  const int32_t* hi;         // (R,)
+  const int32_t* hi;         // (R,)  (perm, lo, hi: null with q_end)
   const int32_t* seg_lo;     // (Wr,) write segment [seg_lo, seg_hi) (case B)
   const int32_t* seg_hi;     // (Wr,)
   const int32_t* leaf;       // (R,) leaf the read stabs, < 0: none
   const int32_t* rtxn;       // (R,) owning txn of each read
   const int32_t* wtxn;       // (Wr,) owning txn of each write
   const uint8_t* w_valid;    // (Wr,) bool
+  const int32_t* q_end;      // (R,) the geometry's read ends, or null
   int32_t* out;              // (T,) the fixed point
   int32_t* it_out;           // (1,) the round counter at exit
   int32_t* scratch;          // grid tier: state and a long-range bit a block
   int T, R, Wr, L, it0, cap, seed;
+  bool geo;                  // q_end given: the prologue derives perm, lo, hi
 };
 
 // The read-only operands, where a tier reads them: global memory through
@@ -140,9 +157,14 @@ struct Operands {
       *base;
   const uint8_t* valid;
   bool smem;
+  bool derived;  // perm, lo, hi written by this launch (grid: past L1)
 
   __device__ int32_t get(const int32_t* p, long long i) const {
     return smem ? p[i] : __ldg(p + i);
+  }
+  // perm, lo and hi, which the geometry may have written in this launch.
+  __device__ int32_t geo(const int32_t* p, long long i) const {
+    return smem ? p[i] : derived ? __ldcg(p + i) : __ldg(p + i);
   }
   // The txn of write w, or -1 where it is not valid.
   __device__ int32_t txn(long long w) const {
@@ -158,6 +180,19 @@ __host__ __device__ inline long long state_ints(int T, int Wr, int L) {
 __host__ __device__ inline long long operand_ints(int T, int R, int Wr) {
   return 4LL * R + 4LL * Wr + T;
 }
+// The geometry's bit words of the P2 = L slots (is_wb), and their prefix.
+__host__ __device__ inline long long geo_words(int L) {
+  return ((long long)L + 31) / 32;
+}
+
+__device__ inline long long gat(long long i, long long n) {  // tpu.py gather
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+__device__ inline long long sct(long long i, long long n) {  // tpu.py scatter
+  if (i < 0) i += n;
+  return (i >= 0 && i < n) ? i : -1;
+}
 
 __device__ inline long long clampll(long long x, long long lo, long long hi) {
   return x < lo ? lo : x > hi ? hi : x;
@@ -172,15 +207,19 @@ struct GridTier {
   int32_t* misc;
   int32_t* longs;  // a long-range bit per block
   int32_t* mine;   // this block's level word, in its shared memory
+  int32_t* ws;     // 32 words of shared memory for a block scan
+  int32_t *dperm, *dlo, *dhi, *bits, *pre;  // the geometry's, in scratch
   long long first, stride;
   Operands o;
 
-  __device__ GridTier(const Args& a, int32_t* block_level) {
+  __device__ GridTier(const Args& a, int32_t* block_level, int32_t* ws_) {
     o.lo = a.lo; o.hi = a.hi; o.leaf = a.leaf; o.rtxn = a.rtxn;
     o.perm = a.perm; o.seg_lo = a.seg_lo; o.seg_hi = a.seg_hi;
     o.wtxn = a.wtxn; o.base = a.base; o.valid = a.w_valid;
     o.smem = false;
+    o.derived = a.geo;
     mine = block_level;
+    ws = ws_;
     arr[kConf] = a.out;
     int32_t* s = a.scratch;
     arr[kEv] = s;
@@ -189,6 +228,16 @@ struct GridTier {
     arr[kTreeB] = arr[kTreeA] + 2LL * a.Wr;
     misc = arr[kTreeB] + 2LL * a.L;
     longs = misc + kMisc;
+    dperm = longs + gridDim.x;
+    dlo = dperm + a.Wr;
+    dhi = dlo + a.R;
+    bits = dhi + a.R;
+    pre = bits + geo_words(a.L);
+    if (a.geo) {
+      o.perm = dperm;
+      o.lo = dlo;
+      o.hi = dhi;
+    }
     first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     stride = (long long)gridDim.x * blockDim.x;
   }
@@ -246,7 +295,9 @@ struct BlockTier {
   int32_t* arr[kArrays];
   int32_t* misc;
   int32_t* copies;  // lo, hi, leaf, rtxn (R each); perm, seg_lo, seg_hi,
-                    // wtxn (Wr each); base (T)
+                    // wtxn (Wr each); base (T); the geometry's words
+  int32_t* ws;      // 32 words for a block scan (the geometry's)
+  int32_t *dperm, *dlo, *dhi, *bits, *pre;
   Operands o;
 
   __device__ BlockTier(const Args& a, int32_t* smem) {
@@ -266,19 +317,29 @@ struct BlockTier {
     o.base = p + 4LL * a.Wr;
     o.valid = nullptr;
     o.smem = true;
+    o.derived = a.geo;
+    dlo = copies;
+    dhi = copies + a.R;
+    dperm = copies + 4LL * a.R;
+    bits = copies + operand_ints(a.T, a.R, a.Wr);
+    pre = bits + geo_words(a.L);
+    ws = pre + geo_words(a.L);
   }
-  // The operand copies, before the first barrier.
+  // The operand copies, before the first barrier (perm, lo and hi where
+  // the geometry does not derive them).
   __device__ void load_operands(const Args& a) const {
     int32_t* c = copies;
     for (int i = threadIdx.x; i < a.R; i += blockDim.x) {
-      c[i] = __ldg(a.lo + i);
-      c[a.R + i] = __ldg(a.hi + i);
+      if (!a.geo) {
+        c[i] = __ldg(a.lo + i);
+        c[a.R + i] = __ldg(a.hi + i);
+      }
       c[2 * a.R + i] = __ldg(a.leaf + i);
       c[3 * a.R + i] = __ldg(a.rtxn + i);
     }
     c += 4 * a.R;
     for (int i = threadIdx.x; i < a.Wr; i += blockDim.x) {
-      c[i] = __ldg(a.perm + i);
+      if (!a.geo) c[i] = __ldg(a.perm + i);
       c[a.Wr + i] = __ldg(a.seg_lo + i);
       c[2 * a.Wr + i] = __ldg(a.seg_hi + i);
       c[3 * a.Wr + i] = a.w_valid[i] ? __ldg(a.wtxn + i) : -1;
@@ -419,7 +480,7 @@ struct Phase2 {
     if (!tree_a) return;
     s.items(Wr, [&](long long j) {
       const int32_t v =
-          wval(s.o.txn(min(max(s.o.get(s.o.perm, j), 0), Wr - 1)));
+          wval(s.o.txn(min(max(s.o.geo(s.o.perm, j), 0), Wr - 1)));
       const uint32_t k = key(v);
       long long node = Wr + j;
       S::st(s.at(kTreeA, node), (int32_t)k);
@@ -440,8 +501,8 @@ struct Phase2 {
     const int32_t lw = S::ld(s.level());
     const int top = (lw >> 6) == build ? (lw & 63) : -1;
     s.items(R, [&](long long r) {
-      long long l = clampll(s.o.get(s.o.lo, r), 0, Wr);
-      long long h = clampll(s.o.get(s.o.hi, r), 0, Wr);
+      long long l = clampll(s.o.geo(s.o.lo, r), 0, Wr);
+      long long h = clampll(s.o.geo(s.o.hi, r), 0, Wr);
       const int32_t x = s.o.get(s.o.leaf, r);
       const int32_t t = s.o.get(s.o.rtxn, r);
       if (t < 0 || t >= T) return;  // no txn to hit
@@ -456,8 +517,8 @@ struct Phase2 {
       if (!tree_a) {
 #pragma unroll 4
         for (; l < h; ++l)
-          direct = min(direct, wval(s.o.txn(
-                                   min(max(s.o.get(s.o.perm, l), 0), Wr - 1))));
+          direct = min(direct, wval(s.o.txn(min(
+                                   max(s.o.geo(s.o.perm, l), 0), Wr - 1))));
       } else {
         l += Wr;
         h += Wr;
@@ -479,6 +540,74 @@ struct Phase2 {
     const bool has = p != kInf, bc = s.o.get(s.o.base, t) > 0;
     return (has ? (uint32_t)p : (uint32_t)T) | (uint32_t)(!bc) << 30 |
            (uint32_t)(!(bc || has)) << 31;
+  }
+
+  // The geometry's rank of slot p in [0, L): write begins at slots < p.
+  __device__ int32_t rank(long long p) const {
+    const uint32_t w = (uint32_t)S::ld(s.bits + (p >> 5));
+    return S::ld(s.pre + (p >> 5)) + __popc(w & ((1u << (p & 31)) - 1u));
+  }
+
+  // One block's exclusive prefix of the geometry's words' bit counts
+  // (block 0 of the grid): a run of words a thread, one block scan.
+  __device__ void scan_words() const {
+    const long long nw = geo_words(L);
+    const long long per = (nw + blockDim.x - 1) / blockDim.x;
+    const long long b = threadIdx.x * per, e = min(nw, b + per);
+    int32_t sum = 0;
+    for (long long i = b; i < e; ++i)
+      sum += __popc((uint32_t)S::ld(s.bits + i));
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int32_t inc = sum;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t t = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+      if (lane >= d) inc += t;
+    }
+    if (lane == 31) s.ws[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      const int nwarps = blockDim.x >> 5;
+      int32_t w = lane < nwarps ? s.ws[lane] : 0;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t t = __shfl_up_sync(0xFFFFFFFFu, w, d);
+        if (lane >= d) w += t;
+      }
+      if (lane < nwarps) s.ws[lane] = w;
+    }
+    __syncthreads();
+    int32_t ex = (warp ? s.ws[warp - 1] : 0) + inc - sum;
+    for (long long i = b; i < e; ++i) {
+      S::st(s.pre + i, ex);
+      ex += __popc((uint32_t)S::ld(s.bits + i));
+    }
+  }
+
+  // The geometry (tpu.py:358-365), after the stage that cleared the bit
+  // words and perm: the write begins' bits, their prefix, each read's
+  // [lo, hi) and each write's place in perm. Returns whether one of this
+  // thread's reads has a case-A range over kScan.
+  __device__ bool geometry() const {
+    s.sync();
+    s.items(Wr, [&](long long w) {
+      const long long p = sct(s.o.get(s.o.seg_lo, w), L);
+      if (p >= 0) atomicOr((unsigned int*)(s.bits + (p >> 5)), 1u << (p & 31));
+    });
+    s.sync();
+    if (blockIdx.x == 0) scan_words();
+    s.sync();
+    bool seen = false;
+    s.items(R, [&](long long r) {
+      const int32_t l = rank(gat(s.o.get(s.o.leaf, r), L));
+      const int32_t h = rank(gat(__ldg(a.q_end + r), L));
+      S::st(s.dlo + r, l);
+      S::st(s.dhi + r, h);
+      seen |= clampll(h, 0, Wr) - clampll(l, 0, Wr) > kScan;
+    });
+    s.items(Wr, [&](long long w) {
+      const long long j = sct(rank(gat(s.o.get(s.o.seg_lo, w), L)), Wr);
+      if (j >= 0) S::st(s.dperm + j, (int32_t)w);
+    });
+    return seen;
   }
 
   __device__ void seed_stage() {
@@ -518,11 +647,17 @@ struct Phase2 {
     }
     s.init_misc();
     bool seen = false;  // a case-A range over kScan among this thread's
-    s.items(R, [&](long long r) {
-      seen |= clampll(__ldg(a.hi + r), 0, Wr) -
-                  clampll(__ldg(a.lo + r), 0, Wr) > kScan;
-    });
+    if (a.geo) {
+      s.items(geo_words(L), [&](long long i) { S::st(s.bits + i, 0); });
+      s.items(Wr, [&](long long j) { S::st(s.dperm + j, 0); });
+    } else {
+      s.items(R, [&](long long r) {
+        seen |= clampll(__ldg(a.hi + r), 0, Wr) -
+                    clampll(__ldg(a.lo + r), 0, Wr) > kScan;
+      });
+    }
     s.load_operands(a);
+    if (a.geo) seen = geometry();
     s.long_put(seen);
     s.sync();
     tree_a = s.long_get();
@@ -564,7 +699,8 @@ struct Phase2 {
 
 __global__ void __launch_bounds__(kGridThreads) grid_kernel(Args a) {
   __shared__ int32_t block_level;
-  GridTier s(a, &block_level);
+  __shared__ int32_t ws[32];
+  GridTier s(a, &block_level, ws);
   Phase2<GridTier>(a, s).run();
 }
 
@@ -582,16 +718,22 @@ extern "C" int fdb_phase2_block_threads(int tier) {
 }
 
 // int32 slots of the grid tier's scratch for a grid of `blocks`: the
-// state but the conflict vector (the output), a long-range bit a block.
-extern "C" long long fdb_phase2_scratch_ints(int T, int Wr, int L,
-                                             int blocks) {
-  return state_ints(T, Wr, L) - T + blocks;
+// state but the conflict vector (the output), a long-range bit a block,
+// and with the geometry (geo != 0) perm, lo, hi and the bit words and
+// their prefix.
+extern "C" long long fdb_phase2_scratch_ints(int T, int R, int Wr, int L,
+                                             int blocks, int geo) {
+  return state_ints(T, Wr, L) - T + blocks +
+         (geo ? Wr + 2LL * R + 2 * geo_words(L) : 0);
 }
 
 // Bytes of shared memory the block tier takes: the state and the
-// operand copies.
-extern "C" long long fdb_phase2_block_bytes(int T, int R, int Wr, int L) {
-  return 4 * (state_ints(T, Wr, L) + operand_ints(T, R, Wr));
+// operand copies, and with the geometry its bit words, their prefix and
+// 32 words for their scan.
+extern "C" long long fdb_phase2_block_bytes(int T, int R, int Wr, int L,
+                                            int geo) {
+  return 4 * (state_ints(T, Wr, L) + operand_ints(T, R, Wr) +
+              (geo ? 2 * geo_words(L) + 32 : 0));
 }
 
 // One query of the current device, and the block kernel's shared memory
@@ -621,18 +763,20 @@ extern "C" int fdb_phase2_limits(int* out) {
 // Launch tier 0 (a cooperative grid of `size` blocks) or 1 (one block,
 // size 1, with smem_bytes of shared memory, at least
 // fdb_phase2_block_bytes) on `stream`; seed != 0 runs the
-// pointer-jumping seed first (conflict0 is then not read).
+// pointer-jumping seed first (conflict0 is then not read). geo != 0
+// asks for the geometry from q_end: perm, lo and hi are then not read,
+// seg_lo is s_begin, leaf q_begin and L P2; else q_end is not read.
 extern "C" int fdb_phase2_rounds(
     const void* base, const void* conflict0, const void* perm,
     const void* lo, const void* hi, const void* seg_lo, const void* seg_hi,
     const void* leaf, const void* rtxn, const void* wtxn,
-    const void* w_valid, void* out, void* it_out, void* scratch, int T,
-    int R, int Wr, int L, int it0, int cap, int seed, int tier, int size,
-    long long smem_bytes, void* stream) {
+    const void* w_valid, const void* q_end, void* out, void* it_out,
+    void* scratch, int T, int R, int Wr, int L, int it0, int cap, int seed,
+    int geo, int tier, int size, long long smem_bytes, void* stream) {
   if (T < 1 || T >= kMaxT || R < 0 || Wr < 0 || Wr >= kMaxLeaves ||
       L < 1 || L >= kMaxLeaves || size < 1 || it0 > cap ||
       (tier == 1 &&
-       (size != 1 || smem_bytes < fdb_phase2_block_bytes(T, R, Wr, L))))
+       (size != 1 || smem_bytes < fdb_phase2_block_bytes(T, R, Wr, L, geo))))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.base = (const int32_t*)base;
@@ -646,6 +790,8 @@ extern "C" int fdb_phase2_rounds(
   a.rtxn = (const int32_t*)rtxn;
   a.wtxn = (const int32_t*)wtxn;
   a.w_valid = (const uint8_t*)w_valid;
+  a.q_end = (const int32_t*)q_end;
+  a.geo = geo != 0;
   a.out = (int32_t*)out;
   a.it_out = (int32_t*)it_out;
   a.scratch = (int32_t*)scratch;

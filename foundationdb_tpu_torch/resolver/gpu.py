@@ -92,26 +92,20 @@ _P2_GROUPS = (1, 2, 4, 8)
 
 def _phase2_fixed_point(base_conf, *, smat, q_begin, q_end, s_begin, s_end,
                         rtxn, wtxn, w_valid, T, Wr, P2):
-    """Intra-batch fixed point (checkIntraBatchConflicts): the geometry
-    (torch ops), then the pointer-jumping seed and the verification
-    rounds until nothing changes (cap n_jump+T+2), exactly as
-    tpu._phase2_fixed_point, in one phase2.phase2_rounds call: one launch
-    of the CUDA kernel on the card, the plain version (one host read per
-    round group, counted in P2_SYNCS) on the CPU. Returns the per-txn
-    conflict vector and the round count (0-d int32)."""
+    """Intra-batch fixed point (checkIntraBatchConflicts): the geometry,
+    the pointer-jumping seed and the verification rounds until nothing
+    changes (cap n_jump+T+2), exactly as tpu._phase2_fixed_point, in one
+    phase2.phase2_rounds call in its geometry form (q_end): one launch of
+    the CUDA kernel and no torch op on the card, the plain version
+    (phase2.geometry_ref, then one host read per round group, counted in
+    P2_SYNCS) on the CPU. Returns the per-txn conflict vector and the
+    round count (0-d int32)."""
     global P2_SYNCS
-    dev = base_conf.device
-    is_wb = scatter_new(P2, 0, s_begin, 1, "set")
-    wb_excl = cumsum32(is_wb) - is_wb   # #write-begins strictly before pos
-    lo_r, hi_r = wb_excl[q_begin], wb_excl[q_end]
-    rank_w = wb_excl[s_begin]             # rank of each write among wb's
-    perm_w = scatter_new(Wr, 0, rank_w, _arange(Wr, dev), "set")
     n_jump = phase2.n_jump(T)
     conflict, it, reads = phase2.phase2_rounds(
         base_conf, base_conf, n_jump, n_jump + T + 2, seed=True,
-        perm=perm_w, lo=lo_r, hi=hi_r, seg_lo=s_begin, seg_hi=s_end,
-        n_leaves=P2, leaf=q_begin, rtxn=rtxn, wtxn=wtxn, w_valid=w_valid,
-        groups=_P2_GROUPS)
+        seg_lo=s_begin, seg_hi=s_end, n_leaves=P2, leaf=q_begin, q_end=q_end,
+        rtxn=rtxn, wtxn=wtxn, w_valid=w_valid, groups=_P2_GROUPS)
     P2_SYNCS += reads
     return conflict, it
 

@@ -1,9 +1,8 @@
-"""Phase 2's fixed point: the intra-batch conflicts after the geometry.
+"""Phase 2's fixed point: the intra-batch conflicts.
 
-The counterpart of what the JAX package computes after phase 2's
-geometry: foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point (the
-pointer-jumping seed at :385-417, then the verification loop at
-:419-437, run by the block and dense kernels) and
+The counterpart of foundationdb_tpu/resolver/tpu.py::_phase2_fixed_point
+(the geometry at :358-365, the pointer-jumping seed at :385-417, then the
+verification loop at :419-437, run by the block and dense kernels) and
 foundationdb_tpu/resolver/rankfed.py::_rank_kernel_impl (the loop at
 :223-253, no seed). Both loop bodies compute the same round on different
 index arrays: per read, the least committed writer among the writes that
@@ -13,7 +12,10 @@ B, an interval-tree stab); evidence where that writer precedes the
 reader; per txn, new = max(base_conf, evidence). The loop repeats while
 anything changed and the round counter is below its cap. The seed runs
 one such round with the commit mask dropped and composes each txn's
-chain of least potential writers.
+chain of least potential writers. The geometry (`geometry_ref`) derives
+the case-A operands perm, lo and hi from the write begins' and reads'
+endpoint slots; a caller that passes q_end in place of those three gets
+it inside the same launch (gpu.py's; the rank-fed host computes them).
 
 On a CUDA tensor `phase2_rounds` launches the hand-written kernel
 csrc/phase2.cu (built by _build.py), seed and rounds in one launch with
@@ -35,9 +37,11 @@ import torch
 from ._ops import (
     I32,
     I32_INF,
+    _arange,
     _build_table,
     _canonical_nodes_flat,
     _table_range_query,
+    cumsum32,
     scatter_new,
 )
 
@@ -50,6 +54,23 @@ def n_jump(T: int) -> int:
     """The seed's pointer-doubling jumps (tpu.py:409): the round counter
     the verification rounds start at."""
     return max((T - 1).bit_length(), 1)
+
+
+def geometry_ref(s_begin, q_begin, q_end, P2: int):
+    """Phase 2's geometry (tpu.py:358-365): (perm, lo, hi) of the case-A
+    range-min from the write begins' endpoint slots s_begin (Wr,) and the
+    reads' q_begin, q_end (R,) among P2 slots. wb_excl[p] counts the write
+    begins at slots before p; a read's [lo, hi) is wb_excl at its begin
+    and end, and perm the write at each begin rank (a scatter that is
+    deterministic because every write row, pads included, owns a distinct
+    begin slot, packing.py)."""
+    is_wb = scatter_new(P2, 0, s_begin, 1, "set")
+    wb_excl = cumsum32(is_wb) - is_wb   # #write-begins strictly before pos
+    lo, hi = wb_excl[q_begin], wb_excl[q_end]
+    rank_w = wb_excl[s_begin]             # rank of each write among wb's
+    Wr = s_begin.shape[0]
+    perm = scatter_new(Wr, 0, rank_w, _arange(Wr, s_begin.device), "set")
+    return perm, lo, hi
 
 
 def min_writer_fn(*, perm, lo, hi, seg_lo, seg_hi, n_leaves: int, leaf):
@@ -109,11 +130,13 @@ def seed_ref(base_conf, min_writer, *, rtxn, wtxn, w_valid):
     return torch.maximum(base_conf, 1 - a[:T])
 
 
-def phase2_rounds_ref(base_conf, conflict0, it0: int, cap: int, *, perm,
-                      lo, hi, seg_lo, seg_hi, n_leaves: int, leaf, rtxn,
-                      wtxn, w_valid, seed: bool = False,
-                      groups=(1, 2, 4, 8)):
-    """Plain torch version: with `seed`, the start vector is seed_ref's
+def phase2_rounds_ref(base_conf, conflict0, it0: int, cap: int, *,
+                      perm=None, lo=None, hi=None, seg_lo, seg_hi,
+                      n_leaves: int, leaf, rtxn, wtxn, w_valid, q_end=None,
+                      seed: bool = False, groups=(1, 2, 4, 8)):
+    """Plain torch version: with q_end, perm, lo and hi are geometry_ref's
+    (seg_lo the write begins, leaf the read begins, n_leaves P2); with
+    `seed`, the start vector is seed_ref's
     (conflict0 is not read); then lax.while_loop(changed & it < cap) in
     groups of rounds (`groups`, the last size repeating). A round applies
     only while `active`, so the conflict vector and the counter freeze
@@ -122,6 +145,8 @@ def phase2_rounds_ref(base_conf, conflict0, it0: int, cap: int, *, perm,
     reads)."""
     T = base_conf.shape[0]
     inf = I32_INF
+    if q_end is not None:
+        perm, lo, hi = geometry_ref(seg_lo, leaf, q_end, n_leaves)
     min_writer = min_writer_fn(perm=perm, lo=lo, hi=hi, seg_lo=seg_lo,
                                seg_hi=seg_hi, n_leaves=n_leaves, leaf=leaf)
     if seed:
@@ -171,18 +196,27 @@ BLOCK_ITEMS = 4
 _MISC_INTS = 4                    # csrc/phase2.cu kMisc
 
 
-def block_bytes(T: int, R: int, Wr: int, L: int) -> int:
+def geo_words(L: int) -> int:
+    """The geometry's bit words of L slots (csrc/phase2.cu geo_words)."""
+    return -(-L // 32)
+
+
+def block_bytes(T: int, R: int, Wr: int, L: int, geo: bool = False) -> int:
     """Shared memory the block tier holds: the conflict vector (the
     seed's parents until its jumps end), the evidence and the seed's link
     words (T each), the case-A tree (2 Wr), the case-B tree (2 L), four
     words, and copies of the read-only operands (4 words a read, 4 a
-    write, base_conf) (csrc/phase2.cu fdb_phase2_block_bytes)."""
+    write, base_conf); with the geometry (`geo`) its bit words, their
+    prefix and 32 words for their scan (csrc/phase2.cu
+    fdb_phase2_block_bytes)."""
     return 4 * (3 * T + 2 * Wr + 2 * L + _MISC_INTS
-                + 4 * R + 4 * Wr + T)
+                + 4 * R + 4 * Wr + T
+                + (2 * geo_words(L) + 32 if geo else 0))
 
 
 def choose_tier(T: int, R: int, Wr: int, L: int, limits: dict,
-                tier: str | None = None) -> tuple[str, int, int]:
+                tier: str | None = None,
+                geo: bool = False) -> tuple[str, int, int]:
     """(tier, blocks, shared bytes) of one launch, from the shapes and
     the device's limits (device_limits: "sms", "smem_per_block",
     "grid_blocks_per_sm"), whichever the card measured faster: the block
@@ -190,13 +224,14 @@ def choose_tier(T: int, R: int, Wr: int, L: int, limits: dict,
     operands in its shared memory, where that fits and each of its
     threads takes at most BLOCK_ITEMS reads, writes or txns; else the
     cooperative grid, one thread per read, write or txn up to every
-    resident block. `tier` forces one, for the checks; a forced block
-    tier the shape does not fit raises, naming the shapes."""
+    resident block. `geo`: the launch computes the geometry too (its
+    shared words count). `tier` forces one, for the checks; a forced
+    block tier the shape does not fit raises, naming the shapes."""
     if tier not in (None, *TIERS):
         raise ValueError(f"phase-2 tier {tier!r}: 'block' or 'grid'")
     if not 1 <= T < MAX_T:
         raise ValueError(f"phase 2 takes 1 <= T < {MAX_T}, got T={T}")
-    smem = block_bytes(T, R, Wr, L)
+    smem = block_bytes(T, R, Wr, L, geo)
     fits = smem <= limits["smem_per_block"]
     small = max(T, R, Wr) <= BLOCK_ITEMS * BLOCK_THREADS
     if tier == "block" and not fits:
@@ -236,10 +271,11 @@ def device_limits(dev) -> dict:
 
 
 # The kernel's operands, in the C entry point's order, and the size each
-# one's length is.
+# one's length is. With q_end (the geometry), perm, lo and hi are None.
 _ROWS = {"base_conf": "T", "conflict0": "T", "perm": "Wr", "lo": "R",
          "hi": "R", "seg_lo": "Wr", "seg_hi": "Wr", "leaf": "R", "rtxn": "R",
-         "wtxn": "Wr", "w_valid": "Wr"}
+         "wtxn": "Wr", "w_valid": "Wr", "q_end": "R"}
+_GEOMETRY = ("perm", "lo", "hi")
 
 
 def _check(it0: int, cap: int, n_leaves: int, ts: dict) -> dict:
@@ -247,7 +283,14 @@ def _check(it0: int, cap: int, n_leaves: int, ts: dict) -> dict:
     dev = ts["base_conf"].device
     sizes = {k: ts[n].shape[0] if ts[n].dim() == 1 else -1
              for k, n in (("T", "base_conf"), ("R", "rtxn"), ("Wr", "wtxn"))}
+    geo = ts["q_end"] is not None
+    for name in _GEOMETRY:
+        if (ts[name] is None) != geo:
+            raise ValueError("phase 2 takes perm, lo and hi, or q_end for "
+                             "the geometry, not both")
     for name, t in ts.items():
+        if t is None:
+            continue
         want = torch.bool if name == "w_valid" else torch.int32
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
@@ -274,11 +317,11 @@ def _check(it0: int, cap: int, n_leaves: int, ts: dict) -> dict:
 # and the stream are c_void_p; as a c_int ctypes would cut them to 32 bits.
 ENTRY_POINTS = {
     "fdb_phase2_rounds": (ctypes.c_int, [
-        *([_c_ptr] * 14), *([ctypes.c_int] * 9), ctypes.c_longlong,
+        *([_c_ptr] * 15), *([ctypes.c_int] * 10), ctypes.c_longlong,
         _c_ptr]),
     "fdb_phase2_limits": (ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]),
-    "fdb_phase2_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 4),
-    "fdb_phase2_block_bytes": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "fdb_phase2_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 6),
+    "fdb_phase2_block_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
     "fdb_phase2_block_threads": (ctypes.c_int, [ctypes.c_int]),
     "fdb_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -296,9 +339,10 @@ def _lib():
     return lib
 
 
-def phase2_rounds(base_conf, conflict0, it0: int, cap: int, *, perm, lo, hi,
-                  seg_lo, seg_hi, n_leaves: int, leaf, rtxn, wtxn, w_valid,
-                  seed: bool = False, groups=(1, 2, 4, 8)):
+def phase2_rounds(base_conf, conflict0, it0: int, cap: int, *, perm=None,
+                  lo=None, hi=None, seg_lo, seg_hi, n_leaves: int, leaf, rtxn,
+                  wtxn, w_valid, q_end=None, seed: bool = False,
+                  groups=(1, 2, 4, 8)):
     """The fixed point from conflict0 (with `seed`, from the pointer-
     jumping seed instead) with the round counter at it0: rounds until
     nothing changes or the counter reaches cap. Returns the conflict
@@ -310,10 +354,12 @@ def phase2_rounds(base_conf, conflict0, it0: int, cap: int, *, perm, lo, hi,
     int32; w_valid: (Wr,) bool; lo, hi, leaf, rtxn: (R,) int32. Case A
     ranges [lo, hi) index rank order (0..Wr), segments [seg_lo, seg_hi)
     and leaves index n_leaves leaves, leaf < 0 meaning no stab; txn ids
-    lie in [0, T)."""
+    lie in [0, T). With q_end (R,) int32 in place of perm, lo and hi, the
+    launch computes them first (geometry_ref): seg_lo is then the write
+    begins' and leaf the read begins' slots among n_leaves = P2."""
     kw = dict(perm=perm, lo=lo, hi=hi, seg_lo=seg_lo, seg_hi=seg_hi,
               n_leaves=n_leaves, leaf=leaf, rtxn=rtxn, wtxn=wtxn,
-              w_valid=w_valid, seed=seed)
+              w_valid=w_valid, q_end=q_end, seed=seed)
     if base_conf.device.type == "cpu":
         _check(it0, cap, n_leaves, _operands(base_conf, conflict0, kw))
         return phase2_rounds_ref(base_conf, conflict0, it0, cap,
@@ -322,9 +368,10 @@ def phase2_rounds(base_conf, conflict0, it0: int, cap: int, *, perm, lo, hi,
 
 
 def _operands(base_conf, conflict0, kw: dict) -> dict:
-    """The kernel's tensor operands by name, in the C entry point's order."""
+    """The kernel's tensor operands by name, in the C entry point's order
+    (None for those the call leaves out)."""
     ts = dict(kw, base_conf=base_conf, conflict0=conflict0)
-    return {k: ts[k] for k in _ROWS}
+    return {k: ts.get(k) for k in _ROWS}
 
 
 def phase2_rounds_launch(base_conf, conflict0, it0: int, cap: int, *,
@@ -342,19 +389,23 @@ def phase2_rounds_launch(base_conf, conflict0, it0: int, cap: int, *,
     dev = base_conf.device
     if dev.type != "cuda":
         raise ValueError(f"the phase-2 kernel needs CUDA tensors, got {dev}")
+    geo = ts["q_end"] is not None
     name, size, smem = choose_tier(T, R, Wr, n_leaves, device_limits(dev),
-                                   tier)
+                                   tier, geo)
     lib = _lib()
     out = torch.empty(T + 1, dtype=I32, device=dev)   # conflict ++ counter
-    scratch = (torch.empty(lib.fdb_phase2_scratch_ints(T, Wr, n_leaves, size),
-                           dtype=I32, device=dev) if name == "grid" else None)
+    scratch = (torch.empty(
+        lib.fdb_phase2_scratch_ints(T, R, Wr, n_leaves, size, int(geo)),
+        dtype=I32, device=dev) if name == "grid" else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fdb_phase2_rounds(
-            *(t.data_ptr() for t in ts.values()), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in ts.values()),
+            out.data_ptr(),
             out[T:].data_ptr(),
             None if scratch is None else scratch.data_ptr(), T, R, Wr,
-            n_leaves, it0, cap, int(seed), TIERS.index(name), size, smem,
+            n_leaves, it0, cap, int(seed), int(geo), TIERS.index(name), size,
+            smem,
             stream,
         )
     if rc != 0:
@@ -362,7 +413,8 @@ def phase2_rounds_launch(base_conf, conflict0, it0: int, cap: int, *,
             f"phase-2 kernel launch failed on {dev} ({name} tier of {size} "
             f"blocks of {lib.fdb_phase2_block_threads(TIERS.index(name))} "
             f"threads, {smem} shared bytes each; T={T} R={R} Wr={Wr} "
-            f"n_leaves={n_leaves} seed={bool(seed)}): CUDA error {rc} "
+            f"n_leaves={n_leaves} seed={bool(seed)} geometry={geo}): CUDA "
+            f"error {rc} "
             f"({lib.fdb_cuda_error_string(rc).decode()})"
         )
     LAUNCHES += 1

@@ -23,9 +23,11 @@ the host, beside ConflictSetGPU, whose keys live on the card.
 
 What differs from the JAX package, and why:
 
-- `_rank_kernel_impl` is a sequence of torch ops on the state's device
-  (XLA compiled it; the JAX package wrote no Pallas kernel for it). The
-  JAX/torch semantic hazards go through resolver/_ops.py.
+- `_rank_kernel_impl` is three hand-written CUDA kernels on the card
+  (XLA compiled it; the JAX package wrote no Pallas kernel for it):
+  phases 1 and 3 in csrc/rankfed.cu (rankfed_ops.py, their plain torch
+  versions beside them, the JAX/torch semantic hazards through
+  resolver/_ops.py), phase 2 in csrc/phase2.cu.
 - Phase 2's `lax.while_loop` stops on a device boolean, which eager
   torch cannot do without a host read. `_phase2_fixed_point` runs its
   rounds in the hand-written CUDA kernel that gpu.py's phase 2 runs
@@ -53,20 +55,11 @@ import torch
 
 from ..core.knobs import CLIENT_KNOBS, SERVER_KNOBS
 from ..device import resolve_device
-from . import phase2
-# _ops' sparse-table query lacks rankfed.py:155-157's cap of the window
-# level at the table's last row; here every query is at most the table's
-# length (C and Wr are powers of two), so the cap never binds.
-from ._ops import (
-    I32,
-    _build_table,
-    _table_range_query,
-    cumsum32,
-    scatter_new,
-)
+from . import phase2, rankfed_ops
+from ._ops import I32
 from .gpu import _P2_GROUPS, _start_d2h, to_device, upload
 from .packing import KeyWidthError, flatten_batch, next_pow2, pack_keys
-from .types import COMMITTED, CONFLICT, TOO_OLD, ConflictBatchResult, TxnConflictInfo
+from .types import ConflictBatchResult, TxnConflictInfo
 
 INT32_MAX = np.int32(2**31 - 1)
 P2_SYNCS = 0  # host reads of phase 2's plain version (CPU tensors only)
@@ -154,16 +147,15 @@ class RankLayout:
         return (self.R, self.Wr, self.T, self.C)
 
 
-def _phase2_fixed_point(base_conf, *, wb2, we2, qb2, loA, hiA, perm, rtxn,
+def _phase2_fixed_point(base_conf, *, wb2, we2, leaf, loA, hiA, perm, rtxn,
                         wtxn, w_valid, T: int, M: int):
     """Intra-batch fixed point from `base_conf`: rounds until nothing
     changes, at most T + 2 (rankfed.py:223-253), through
     phase2.phase2_rounds (the CUDA kernel on the card; on the CPU the
-    plain version, whose group reads P2_SYNCS counts). Case B stabs leaf
-    qb2 - 1; qb2 == 0 means the read point sorts before every write
-    endpoint: nothing covers it (leaf -1, no stab)."""
+    plain version, whose group reads P2_SYNCS counts). Case B stabs
+    `leaf` (phase 1's rankfed_ops.stab_leaf of qb2: -1 where the read
+    point sorts before every write endpoint, nothing covers it)."""
     global P2_SYNCS
-    leaf = torch.where(qb2 > 0, torch.clamp(qb2 - 1, 0, M - 1), -1)
     conflict, _, reads = phase2.phase2_rounds(
         base_conf, base_conf, 0, T + 2, perm=perm, lo=loA, hi=hiA,
         seg_lo=wb2, seg_hi=we2, n_leaves=M, leaf=leaf, rtxn=rtxn, wtxn=wtxn,
@@ -174,85 +166,35 @@ def _phase2_fixed_point(base_conf, *, wb2, we2, qb2, loA, hiA, perm, rtxn,
 
 def _rank_kernel_impl(hv, fused, *, lay: RankLayout):
     """One resolve. hv: (C,) int32 version offsets; fused: RankLayout
-    buffer. Returns (hv_new, statuses)."""
-    R, Wr, T, C, M = lay.R, lay.Wr, lay.T, lay.C, lay.M
-    dev = hv.device
+    buffer (views of it, no conversion op). Phase 1 (rankfed_ops.phase1),
+    phase 2 (phase2.phase2_rounds), phase 3 (rankfed_ops.phase3): on the
+    card three kernel launches. Returns (hv_new, statuses)."""
+    R, Wr, T, M = lay.R, lay.Wr, lay.T, lay.M
 
     def sl(name, size):
         off = getattr(lay, "off_" + name)
         return fused[off:off + size]
 
-    rank_b = sl("rank_b", R)
-    rank_e = sl("rank_e", R)
-    rtxn = sl("rtxn", R)
-    rsnap = sl("rsnap", R)
-    wtxn = sl("wtxn", Wr)
-    w_valid = sl("w_valid", Wr) != 0
-    ub_c = sl("ub_c", M)
-    wsrc = sl("wsrc", M)
-    too_old = sl("too_old", T) != 0
-    version = fused[lay.off_scalars]
-    oldest_eff = fused[lay.off_scalars + 1]
-    n = fused[lay.off_scalars + 2]
+    rtxn, wtxn = sl("rtxn", R), sl("wtxn", Wr)
+    w_valid, too_old = sl("w_valid", Wr), sl("too_old", T)
 
     # ---- Phase 1: read-vs-history (range max over [rank_b-1, rank_e)) ----
-    vtab = _build_table(hv, torch.maximum, 0)
-    hist_max = _table_range_query(vtab, rank_b - 1, rank_e, torch.maximum, 0)
-    del vtab
-    read_conf = (hist_max > rsnap).to(I32)
-    hist_conf = scatter_new(T, 0, rtxn, read_conf, "max")
-    base_conf = torch.maximum(hist_conf, too_old.to(I32))
+    base_conf, leaf, valid = rankfed_ops.phase1(
+        hv, rank_b=sl("rank_b", R), rank_e=sl("rank_e", R),
+        rsnap=sl("rsnap", R), rtxn=rtxn, too_old=too_old, qb2=sl("qb2", R),
+        w_valid=w_valid, M=M)
 
     # ---- Phase 2: intra-batch fixed point (write-endpoint space) ----
     conflict = _phase2_fixed_point(
-        base_conf, wb2=sl("wb2", Wr), we2=sl("we2", Wr), qb2=sl("qb2", R),
+        base_conf, wb2=sl("wb2", Wr), we2=sl("we2", Wr), leaf=leaf,
         loA=sl("loA", R), hiA=sl("hiA", R), perm=sl("perm", Wr), rtxn=rtxn,
-        wtxn=wtxn, w_valid=w_valid, T=T, M=M)
+        wtxn=wtxn, w_valid=valid, T=T, M=M)
 
     # ---- Phase 3: superset merge (positions fully host-determined) ----
-    # Endpoint p merges at posB = p + ub_c[p]; history j at j + lbB[j]
-    # where lbB[j] = #{p: ub_c[p] <= j} (scatter-count + prefix sum).
-    committed_row = w_valid & (conflict[wtxn] == 0)
-    ep_row = (wsrc >> 1).to(torch.int64)
-    valid_ep = w_valid[ep_row]
-    cw_ep = committed_row[ep_row]
-    is_begin = (wsrc & 1) != 0
-    pred_val = hv[torch.clamp(ub_c - 1, 0, C - 1)]
-
-    N3 = C + M
-    cnt_ub = scatter_new(C + 1, 0, torch.clamp(ub_c, max=C), 1, "add")
-    lbB = cumsum32(cnt_ub[:C])
-    arange_c = torch.arange(C, dtype=I32, device=dev)
-    # posA and posB are each strictly increasing and disjoint: live history
-    # slots interleave with the endpoints, dead slots j >= n land at
-    # j + M, past every posB <= n + M - 1. So the chained .at[].set of
-    # rankfed.py:278-287 is two plain copies into one buffer.
-    posA = (arange_c + lbB).to(torch.int64)
-    posB = (torch.arange(M, dtype=I32, device=dev) + ub_c).to(torch.int64)
-    # Coverage depth over MERGED order: +1 at committed begins, -1 at
-    # committed ends, prefix-inclusive — a slot with depth > 0 lies inside
-    # the union of committed write ranges. History entries exactly AT a
-    # range boundary can be mis-classified by the strict merged order, but
-    # a boundary endpoint always inserts an entry at the same key AFTER
-    # the history entry, and last-duplicate-wins shadows it.
-    delta = torch.where(cw_ep, torch.where(is_begin, 1, -1), 0).to(I32)
-    depth = cumsum32(
-        torch.zeros(N3, dtype=I32, device=dev).index_copy_(0, posB, delta))
-    base = torch.zeros(N3, dtype=I32, device=dev)
-    base.index_copy_(0, posA, hv)
-    base.index_copy_(0, posB, torch.where(valid_ep, pred_val, 0).to(I32))
-    live_slot = torch.zeros(N3, dtype=torch.bool, device=dev)
-    live_slot.index_copy_(0, posA, arange_c < n)
-    live_slot.index_copy_(0, posB, valid_ep)
-    merged = torch.where(live_slot & (depth > 0), version, base)
-    # Rebase + horizon clamp (inclusive: 0 means at-or-below horizon).
-    merged = torch.where(merged <= oldest_eff, 0, merged - oldest_eff)
-    hv_new = merged[:C]
-
-    statuses = torch.where(
-        too_old, TOO_OLD, torch.where(conflict[:T] > 0, CONFLICT, COMMITTED)
-    ).to(I32)
-    return hv_new, statuses
+    return rankfed_ops.phase3(
+        hv, conflict, wtxn=wtxn, w_valid=w_valid, ub_c=sl("ub_c", M),
+        wsrc=sl("wsrc", M), too_old=too_old,
+        scalars=fused[lay.off_scalars:lay.off_scalars + 3])
 
 
 # ---------------------------------------------------------------------------

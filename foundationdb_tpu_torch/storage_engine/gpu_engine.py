@@ -20,15 +20,18 @@ and delta. A host VersionedMap rides inside as the authoritative oracle.
 
 What differs from the JAX package, and why:
 
-- `_read_kernel_impl` is torch ops run eagerly, so there is no per-shape
-  jit cache; P, R (next_bucket) and S (next_pow2 of the span cap) are
-  still bucketed, because they define the aux vector's layout.
+- `_read_kernel_impl` is two hand-written CUDA kernels on the card, so
+  there is no per-shape jit cache; P, R (next_bucket) and S (next_pow2 of
+  the span cap) are still bucketed, because they define the aux vector's
+  layout.
 - Its base rank is resolver/probe.probe_ranks over the whole window
   matrix, the version row riding as one more key word: the hand-written
   CUDA kernel on the card, its plain torch version on the CPU, with equal
   results. JAX ran its XLA walk there by default (the Pallas probe behind
-  TPU_PROBE_KERNEL); the port has no probe knob. The delta rank is the
-  dense halving walk, as in JAX.
+  TPU_PROBE_KERNEL); the port has no probe knob. The rest (the delta's
+  dense halving walk, as in JAX, the gathers and the aux vector) is
+  storage_engine/read.read_gather: csrc/read.cu on the card, its plain
+  torch version on the CPU.
 - Gathers clamp explicitly where JAX clips (torch faults where JAX clamps).
 - Uploads go through pinned memory with non_blocking, and the aux
   vector's D2H starts at dispatch behind a CUDA event, so `submit_reads`
@@ -53,8 +56,7 @@ from ..core.knobs import SERVER_KNOBS
 from ..core.stats import Counter
 from ..device import resolve_device
 from ..kv.versioned_map import VersionedMap, canonical_chain
-from ..resolver._ops import I32
-from ..resolver.gpu import _lex_lt_eq, _lower_rank, _start_d2h
+from ..resolver.gpu import _start_d2h
 from ..resolver.packing import (
     PAD_WORD,
     KeyWidthError,
@@ -64,6 +66,7 @@ from ..resolver.packing import (
     pack_keys,
 )
 from ..resolver.probe import probe_ranks
+from .read import read_gather
 
 I32MAX = np.int32(2**31 - 1)
 # Version offsets leave headroom for the point probe's v+1 and the +inf
@@ -82,71 +85,13 @@ def _read_kernel_impl(hmat, slots, nextsame, fences, dmat, dslots, dnext,
     """One dispatch answering P point reads + R range reads against base
     blocks AND delta (tpu_engine.py:113): rank-probe all P+2R query
     columns (points carry (key, len, v+1), range begins and ends (key,
-    len, -1)), gather point predecessors, gather S-wide range spans with
-    the local visibility test at `rv`, and concatenate every verdict into
-    ONE int32 aux vector."""
-    W2 = qall.shape[0]  # key words + len + version rows
-    NBB = NB * B
-    D = dmat.shape[1]
-    vrow, dvrow = hmat[W2 - 1], dmat[W2 - 1]
-
-    # -- base rank: the probe (fence walk + in-block walk), global rank by
-    #    the uniform-fill arithmetic --
+    len, -1)), then read.read_gather: the delta walk, point predecessors,
+    S-wide range spans with the local visibility test at `rv`, and ONE
+    int32 aux vector. On the card two kernel launches (csrc/probe.cu,
+    csrc/read.cu) and no torch op."""
     bid, pos, _ = probe_ranks(hmat, fences, qall, NB=NB, B=B)
-    g = bid.clamp(0, NB - 1) * F + pos
-    # -- delta rank: dense halving walk over the (pow2, +inf padded) delta --
-    dg = _lower_rank(dmat, qall)
-
-    def col_of(rank):
-        # uniform-fill rank -> column; out-of-range ranks clip onto the
-        # last column, which is always padding (fill F < B)
-        return ((rank // F) * B + rank % F).clamp(0, NBB - 1)
-
-    # -- points: predecessor of lower_bound((key, len, v+1)) --
-    qk = qall[: W2 - 1, :P]
-    pred = g[:P] - 1
-    pcol = col_of(pred.clamp(min=0))
-    _, peq = _lex_lt_eq(hmat[: W2 - 1][:, pcol], qk)
-    pt_found = ((pred >= 0) & peq).to(I32)
-    pt_ver = vrow[pcol]
-    pt_slot = slots[pcol]
-    dpred = dg[:P] - 1
-    dcol = dpred.clamp(0, D - 1)
-    _, dpeq = _lex_lt_eq(dmat[: W2 - 1][:, dcol], qk)
-    pt_dfound = ((dpred >= 0) & dpeq).to(I32)
-    pt_dver = dvrow[dcol]
-    pt_dslot = dslots[dcol]
-
-    # -- ranges: span gather over [rb, re) with the local visibility test --
-    rb, re = g[P: P + R], g[P + R:]
-    span = torch.arange(S, dtype=I32, device=qall.device)
-    rvc = rv[:, None]
-    idx = rb[:, None] + span[None, :]  # (R, S) global ranks
-    scol = col_of(idx)
-    sver = vrow[scol]
-    vis = (
-        (idx < re[:, None])
-        & (sver <= rvc)
-        & ((nextsame[scol] == 0) | (vrow[col_of(idx + 1)] > rvc))
-    ).to(I32)
-    sslot = slots[scol]
-    drb, dre = dg[P: P + R], dg[P + R:]
-    didx = drb[:, None] + span[None, :]
-    dscol = didx.clamp(0, D - 1)
-    dsver = dvrow[dscol]
-    dvis = (
-        (didx < dre[:, None])
-        & (dsver <= rvc)
-        & ((dnext[dscol] == 0) | (dvrow[(didx + 1).clamp(0, D - 1)] > rvc))
-    ).to(I32)
-    dsslot = dslots[dscol]
-
-    return torch.cat([
-        pt_found, pt_slot, pt_ver, pt_dfound, pt_dslot, pt_dver,
-        rb, re, drb, dre,
-        vis.reshape(-1), sslot.reshape(-1), sver.reshape(-1),
-        dvis.reshape(-1), dsslot.reshape(-1), dsver.reshape(-1),
-    ])
+    return read_gather(hmat, slots, nextsame, dmat, dslots, dnext, qall, rv,
+                       bid, pos, P=P, R=R, S=S, F=F, NB=NB, B=B)
 
 
 class ReadHandle:

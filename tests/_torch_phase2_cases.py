@@ -17,7 +17,7 @@ import torch
 from foundationdb_tpu_torch.kv.keys import KeyRange
 from foundationdb_tpu_torch.resolver import block
 from foundationdb_tpu_torch.resolver import packing
-from foundationdb_tpu_torch.resolver import rankfed
+from foundationdb_tpu_torch.resolver import rankfed, rankfed_ops
 from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
 
 N_WORDS = 3            # 9-byte keyAfter ends of 8-byte keys
@@ -159,7 +159,7 @@ def chain_operands(T: int) -> dict:
 # ------------------------------------------------ the rank-fed set
 
 RANK_FIELDS = ("wb2", "we2", "qb2", "loA", "hiA", "perm", "rtxn", "wtxn",
-               "w_valid")
+               "w_valid")  # qb2 goes to phase 2 as its stab leaf
 
 
 def rank_operands(raw, history=(), bucket_min: int = 8):
@@ -202,4 +202,5 @@ def rank_operands(raw, history=(), bucket_min: int = 8):
                  wtxn=Wr, w_valid=Wr)
     kw = {n: torch.from_numpy(sl(n, sizes[n]).copy()) for n in RANK_FIELDS}
     kw["w_valid"] = kw["w_valid"] != 0
+    kw["leaf"] = rankfed_ops.stab_leaf(kw.pop("qb2"), lay.M)
     return buf, hv, lay, torch.from_numpy(base), kw

@@ -175,10 +175,10 @@ def test_gpu_phase2_seeded_at_the_n_jump_edges(T, monkeypatch):
 
 
 def test_gpu_phase2_launches_only_the_geometry_around_its_call(monkeypatch):
-    """gpu._phase2_fixed_point runs the geometry's ops and hands the seed
-    and the rounds to one phase2.phase2_rounds call (one kernel launch on
-    the card): with that call stubbed, under 40 ops that are not views
-    remain, none of them the min-writer's tree scatter or its stab."""
+    """gpu._phase2_fixed_point hands the geometry, the seed and the rounds
+    to one phase2.phase2_rounds call in its geometry form (q_end; one
+    kernel launch on the card): with that call stubbed, no op remains
+    around it."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Ops(TorchDispatchMode):
@@ -196,12 +196,13 @@ def test_gpu_phase2_launches_only_the_geometry_around_its_call(monkeypatch):
     base = torch.zeros(statics["T"], dtype=torch.int32)
     calls = []
     monkeypatch.setattr(phase2, "phase2_rounds", lambda b, c0, it0, cap,
-                        **kw: calls.append(kw["seed"]) or (b, it0, 0))
+                        **kw: calls.append(kw) or (b, it0, 0))
     with Ops() as seen:
         gpu._phase2_fixed_point(base, smat=None, **arrays, **statics)
-    assert calls == [True]
-    assert len(seen.ops) < 40, seen.ops
-    assert not [o for o in seen.ops if "scatter_reduce" in o or "amin" in o]
+    assert [kw["seed"] for kw in calls] == [True]
+    assert calls[0]["q_end"] is arrays["q_end"]
+    assert not {"perm", "lo", "hi"} & set(calls[0])
+    assert seen.ops == []
 
 
 def test_seed_undershoots_and_the_rounds_repair_it():
@@ -223,8 +224,13 @@ def test_seed_undershoots_and_the_rounds_repair_it():
         conflict, rounds, _ = gpu_check(arrays, statics, base)
     finally:
         phase2.phase2_rounds = real
-    geom = {k: captured[k] for k in ("perm", "lo", "hi", "seg_lo", "seg_hi",
-                                     "n_leaves", "leaf")}
+    assert "perm" not in captured   # gpu.py asks for the geometry form
+    perm, lo, hi = phase2.geometry_ref(captured["seg_lo"], captured["leaf"],
+                                       captured["q_end"],
+                                       captured["n_leaves"])
+    geom = dict(perm=perm, lo=lo, hi=hi,
+                **{k: captured[k] for k in ("seg_lo", "seg_hi", "n_leaves",
+                                            "leaf")})
     seed = phase2.seed_ref(
         captured["base_conf"], phase2.min_writer_fn(**geom),
         rtxn=captured["rtxn"], wtxn=captured["wtxn"],
@@ -246,6 +252,108 @@ def test_plain_version_chain_one_link_a_round(T):
     c2, it2, reads = phase2.phase2_rounds(base, base, j, j + T + 2,
                                           seed=True, **kw)
     assert torch.equal(c, c2) and int(it2) == j + 1 and reads == 1
+
+
+# ------------------------------------------------ the geometry
+
+
+def jax_geometry(s_begin, q_begin, q_end, P2: int, Wr: int):
+    """tpu.py:358-365's five lines, run by JAX on the CPU."""
+    is_wb = jnp.zeros(P2, dtype=jnp.int32).at[s_begin].set(1)
+    wb_excl = jnp.cumsum(is_wb) - is_wb
+    lh = wb_excl[jnp.stack([q_begin, q_end])]
+    rank_w = wb_excl[s_begin]
+    perm = jnp.zeros(Wr, dtype=jnp.int32).at[rank_w].set(
+        jnp.arange(Wr, dtype=jnp.int32))
+    return perm, lh[0], lh[1]
+
+
+GEOMETRY_CASES = [("random", s, RANDOM_CAPS) for s in range(4)] + [
+    ("chain", 16, SMALL_CAPS), ("undershoot", 0, SMALL_CAPS),
+    ("readonly", 7, SMALL_CAPS)]
+
+
+def geometry_case(kind, seed, caps):
+    raw = {"random": lambda: random_raw(np.random.default_rng(seed), 14),
+           "chain": lambda: chain_raw(seed),
+           "undershoot": undershoot_raw,
+           "readonly": lambda: readonly_raw(np.random.default_rng(seed), 9),
+           }[kind]()
+    return gpu_operands(raw, caps=caps)
+
+
+@pytest.mark.parametrize("kind,seed,caps", GEOMETRY_CASES)
+def test_packed_write_begins_are_distinct_slots(kind, seed, caps):
+    """The geometry's inverse permutation is a scatter-set, deterministic
+    only because every write row, pads included, owns a distinct begin
+    slot among the P2 endpoint slots (packing.py): so the write ranks are
+    a permutation of 0..Wr-1."""
+    arrays, statics = geometry_case(kind, seed, caps)
+    sb = arrays["s_begin"].numpy()
+    assert sb.shape == (statics["Wr"],)
+    assert len(np.unique(sb)) == statics["Wr"]
+    assert sb.min() >= 0 and sb.max() < statics["P2"]
+    perm, _, _ = phase2.geometry_ref(arrays["s_begin"], arrays["q_begin"],
+                                     arrays["q_end"], statics["P2"])
+    assert sorted(perm.tolist()) == list(range(statics["Wr"]))
+
+
+@pytest.mark.parametrize("kind,seed,caps", GEOMETRY_CASES)
+def test_geometry_ref_matches_jax(kind, seed, caps):
+    """phase2.geometry_ref (the plain version of the kernel's prologue)
+    equals tpu.py's five lines on packed batches, pads included."""
+    arrays, statics = geometry_case(kind, seed, caps)
+    got = phase2.geometry_ref(arrays["s_begin"], arrays["q_begin"],
+                              arrays["q_end"], statics["P2"])
+    want = jax_geometry(*(jnp.asarray(arrays[k].numpy()) for k in (
+        "s_begin", "q_begin", "q_end")), statics["P2"], statics["Wr"])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_geometry_form_equals_the_operand_form(seed):
+    """phase2_rounds given q_end (the geometry form gpu.py calls) returns
+    what it returns given geometry_ref's perm, lo and hi, seeded or not."""
+    arrays, statics = gpu_operands(random_raw(np.random.default_rng(seed),
+                                              14), caps=RANDOM_CAPS)
+    T, P2 = statics["T"], statics["P2"]
+    base = torch.from_numpy(
+        (np.random.default_rng(seed).random(T) < 0.15).astype(np.int32))
+    perm, lo, hi = phase2.geometry_ref(arrays["s_begin"], arrays["q_begin"],
+                                       arrays["q_end"], P2)
+    common = dict(seg_lo=arrays["s_begin"], seg_hi=arrays["s_end"],
+                  n_leaves=P2, leaf=arrays["q_begin"], rtxn=arrays["rtxn"],
+                  wtxn=arrays["wtxn"], w_valid=arrays["w_valid"])
+    for seeded in (False, True):
+        it0 = n_jump(T) if seeded else 0
+        a = phase2.phase2_rounds(base, base, it0, it0 + T + 2, seed=seeded,
+                                 q_end=arrays["q_end"], **common)
+        b = phase2.phase2_rounds(base, base, it0, it0 + T + 2, seed=seeded,
+                                 perm=perm, lo=lo, hi=hi, **common)
+        assert torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+
+
+def test_geometry_form_takes_q_end_or_the_operands_not_both():
+    arrays, statics = gpu_synthetic(np.random.default_rng(1), T=4, R=3, Wr=2)
+    T, P2 = statics["T"], statics["P2"]
+    base = torch.zeros(T, dtype=torch.int32)
+    kw = dict(seg_lo=arrays["s_begin"], seg_hi=arrays["s_end"], n_leaves=P2,
+              leaf=arrays["q_begin"], rtxn=arrays["rtxn"],
+              wtxn=arrays["wtxn"], w_valid=arrays["w_valid"])
+    perm = torch.arange(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="q_end"):
+        phase2.phase2_rounds(base, base, 0, T + 2, perm=perm,
+                             q_end=arrays["q_end"], **kw)
+    with pytest.raises(ValueError, match="q_end"):
+        phase2.phase2_rounds(base, base, 0, T + 2, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        phase2.phase2_rounds_launch(base, base, 0, T + 2,
+                                    q_end=arrays["q_end"], **kw)
+    conflict, _, _ = phase2.phase2_rounds(base, base, 0, T + 2,
+                                          q_end=arrays["q_end"], **kw)
+    assert conflict.shape == (T,)
 
 
 # ------------------------------------------------ the tier rule
@@ -284,6 +392,24 @@ def test_tier_rule_puts_each_path_where_it_ran_faster():
     assert phase2.choose_tier(*SHARDED, H100) == ("grid", 352, 0)
     assert phase2.choose_tier(*RANKFED, H100) == ("grid", 132 * 8, 0)
     assert phase2.choose_tier(1, 0, 0, 1, H100, "grid") == ("grid", 1, 0)
+
+
+def test_tier_rule_counts_the_geometry_words():
+    """In the geometry form the block tier also holds the P2 / 32 bit
+    words, their prefix and 32 scan words; the rule counts them, so a
+    shape that fits only without them goes to the grid."""
+    edge = (832, 4096, 1664, 12288)
+    smem = phase2.block_bytes(*edge, geo=True)
+    assert smem == phase2.block_bytes(*edge) + 4 * (2 * 12288 // 32 + 32)
+    assert phase2.choose_tier(*edge, H100, geo=True) == ("block", 1, smem)
+    lim = dict(H100, smem_per_block=phase2.block_bytes(*edge))
+    assert phase2.choose_tier(*edge, lim)[0] == "block"
+    assert phase2.choose_tier(*edge, lim, geo=True)[0] == "grid"
+    with pytest.raises(ValueError, match="block tier"):
+        phase2.choose_tier(*edge, lim, "block", geo=True)
+    assert phase2.geo_words(1) == 1 and phase2.geo_words(33) == 2
+    assert phase2.choose_tier(*FULL, H100, geo=True) == ("grid", 160, 0)
+    assert phase2.choose_tier(*SHARDED, H100, geo=True) == ("grid", 352, 0)
 
 
 @pytest.mark.parametrize("shape,tier", [(FULL, "block"), (RANKFED, "block"),
@@ -363,7 +489,7 @@ def test_rankfed_phase2_read_before_every_write():
     raw = before_every_write_raw()
     conflict, _, kw, _ = rank_check(raw)
     n_reads = sum(len(rr) for _, rr, _ in raw)
-    assert (kw["qb2"][:n_reads] == 0).any()
+    assert (kw["leaf"][:n_reads] == -1).any()   # qb2 0: no stab
     assert list(conflict[:3]) == [0, 1, 1]
 
 
@@ -396,7 +522,7 @@ def test_kernel_entry_point_matches_the_wrapper():
         phase2.ENTRY_POINTS)
     for name, (restype, argtypes) in phase2.ENTRY_POINTS.items():
         assert c_signature(src, name) == (restype, argtypes), name
-    assert len(phase2.ENTRY_POINTS["fdb_phase2_rounds"][1]) == 25
+    assert len(phase2.ENTRY_POINTS["fdb_phase2_rounds"][1]) == 27
 
 
 def test_launch_takes_only_cuda_tensors():

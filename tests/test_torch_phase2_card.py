@@ -3,11 +3,15 @@ card: through both callers, gpu._phase2_fixed_point and
 rankfed._phase2_fixed_point, on the cases of tests/test_torch_phase2.py
 (the same numpy-made operands, moved to the card), the conflict vector
 and gpu.py's round count bit for bit, and the kernel's launch counted
-(gpu.py's one call, seed included, is one launch). Then each case's
-operands through each tier (block and grid, forced), with and without
-the seed; an abort chain of 65,536 txns, whose 65,536 rounds spend the
-trees' tags twice over, on both tiers; the shared-memory formula of the
-tier rule against the kernel's; and a forced tier that does not fit.
+(gpu.py's one call, geometry and seed included, is one launch). Then
+each case's operands through each tier (block and grid, forced), with
+and without the seed (gpu.py's in the geometry form, the rank-fed set's
+with its host's perm, lo and hi); the geometry form against the operand
+form at edge shapes (P2 not a power of two, under one bit word, over a
+grid block's words); an abort chain of 65,536 txns, whose 65,536 rounds
+spend the trees' tags twice over, on both tiers; the shared-memory and
+scratch formulas of the tier rule against the kernel's; and a forced
+tier that does not fit.
 The kernel has no CPU mode: without a card every case skips. Run on a
 machine with a card:
 
@@ -197,8 +201,49 @@ def test_block_bytes_formula_is_the_kernels(card):
     for T, R, Wr, L in [(1, 0, 0, 1), (16, 80, 16, 64),
                         (8192, 40960, 16384, 114688),
                         (65536, 90112, 36864, 262144), (1000, 7, 3, 7777)]:
-        assert lib.fdb_phase2_block_bytes(T, R, Wr, L) == (
-            phase2.block_bytes(T, R, Wr, L))
+        for geo in (False, True):
+            assert lib.fdb_phase2_block_bytes(T, R, Wr, L, int(geo)) == (
+                phase2.block_bytes(T, R, Wr, L, geo))
+        # the grid's scratch: the geometry adds perm, lo, hi, the words
+        # and their prefix
+        assert (lib.fdb_phase2_scratch_ints(T, R, Wr, L, 5, 1)
+                - lib.fdb_phase2_scratch_ints(T, R, Wr, L, 5, 0)) == (
+            Wr + 2 * R + 2 * phase2.geo_words(L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [True, False])
+@pytest.mark.parametrize("tier", ["block", "grid"])
+@pytest.mark.parametrize("T,R,Wr", [(4, 3, 2), (5, 7, 9), (64, 100, 60),
+                                    (300, 2500, 1700)])
+def test_geometry_form_at_edge_shapes(card, T, R, Wr, tier, seed):
+    """Synthetic operands (P2 = 2 (R + Wr): 10, 32, 320 and 8,400 slots,
+    none a power of two but 32, the last over one 256-thread block's
+    words): the geometry form on the card equals the plain version, and
+    the operand form given geometry_ref's perm, lo and hi."""
+    arrays, statics = gpu_synthetic(np.random.default_rng(T + R), T=T, R=R,
+                                    Wr=Wr)
+    P2 = statics["P2"]
+    base = torch.from_numpy(
+        (np.random.default_rng(R).random(T) < 0.2).astype(np.int32))
+    common = dict(seg_lo=arrays["s_begin"], seg_hi=arrays["s_end"],
+                  n_leaves=P2, leaf=arrays["q_begin"], rtxn=arrays["rtxn"],
+                  wtxn=arrays["wtxn"], w_valid=arrays["w_valid"])
+    j = phase2.n_jump(T) if seed else 0
+    geo = dict(common, q_end=arrays["q_end"], base_conf=base,
+               conflict0=base, it0=j, cap=j + T + 2, seed=seed)
+    perm, lo, hi = phase2.geometry_ref(arrays["s_begin"], arrays["q_begin"],
+                                       arrays["q_end"], P2)
+    ops = dict(common, perm=perm, lo=lo, hi=hi, base_conf=base,
+               conflict0=base, it0=j, cap=j + T + 2, seed=seed)
+    outs = []
+    for op in (geo, ops):
+        op = {k: v.to(card) if torch.is_tensor(v) else v
+              for k, v in op.items()}
+        got, want = launch_vs_plain(op, tier)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+        outs.append(got)
+    assert torch.equal(outs[0][0], outs[1][0])
 
 
 @pytest.mark.cuda
@@ -222,9 +267,8 @@ def test_forced_block_tier_that_does_not_fit_raises(card):
 
 @pytest.mark.cuda
 def test_gpu_phase2_is_one_kernel_and_its_geometry(card):
-    """On the card gpu._phase2_fixed_point's device work is the
-    geometry's few kernels and one phase-2 kernel: the seed launches
-    nothing of its own."""
+    """On the card gpu._phase2_fixed_point's device work is one phase-2
+    kernel: the geometry and the seed launch nothing of their own."""
     from torch.profiler import ProfilerActivity, profile
 
     arrays, statics, base = gpu_case("random")
@@ -239,4 +283,4 @@ def test_gpu_phase2_is_one_kernel_and_its_geometry(card):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = [k for k in kernels if "grid_kernel" in k or "block_kernel" in k]
     assert len(ours) == 1, kernels
-    assert len(kernels) < 40, kernels
+    assert len(kernels) == 1, kernels

@@ -32,7 +32,9 @@ kernel's decode, phase 1 and phase 3 are, and resolver/compact.py, where
 the compaction's densify, ranks, phase 3 and redistribution are, and
 resolver/_launch.py, whose run_entry makes each launch: on a CUDA tensor
 each launches its kernel with no host sync and never reaches its plain
-version.
+version. The storage window sees resolver/probe.py and
+storage_engine/read.py (the probe and the read gather) and the rank-fed
+set resolver/rankfed_ops.py (its phases 1 and 3), under the same rule.
 """
 
 import ast
@@ -64,12 +66,15 @@ MODULES = {
         "dispatch": {"submit_reads"},
         "consume": {"read_verdicts"},
         "departures": set(),
+        "sees": ("resolver/probe.py", "storage_engine/read.py",
+                 "resolver/_launch.py"),
     },
     "resolver/rankfed.py": {
         "dispatch": {"resolve_async", "resolve"},
         "consume": {"result"},
         "departures": {"phase2_rounds_ref", "_canonical"},
-        "sees": ("resolver/phase2.py",),
+        "sees": ("resolver/phase2.py", "resolver/rankfed_ops.py",
+                 "resolver/_launch.py"),
     },
 }
 
@@ -275,6 +280,44 @@ def test_compact_plain_versions_make_no_host_sync():
     CPU set runs its plain versions, so neither they nor the launches
     read the device."""
     fns = functions(ast.parse((ROOT / "resolver/compact.py").read_text()))
+    bad = [f"{name}:{line}: {text}" for name, defs in fns.items()
+           for fn in defs for line, text in sync_calls(fn)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("rel,kernel", [
+    ("storage_engine/gpu_engine.py", "read_gather"),
+    ("resolver/rankfed.py", "phase1"),
+    ("resolver/rankfed.py", "phase3"),
+])
+def test_read_and_rankfed_cuda_branches_never_reach_the_plain_version(
+        rel, kernel):
+    """On a CUDA tensor the read gather's (read.py) and the rank-fed
+    phases' (rankfed_ops.py) dispatchers launch their kernels: the
+    launch's path makes no host sync and never calls a plain version
+    (`*_ref`), and the dispatcher calls its plain version only under its
+    CPU test."""
+    _, fns, reach, _ = analyse(rel)
+    launch = f"{kernel}_launch"
+    assert {kernel, launch} <= reach
+    cuda = closure({launch}, fns)
+    assert "run_entry" in cuda
+    assert not [name for name in cuda if name.endswith("_ref")]
+    assert not [t for name in cuda for fn in fns[name]
+                for _, t in sync_calls(fn)]
+    (fn,) = fns[kernel]
+    calls, guarded = cpu_guarded_calls(fn, f"{kernel}_ref")
+    assert calls and calls == guarded
+
+
+@pytest.mark.parametrize("rel", ["storage_engine/read.py",
+                                 "resolver/rankfed_ops.py",
+                                 "resolver/probe.py"])
+def test_read_and_rankfed_modules_make_no_host_sync(rel):
+    """read.py, rankfed_ops.py and probe.py hold to the no-host-read rule
+    as a whole: a dispatch on CPU tensors runs their plain versions, so
+    neither those nor the launches read the device."""
+    fns = functions(ast.parse((ROOT / rel).read_text()))
     bad = [f"{name}:{line}: {text}" for name, defs in fns.items()
            for fn in defs for line, text in sync_calls(fn)]
     assert not bad, bad
