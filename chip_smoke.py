@@ -1227,7 +1227,8 @@ class CompactTap:
     compaction on the card kept for compact_entries, by reference (every
     operand is fresh per compaction and never written after) but
     redistribute's st_aux, which it raises in place: cloned before the
-    call."""
+    call. Every compaction's counts and dense live count n are kept too
+    (`live_m`, `live_n`), read only after the run: the live shares."""
 
     device_types = ("cuda",)   # where a call's operands are kept
     KERNELS = ("densify", "ranks", "dense_phase3", "redistribute")
@@ -1246,6 +1247,7 @@ class CompactTap:
         def densify(hmat, counts, *, B):
             if hmat.device.type in keep:
                 self.captured["densify"] = dict(args=(hmat, counts), B=B)
+                self.captured.setdefault("live_m", []).append(counts)
             return real[0](hmat, counts, B=B)
 
         def ranks(*args):
@@ -1256,6 +1258,8 @@ class CompactTap:
         def dense_phase3(hmat, n, **kw):
             if hmat.device.type in keep:
                 self.captured["dense_phase3"] = dict(args=(hmat, n), kw=kw)
+                self.captured.setdefault("live_n", []).append(
+                    (n, hmat.shape[1]))
             return real[2](hmat, n, **kw)
 
         def redistribute(hmat_d, new_n, st_aux, *, NB_out, B):
@@ -1285,15 +1289,18 @@ class CompactTap:
                  f"{want} expected ({compactions} compactions)")
 
 
-def compact_run(kernel: str, cap: dict, plain: bool = False):
+def compact_run(kernel: str, cap: dict, plain: bool = False, stamps=None):
     """One call of a compaction kernel (or its plain version) on the
     captured operands; redistribute on a copy of its st_aux, which it
-    returns after its outputs."""
+    returns after its outputs. stamps: densify's and dense_phase3's stage
+    stamp buffer, for their kernels."""
     from foundationdb_tpu_torch.resolver import compact
 
     if kernel == "densify":
-        fn = compact.densify_ref if plain else compact.densify_launch
-        return fn(*cap["args"], B=cap["B"])
+        if plain:
+            return compact.densify_ref(*cap["args"], B=cap["B"])
+        return compact.densify_launch(*cap["args"], B=cap["B"],
+                                      stamps=stamps)
     if kernel == "ranks":
         if plain:
             return compact.ranks_ref(*cap["args"])
@@ -1306,7 +1313,8 @@ def compact_run(kernel: str, cap: dict, plain: bool = False):
         return compact.dense_phase3_launch(dict(zip(
             compact.DENSE_PHASE3_OPERANDS,
             (hmat, n, *(cap["kw"][k]
-                        for k in compact.DENSE_PHASE3_OPERANDS[2:])))))
+                        for k in compact.DENSE_PHASE3_OPERANDS[2:])))),
+            stamps=stamps)
     hmat_d, new_n, st_aux = cap["args"]
     st = st_aux.clone()
     fn = compact.redistribute_ref if plain else compact.redistribute_launch
@@ -1334,7 +1342,7 @@ def compact_bound(kernel: str, cap: dict) -> tuple[float, str]:
     card's 32-bit rate, each counted for this run's data (each input
     read once, each output written once). densify: the live columns in
     (W + 2 rows a column) and the counts, the dense state out; ops one
-    compare a key word of each dense column. ranks: the endpoint matrix,
+    compare a key word of each live column. ranks: the endpoint matrix,
     the reads' four operands and too_old in, ub, eq and base_conf out,
     the distinct history columns at the endpoints' lower ranks (W + 1
     words each) and the distinct version slots of the reads' windows;
@@ -1342,7 +1350,8 @@ def compact_bound(kernel: str, cap: dict) -> tuple[float, str]:
     endpoint). dense_phase3: the n live columns, the write endpoints'
     key columns, positions, txns, validity, ranks and eq, the conflict
     and too_old vectors in, the dense state and st_aux out; ops five
-    counts per merged slot (C + 2 Wr). redistribute: the min(new_n, C)
+    counts per merged slot that can hold a valid run (n + 2 Wr).
+    redistribute: the min(new_n, C)
     live columns in, the block state, counts, tree and fences out; ops a
     word per output column row."""
     import torch
@@ -1353,7 +1362,7 @@ def compact_bound(kernel: str, cap: dict) -> tuple[float, str]:
         W2, C = hmat.shape
         m = int(counts.sum())
         nbytes = 4 * W2 * m + 4 * counts.shape[0] + 4 * W2 * C + 4
-        ops = (W2 - 1) * C
+        ops = (W2 - 1) * m
     elif kernel == "ranks":
         hmat, smat, qb, qe, rsnap, rtxn, too_old = cap["args"]
         W1, P2 = smat.shape
@@ -1381,7 +1390,7 @@ def compact_bound(kernel: str, cap: dict) -> tuple[float, str]:
         M = 2 * Wr
         nbytes = (4 * W2 * int(n) + M * (4 * W1 + 4 + 5) + 9 * Wr + 5 * T
                   + 4 * W2 * C + T + 6 + 4)
-        ops = 5 * (C + M)
+        ops = 5 * (int(n) + M)
     else:
         hmat_d, new_n, _ = cap["args"]
         W2, C = hmat_d.shape
@@ -1411,6 +1420,99 @@ def compact_shape(kernel: str, cap: dict) -> dict:
     hmat_d, new_n, _ = cap["args"]
     return {"C": hmat_d.shape[1], "new_n": int(new_n),
             "NB_out": cap["NB_out"], "B": cap["B"]}
+
+
+# The previous design of densify and dense_phase3 (three-stage TupleScans
+# over the capacity C, 5 and 17 grid barriers) by stage on each path's
+# last compaction: median ns of 21 stamped launches on an H100 80GB HBM3
+# at 700.00 W (PERF.md), which [compact-stages-*] prints beside the
+# current kernels' stages.
+PREV_STAGES = {
+    ("densify", "resolver"): {
+        "counts_tiles": 3648, "counts_sums": 2464, "counts_apply": 3136,
+        "keep_tiles": 42080, "keep_sums": 17408, "keep_apply_pads": 39264,
+    },
+    ("dense_phase3", "resolver"): {
+        "clear": 8544, "mark": 3360, "rank_tiles": 2720, "rank_sums": 2464,
+        "rank_apply": 2624, "endpoints": 4064, "endpoint_bits": 5312,
+        "merge": 101280, "runs_tiles": 16480, "runs_sums": 17824,
+        "runs_apply": 26208, "valid_tiles": 10464, "valid_sums": 17824,
+        "valid_apply": 13344, "keep_tiles": 9120, "keep_sums": 17824,
+        "keep_apply": 12000, "gather": 32608,
+    },
+    ("densify", "cluster-resolver"): {
+        "counts_tiles": 3648, "counts_sums": 2528, "counts_apply": 3296,
+        "keep_tiles": 43296, "keep_sums": 17376, "keep_apply_pads": 42976,
+    },
+    ("dense_phase3", "cluster-resolver"): {
+        "clear": 7584, "mark": 2464, "rank_tiles": 2400, "rank_sums": 2368,
+        "rank_apply": 2368, "endpoints": 2816, "endpoint_bits": 4832,
+        "merge": 109280, "runs_tiles": 16352, "runs_sums": 17824,
+        "runs_apply": 26112, "valid_tiles": 9888, "valid_sums": 17728,
+        "valid_apply": 13280, "keep_tiles": 9152, "keep_sums": 17888,
+        "keep_apply": 12160, "gather": 42016,
+    },
+    ("densify", "sharded"): {
+        "counts_tiles": 3104, "counts_sums": 2400, "counts_apply": 2592,
+        "keep_tiles": 13056, "keep_sums": 5632, "keep_apply_pads": 10752,
+    },
+    ("dense_phase3", "sharded"): {
+        "clear": 5376, "mark": 4064, "rank_tiles": 3456, "rank_sums": 3168,
+        "rank_apply": 3744, "endpoints": 4832, "endpoint_bits": 4544,
+        "merge": 36736, "runs_tiles": 6400, "runs_sums": 6528,
+        "runs_apply": 9376, "valid_tiles": 4320, "valid_sums": 6400,
+        "valid_apply": 5696, "keep_tiles": 4544, "keep_sums": 6720,
+        "keep_apply": 5216, "gather": 9536,
+    },
+}
+
+
+def compact_stages(kernel: str, cap: dict, reps: int = 21) -> tuple:
+    """(stage names, median ns of each stage) of the kernel over reps
+    stamped launches on the captured operands (csrc/grid.cuh Stamps)."""
+    import torch
+    from foundationdb_tpu_torch.resolver import compact
+
+    stages = (compact.DENSIFY_STAGES if kernel == "densify"
+              else compact.PHASE3_STAGES)
+    dev = cap["args"][0].device
+    buf = torch.zeros(len(stages) + 1, dtype=torch.int64, device=dev)
+    rows = []
+    for _ in range(reps):
+        compact_run(kernel, cap, stamps=buf)
+        torch.cuda.synchronize(dev)
+        rows.append(buf.cpu().numpy().copy())
+    ns = np.median(np.diff(np.array(rows), axis=1), axis=0)
+    return stages, [float(x) for x in ns]
+
+
+def log_compact_stages(path: str, cap: dict, smi: str) -> None:
+    """[compact-stages-<kernel>-<path>] for densify and dense_phase3: each
+    stage's median ns and share of the stamped kernel, the previous
+    design's (PREV_STAGES) beside
+    them; [compact-live-<path>]: every compaction's live shares, m / C
+    (densify's live entries) and n / C (dense_phase3's)."""
+    for kernel in ("densify", "dense_phase3"):
+        stages, ns = compact_stages(kernel, cap[kernel])
+        total = sum(ns) or 1.0
+        before = PREV_STAGES.get((kernel, path), {})
+        b_total = sum(before.values()) or 1.0
+        log(f"compact-stages-{kernel}-{path}", smi=json.dumps(smi),
+            stages=json.dumps(list(stages)),
+            ns=json.dumps([round(x, 1) for x in ns]),
+            share=json.dumps([round(x / total, 4) for x in ns]),
+            total_ns=f"{total:.1f}", barriers=len(stages) - 1,
+            prev_stages=json.dumps(list(before)),
+            prev_share=json.dumps([round(x / b_total, 4)
+                                   for x in before.values()]),
+            prev_total_ns=f"{sum(before.values()):.1f}",
+            prev_barriers=max(len(before) - 1, 0))
+    m = [int(c.sum()) / c.numel() / cap["densify"]["B"]
+         for c in cap.get("live_m", [])]
+    n = [int(x) / C for x, C in cap.get("live_n", [])]
+    log(f"compact-live-{path}", compactions=len(n),
+        m_share=json.dumps([round(x, 4) for x in m]),
+        n_share=json.dumps([round(x, 4) for x in n]))
 
 
 def compact_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
@@ -1457,6 +1559,7 @@ def compact_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
                     "ms": t["ms"], "ms_cold": t["ms_cold"],
                     "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None, **shape})
+    log_compact_stages(path, cap, smi)
     # the whole compaction around the decode and phase 2: what tpu.py's
     # dense and compaction kernels did there as torch ops
     log(f"compact-total-{path}", smi=json.dumps(smi),

@@ -23,6 +23,16 @@
 // full_collide case of tests/test_torch_compact.py); compact.py's
 // dense_phase3 and gpu.py's _resolve_kernel_impl state the precondition.
 //
+// Phase 3 also leans on what the decode and densify build: every sorted
+// slot holds one endpoint (the write endpoints' positions are distinct),
+// a pad endpoint (key +inf, ub = C) belongs to a pad write, never
+// committed, and the dense state's columns past n are pads. So no valid
+// run reaches past merged slot L = n + 2 Wr: where n < C the real
+// endpoints rank at most n, history entry n (a pad, no live bit) starts a
+// run at slot n + #(real endpoints) <= L that ends every run before it,
+// and past it lie only history pads and pad endpoints, in runs with no
+// valid slot; where n = C, L is the whole merged space.
+//
 // Why: on the card the torch version of the compaction is about 840
 // eager launches, which the host pays for one by one and the device runs
 // as many small passes over the C-column state; here it is four launches
@@ -31,19 +41,45 @@
 // Bound on the card: bytes. The state (W + 2 rows of C int32) in and out
 // of densify, phase3 and redistribute, the endpoints and the reads' ranks
 // for ranks: 0.0155, 0.0013, 0.0157 and 0.0151 ms at config 5's C = 2^21
-// (chip_smoke.py compact_bound). Measured on an H100 80GB HBM3 at 700 W
-// there: densify 0.106 ms, ranks 0.046, dense_phase3 0.304, redistribute
-// 0.063 (PERF.md). What bounds these kernels is, as in block.cu, their
-// grid barriers (a few microseconds each, 17 in phase 3) and the scans
-// that cross blocks. The design:
+// (chip_smoke.py compact_bound); most of densify's and phase3's is their
+// output, whose columns past m2 and new_n are pads. Times on the card are
+// in PERF.md (an H100 80GB HBM3 at 700 W). The previous densify and
+// phase3 (0.107 and 0.305 ms there) worked over the capacity C, not the
+// live columns, ran each prefix sum in three stages with a serial middle
+// one (one block walking the N / 256 tile sums), searched the endpoints'
+// ranks once per history column and made 5 and 17 grid barriers; their
+// stage stamps put most of phase3 in that search and the scans, most of
+// densify in its keep stages. The design:
 //
-// - Every kernel is one cooperative grid; a prefix sum over the grid is
-//   three stages (tile sums, their prefix, the apply) and can carry
-//   several sums of one element at once (TupleScan).
-// - densify: the blocks' counts are prefix-summed, then each dense
-//   position finds its block by a binary search over those prefixes (no
-//   scatter into a C-column buffer and no second gather); the dedup's
-//   keep bits are one scan whose apply writes each kept column.
+// - Every kernel is one cooperative grid. densify's and phase3's prefix
+//   sums are grid.cuh's ChunkScan: each block reduces one contiguous
+//   chunk, and after one barrier every block sums the totals of the
+//   blocks before it and rescans its chunk (no serial stage; all blocks
+//   are resident, so none waits on one that has not started). ranks and
+//   redistribute need no prefix sum.
+// - Stage stamps: densify's and phase3's entry points take an int64
+//   buffer or null; where it is given, block 0's thread 0 writes
+//   %globaltimer at the start and after each grid barrier (grid.cuh
+//   Stamps), one more barrier ending the kernel, so that stage k took
+//   stamp k + 1 - stamp k ns. The main path passes null. compact.py names
+//   the stages (DENSIFY_STAGES, PHASE3_STAGES); chip_smoke.py's
+//   [compact-stages-*] lines read them.
+// - densify, 3 grid barriers (previously 5): a chunk scan of the counts
+//   writes each source block's inclusive prefix; then the first min(m, C)
+//   dense positions (not the C slots) split evenly over the blocks, a
+//   thread a position: its source block found by a search of a shared
+//   memory window of 256 blocks' prefixes (the window is reloaded only
+//   where the chunk leaves it), its key against position p + 1's (the
+//   next slot, the next block with entries, or a pad), keep bits by
+//   ballot into the block's words and their count; a chunk scan of those
+//   places each kept column, which its thread copies. A block past B
+//   entries keeps tpu.py's result: only its first B scatter, and the
+//   positions after them are pads that dedup among themselves. The
+//   columns past min(m, C) and then past m2 are 16-byte pad stores.
+//   Chunks of positions and not of source blocks, because the live
+//   entries sit in the first blocks after a redistribution (at config 5
+//   the first third hold them all): a warp a source block, or a thread a
+//   position over chunks of blocks, left most blocks idle (PERF.md).
 // - ranks: tpu.py's halving walk over the dense keys, one thread a query,
 //   which saturates at C - 1 exactly as tpu.py's does. Phase 1 needs range
 //   maxima of the version row without tpu.py's (log C + 1) x C sparse
@@ -54,16 +90,24 @@
 //   which rankfed.cu's phase 1 shares. Ranking against the
 //   block state before densify (the probe) would need the columns dedup
 //   drops subtracted again, so the walk runs on the dense state.
-// - phase3: the write endpoints are compacted in sorted order by a scan
-//   over P2; the history's merged positions come from a binary search over
-//   the endpoints' ranks (they never fall), so the merged space is one
-//   scatter of a permutation. One five-way scan gives each merged slot its
-//   history, committed-begin, committed-end, valid and run-start counts;
-//   its apply writes, per run of equal keys, the value at the run's end
-//   (covered, stale clamp, rebase) and, by atomicMin, the run's first
-//   valid slot. The run compaction and the coalesce are then two scans
-//   whose applies write the destinations directly, and the last stage
-//   gathers the keys from [history | endpoints].
+// - phase3, 9 grid barriers (previously 17), every pass over the first L
+//   merged slots, n history columns or the runs and entries they hold:
+//   each write endpoint names itself at its sorted position (no clear: a
+//   stale word names no endpoint at that position), and a chunk scan
+//   over P2 compacts them in sorted order with their ranks ub. Endpoint c
+//   lands at merged slot c + ub[c] (strictly rising), so one search of the
+//   whole block finds its chunk's first endpoint, and the block merges its
+//   chunk a 256-slot tile at a time in shared memory (history in the
+//   slots between endpoints, in order; an endpoint's bits from two rounds
+//   of loads), adding the five-way run scan's chunk sums (history,
+//   committed begin, committed end, valid, run start) in the same pass.
+//   The scan's apply writes, per run of equal keys, the value at the
+//   run's end (covered, stale clamp, rebase) and, by atomicMin, the run's
+//   first valid slot; the run compaction and the coalesce are two chunk
+//   scans whose applies write the destinations; the last stage gathers
+//   the live columns' keys from [history | endpoints], a row group of
+//   loads before its stores, and writes the pads past new_n as 16-byte
+//   stores.
 // - redistribute: each output column finds its dense source arithmetically
 //   (block c / B, slot c % B, source block * F + slot); leaves are a warp's
 //   maximum over a block; the segment tree is folded 256 leaves a thread
@@ -107,6 +151,31 @@ __device__ __forceinline__ bool key_eq(const int32_t* h, long long hld,
   return true;
 }
 
+// Columns [from, to) of each of the W + 2 rows of out (W + 2, C) as pads:
+// kInf in the key and length rows, 0 in the version row, by 16-byte
+// stores over each row's aligned middle.
+__device__ void pad_cols(const Grid& g, int32_t* out, long long C, int W,
+                         long long from, long long to) {
+  if (from < 0) from = 0;
+  if (to > C) to = C;
+  if (from >= to) return;
+  const bool vec = ((uintptr_t)out & 15) == 0;
+  for (int r = 0; r <= W + 1; ++r) {
+    const int32_t v = r <= W ? kInf : 0;
+    const long long A = r * C + from, E = r * C + to;
+    const long long a4 = vec ? (A + 3) & ~3LL : E, e4 = vec ? E & ~3LL : E;
+    if (a4 < e4) {
+      const int4 v4 = make_int4(v, v, v, v);
+      int4* o4 = reinterpret_cast<int4*>(out + a4);
+      g.each((e4 - a4) / 4, [&](long long q) { o4[q] = v4; });
+      g.each(a4 - A, [&](long long i) { out[A + i] = v; });
+      g.each(E - e4, [&](long long i) { out[e4 + i] = v; });
+    } else {
+      g.each(E - A, [&](long long i) { out[A + i] = v; });
+    }
+  }
+}
+
 // ---------------------------------------------------------------- densify
 
 struct DensifyArgs {
@@ -114,84 +183,258 @@ struct DensifyArgs {
   const int32_t* counts;  // (NB,)
   int32_t* dense;         // (W + 2, C) out: live prefixes, deduplicated
   int32_t* m2;            // () out: its live columns
-  int32_t* scratch;       // incl NB, keep C, the two scans' tile sums
-  TupleScan<1> cnt, keep;
+  int32_t* scratch;       // DensifyScratch
+  int64_t* stamps;        // null, or the stage stamps (grid.cuh Stamps)
   int W, NB, B;
 };
 
-// The state slot of dense position p (p < C), or -1 for a pad: the block
-// k whose live prefix holds p (the first with incl[k] > p) and p's offset
-// into it, a pad where the offset reaches B (a block past B entries
-// scatters only its first B, as tpu.py's densify does).
-__device__ long long dense_source(const DensifyArgs& a, const int32_t* incl,
-                                  long long p) {
-  long long lo = 0, hi = a.NB;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (ld(incl + mid) <= p) lo = mid + 1;
-    else hi = mid;
+// Key rows a thread holds at once: its loads of a group issue together
+// (a store between two loads would order them).
+constexpr int kRowGroup = 8;
+
+// densify's scratch: each source block's inclusive prefix of the counts,
+// the keep bits (a word a 32 positions of each block's chunk), then the
+// two scans' block sums (gridDim.x words each; the grid has at most
+// blocks() blocks, and a chunk of positions at most ceil(C / gridDim.x)).
+struct DensifyScratch {
+  int32_t *incl, *tot_cnt, *tot_pos;
+  uint32_t* bits;
+  long long chunk_words;
+  __host__ __device__ static long long blocks(long long NB, long long B) {
+    return (NB * B + kThreads - 1) / kThreads;
   }
-  if (lo >= a.NB) return -1;
-  const long long j = p - (lo ? ld(incl + lo - 1) : 0);
-  return j < a.B ? lo * a.B + j : -1;
+  __host__ __device__ static long long words(long long NB, long long B) {
+    return NB + NB * B / 32 + 20 * blocks(NB, B);
+  }
+  __device__ DensifyScratch(int32_t* s, long long NB, long long C) {
+    incl = s;
+    tot_cnt = incl + NB;
+    tot_pos = tot_cnt + gridDim.x;
+    bits = reinterpret_cast<uint32_t*>(tot_pos + gridDim.x);
+    // a word a 32 positions of every tile that a chunk of positions (at
+    // most ceil(C / gridDim.x)) starts
+    chunk_words = ((C + gridDim.x - 1) / gridDim.x + kThreads - 1) /
+                  kThreads * kWarps;
+  }
+};
+
+// The number of indices c in [0, n) where below(c) holds, for a predicate
+// that holds on a prefix: a search of the whole block (every thread calls
+// it), 256 candidates a round.
+template <class F>
+__device__ long long block_count(long long n, F below) {
+  long long a0 = 0, a1 = n;  // the answer lies in [a0, a1]
+  while (a0 < a1) {
+    const long long step = (a1 - a0 + kThreads - 1) / kThreads;
+    const long long c = a0 + (threadIdx.x + 1) * step - 1;
+    const int k = __syncthreads_count(c < a1 && below(c));
+    const long long b1 = a0 + (k + 1) * step - 1;
+    a0 += k * step;
+    a1 = b1 < a1 ? b1 : a1;
+  }
+  return a0;
 }
+
+// The source blocks [k0, k0 + kThreads) in shared memory (win: their
+// inclusive prefixes; base: the one before k0), which hold every dense
+// position in [base, win[kThreads - 1]); a position past them (where
+// blocks hold fewer entries than that) is searched for in incl.
+struct DenseWindow {
+  const DensifyArgs* a;
+  const int32_t* incl;
+  int32_t* win;
+  int32_t* base_s;
+  long long k0;
+  __device__ bool holds(long long p) const {
+    return p >= *base_s && p < win[kThreads - 1];
+  }
+  // Every thread calls it: the window from the block holding p on.
+  __device__ void load(long long p) {
+    if (!holds(p)) {
+      const long long k = block_count(
+          a->NB, [&](long long x) { return ld(incl + x) <= p; });
+      k0 = k;
+      win[threadIdx.x] = k0 + threadIdx.x < a->NB
+                             ? ld(incl + k0 + threadIdx.x)
+                             : INT32_MAX;
+      if (threadIdx.x == 0) *base_s = k0 > 0 ? ld(incl + k0 - 1) : 0;
+      __syncthreads();
+    }
+  }
+  // The source block k of dense position p (p < m), p's offset j in it
+  // and the block's count c.
+  __device__ void locate(long long p, long long& k, long long& j,
+                         long long& c) const {
+    int32_t before, end;
+    if (holds(p)) {
+      long long lo = 0, hi = kThreads - 1;  // the first win entry past p
+      while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (win[mid] <= p) lo = mid + 1;
+        else hi = mid;
+      }
+      k = k0 + lo;
+      before = lo ? win[lo - 1] : *base_s;
+      end = win[lo];
+    } else {
+      long long lo = 0, hi = a->NB - 1;
+      while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (ld(incl + mid) <= p) lo = mid + 1;
+        else hi = mid;
+      }
+      k = lo;
+      before = lo ? ld(incl + lo - 1) : 0;
+      end = ld(incl + lo);
+    }
+    j = p - before;
+    c = (long long)end - before;
+  }
+  // The source slot of dense position p, or -1 for a pad: a position at
+  // m and past, or past B in a block past B entries (which scatters only
+  // its first B).
+  __device__ long long slot(long long p, int32_t m) const {
+    if (p >= m) return -1;
+    long long k, j, c;
+    locate(p, k, j, c);
+    return j < a->B ? k * a->B + j : -1;
+  }
+  // Whether dense position p (p < min(m, C)) is kept: the last of its
+  // equal-key run (its key differs from position p + 1's), or the last
+  // column.
+  __device__ bool keep(long long p, int32_t m) const {
+    const long long B = a->B, C = (long long)a->NB * B;
+    const int W = a->W;
+    if (p == C - 1) return true;
+    long long k, j, c;
+    locate(p, k, j, c);
+    const long long src = j < B ? k * B + j : -1;
+    const long long succ =
+        p + 1 >= m ? -1
+                   : (j + 1 < c ? (j + 1 < B ? src + 1 : -1) : slot(p + 1, m));
+    bool same = true;
+    for (int r0 = 0; r0 <= W; r0 += kRowGroup) {
+      int32_t x[kRowGroup], y[kRowGroup];
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i) {
+        const long long r = r0 + i;
+        x[i] = r <= W && src >= 0 ? a->hmat[r * C + src] : kInf;
+        y[i] = r <= W && succ >= 0 ? a->hmat[r * C + succ] : kInf;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i) same = same && x[i] == y[i];
+    }
+    return !same;
+  }
+};
 
 __global__ void __launch_bounds__(kThreads) densify_kernel(DensifyArgs a) {
   extern __shared__ int32_t smem[];
+  int32_t* ws = smem;               // 2 kWarps words
+  int32_t* win = ws + 2 * kWarps;   // the window of prefixes
+  int32_t* base = win + kThreads;
   const Grid g;
+  Stamps st(a.stamps);
   const long long C = (long long)a.NB * a.B;
-  const int W = a.W;
-  int32_t* incl = a.scratch;
-  int32_t* keepf = incl + a.NB;
-  int32_t* tsum_cnt = keepf + C;
-  int32_t* tsum_keep = tsum_cnt + TupleScan<1>::words(a.NB);
-  // Stages 1-3: the counts' inclusive prefix.
-  auto cval = [&](long long k, int32_t* v) { v[0] = a.counts[k]; };
-  a.cnt.tiles_stage(tsum_cnt, smem, cval);
-  g.sync();
-  a.cnt.sums_stage(tsum_cnt, smem);
-  g.sync();
-  a.cnt.apply_stage(tsum_cnt, smem, cval,
-                    [&](long long k, const int32_t* v, const int32_t* ex) {
-                      incl[k] = add32(ex[0], v[0]);
-                    });
-  g.sync();
-  // Stages 4-6: keep the last of each equal-key run among the first m
-  // positions; each kept column goes to its rank, pads fill the rest.
-  const int32_t m = a.cnt.total(tsum_cnt, 0);
-  auto key = [&](long long src, int r) {
-    return src < 0 ? kInf : a.hmat[r * C + src];
+  const int W = a.W, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const DensifyScratch s(a.scratch, a.NB, C);
+  const ChunkScan<1> cnt{a.NB};
+  // Stage 1: the counts' chunk sums.
+  auto count = [&](long long k, bool in, int32_t* v) {
+    if (in) v[0] = a.counts[k];
   };
-  a.keep.tiles_stage(tsum_keep, smem, [&](long long p, int32_t* v) {
-    bool k = p < m;
-    if (k && p + 1 < C) {
-      const long long s0 = dense_source(a, incl, p),
-                      s1 = dense_source(a, incl, p + 1);
-      bool same = true;
-      for (int r = 0; r <= W && same; ++r) same = key(s0, r) == key(s1, r);
-      k = !same;
+  cnt.reduce_stage(s.tot_cnt, ws, count);
+  g.sync(st);
+  // Stage 2: the counts' inclusive prefix, each source block's end in the
+  // dense order; m their total.
+  int32_t m;
+  {
+    int32_t off;
+    cnt.offsets(s.tot_cnt, ws, &off, &m);
+    cnt.apply_stage(&off, ws, count,
+                    [&](long long k, const int32_t* v, const int32_t* ex) {
+                      s.incl[k] = add32(ex[0], v[0]);
+                    });
+  }
+  g.sync(st);
+  // Stage 3: the first min(m, C) dense positions, an even chunk a block,
+  // a thread a position a tile: its source (searched in a window of 256
+  // source blocks' prefixes) and keep bit, by ballot into the chunk's bit
+  // words; the kept count's chunk sums. The pads past min(m, C), which no
+  // kept column reaches.
+  const ChunkScan<1> pos{m < C ? (m > 0 ? m : 0) : C};
+  const long long lo = pos.lo(), hi = pos.hi();
+  uint32_t* bits = s.bits + blockIdx.x * s.chunk_words;
+  DenseWindow w{&a, s.incl, win, base, 0};
+  if (threadIdx.x == 0) {
+    win[kThreads - 1] = 0;  // holds nothing yet
+    *base = 1;
+  }
+  __syncthreads();
+  {
+    int32_t acc = 0;
+    for (long long t0 = lo; t0 < hi; t0 += kThreads) {
+      w.load(t0);
+      const long long p = t0 + threadIdx.x;
+      const unsigned bal = __ballot_sync(kFull, p < hi && w.keep(p, m));
+      if (lane == 0) {
+        bits[(t0 - lo) / 32 + warp] = bal;
+        acc += __popc(bal);
+      }
     }
-    keepf[p] = v[0] = k;
-  });
-  g.sync();
-  a.keep.sums_stage(tsum_keep, smem);
-  g.sync();
-  const int32_t m2 = a.keep.total(tsum_keep, 0);
-  a.keep.apply_stage(
-      tsum_keep, smem, [&](long long p, int32_t* v) { v[0] = ld(keepf + p); },
-      [&](long long p, const int32_t* v, const int32_t* ex) {
-        if (!v[0]) return;
-        const long long src = dense_source(a, incl, p);
-        for (int r = 0; r <= W + 1; ++r)
-          a.dense[r * C + ex[0]] =
-              src >= 0 ? a.hmat[r * C + src] : (r <= W ? kInf : 0);
-      });
-  g.each(C, [&](long long q) {
-    if (q < m2)
-      return;
-    for (int r = 0; r <= W + 1; ++r) a.dense[r * C + q] = r <= W ? kInf : 0;
-  });
+    pad_cols(g, a.dense, C, W, pos.n, C);
+    pos.publish(&acc, s.tot_pos, ws);
+  }
+  g.sync(st);
+  // Stage 4: each kept position's column written to its rank (the kept
+  // positions' prefix); pads past m2.
+  int32_t offk, m2;
+  pos.offsets(s.tot_pos, ws, &offk, &m2);
+  // The tile's kept positions before a thread's, from its bit words (no
+  // block scan); the next tile's words are read while this one copies.
+  const int32_t* kw = reinterpret_cast<const int32_t*>(bits);
+  uint32_t words[kWarps];
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) words[i] = lo < hi ? ld(kw + i) : 0;
+  for (long long t0 = lo; t0 < hi; t0 += kThreads) {
+    w.load(t0);
+    uint32_t here[kWarps];
+    int32_t before = 0, in_tile = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      here[i] = words[i];
+      const int32_t c = __popc(here[i]);
+      before += i < warp ? c : 0;
+      in_tile += c;
+    }
+    const long long next = (t0 - lo) / 32 + kWarps;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i)
+      words[i] = t0 + kThreads < hi ? ld(kw + next + i) : 0;
+    const uint32_t mine = here[warp];
+    const long long p = t0 + threadIdx.x;
+    const long long to = add32(
+        offk, before + __popc(mine & ((1u << lane) - 1u)));
+    offk = add32(offk, in_tile);
+    if (!((mine >> lane) & 1)) continue;
+    const long long src = w.slot(p, m);
+    for (int r0 = 0; r0 <= W + 1; r0 += kRowGroup) {
+      int32_t v[kRowGroup];
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i) {
+        const long long r = r0 + i;
+        v[i] = r > W + 1 ? 0
+               : src >= 0 ? a.hmat[r * C + src]
+                          : (r <= W ? kInf : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i)
+        if (r0 + i <= W + 1) a.dense[(r0 + i) * C + to] = v[i];
+    }
+  }
+  pad_cols(g, a.dense, C, W, m2, pos.n);
   if (g.leader()) *a.m2 = m2;
+  g.finish(st);
 }
 
 // ------------------------------------------------------------------ ranks
@@ -265,220 +508,283 @@ struct Phase3Args {
   int32_t* new_n;             // () out
   int8_t* st_aux;             // (T + 6,) out
   int32_t* scratch;
+  int64_t* stamps;            // null, or the stage stamps (grid.cuh Stamps)
   int W, P2, Wr, T;
   long long C;
 };
 
-// The scratch of phase 3, in this order.
+// The scratch of phase 3, in this order; the merged-space arrays are used
+// up to L = n + M slots, the block sums for gridDim.x blocks (at most
+// blocks()).
 struct P3Scratch {
-  int32_t *is_w, *packed, *ubc, *vb, *posb, *merged, *fv, *valr, *csrc,
-      *cval, *src2, *hvn, *t_rank, *t_runs, *t_valid, *t_keep;
+  int32_t *inv, *packed, *ubc, *merged, *fv, *valr, *csrc, *cval, *src2,
+      *hvn, *tot;
+  __host__ __device__ static long long blocks(long long C, long long M) {
+    return (C + M + kThreads - 1) / kThreads;
+  }
   __host__ __device__ static long long words(long long C, long long P2,
                                              long long M) {
     const long long N3 = C + M;
-    return P2 + 4 * M + 5 * N3 + 2 * C + TupleScan<1>::words(P2) +
-           TupleScan<5>::words(N3) + 2 * TupleScan<1>::words(N3);
+    return P2 + 2 * M + 5 * N3 + 2 * C + 5 * blocks(C, M);
   }
   __device__ P3Scratch(int32_t* s, long long C, long long P2, long long M) {
     const long long N3 = C + M;
-    is_w = s;
-    packed = is_w + P2;
+    inv = s;
+    packed = inv + P2;
     ubc = packed + M;
-    vb = ubc + M;
-    posb = vb + M;
-    merged = posb + M;
+    merged = ubc + M;
     fv = merged + N3;
     valr = fv + N3;
     csrc = valr + N3;
     cval = csrc + N3;
     src2 = cval + N3;
     hvn = src2 + C;
-    t_rank = hvn + C;
-    t_runs = t_rank + TupleScan<1>::words(P2);
-    t_valid = t_runs + TupleScan<5>::words(N3);
-    t_keep = t_valid + TupleScan<1>::words(N3);
+    tot = hvn + C;
   }
 };
 
+// Compacted write endpoint c's merged bits (ub_c its rank): committed
+// begin, committed end, same key as its merged predecessor, source column
+// C + position. Its loads issue in two rounds: packed[c], packed[c - 1]
+// and ubc[c - 1], then eq and both endpoints' key rows.
+__device__ int32_t endpoint_bits(const Phase3Args& a, const P3Scratch& s,
+                                 long long c, int32_t ub_c) {
+  const long long P2 = a.P2;
+  const int W = a.W;
+  const int32_t pe = ld(s.packed + c);
+  const int32_t pp = c > 0 ? ld(s.packed + c - 1) : 0;
+  const bool prev_here = c > 0 && ld(s.ubc + c - 1) == ub_c;
+  const int32_t sidx = pe >> 2;
+  const long long q = gat(sidx, P2), qp = gat(pp >> 2, P2);
+  const int32_t committed = pe & 1, is_begin = (pe >> 1) & 1;
+  bool same_prev = a.eq[q] != 0 && ub_c > 0;
+  if (prev_here) {  // the previous endpoint is its predecessor
+    bool same = true;
+    for (int r0 = 0; r0 <= W; r0 += kRowGroup) {
+      int32_t x[kRowGroup], y[kRowGroup];
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i) {
+        const long long r = r0 + i;
+        x[i] = r <= W ? a.smat[r * P2 + q] : 0;
+        y[i] = r <= W ? a.smat[r * P2 + qp] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i) same = same && x[i] == y[i];
+    }
+    same_prev = same;
+  }
+  return add32(add32((committed & is_begin) << 1,
+                     (committed & (1 - is_begin)) << 2),
+               add32((int32_t)same_prev << 3,
+                     (int32_t)((uint32_t)add32((int32_t)a.C, sidx) << 4)));
+}
+
+// A merged slot's five counts: history, committed begin, committed end,
+// valid, run start.
+__device__ __forceinline__ void run_bits(int32_t x, int32_t* v) {
+  v[0] = x & 1;
+  v[1] = (x >> 1) & 1;
+  v[2] = (x >> 2) & 1;
+  v[3] = v[0] | v[1] | v[2];
+  v[4] = !((x >> 3) & 1);
+}
+
 __global__ void __launch_bounds__(kThreads) phase3_kernel(Phase3Args a) {
   extern __shared__ int32_t smem[];
+  int32_t* ws = smem;                // 10 kWarps words
+  int32_t* mark = ws + 10 * kWarps;  // a tile's endpoints by slot
+  int32_t* vbuf = mark + kThreads;   // and their merged bits
   const Grid g;
+  Stamps st(a.stamps);
   const long long C = a.C, P2 = a.P2, Wr = a.Wr, M = 2 * Wr, N3 = C + M;
   const int W = a.W;
   const long long T = a.T;
   const P3Scratch s(a.scratch, C, P2, M);
   const int32_t* hv = a.hmat + (W + 1) * C;
   const int32_t n = *a.n, version = *a.version, oldest = *a.oldest_eff;
-  const TupleScan<1> rank{P2}, valid_runs{N3}, keep2{N3};
-  const TupleScan<5> runs{N3};
+  // No valid run reaches past the first L merged slots (the note above).
+  const long long L = (n < 0 ? 0 : (n > C ? C : n)) + M;
+  auto epos = [&](long long e) {
+    return e < Wr ? a.s_begin[e] : a.s_end[e - Wr];
+  };
 
-  // Stage 1: clear; the statuses.
-  g.each(P2, [&](long long i) { s.is_w[i] = 0; });
-  g.each(M, [&](long long i) { s.packed[i] = 0; });
-  g.each(N3, [&](long long i) {
-    s.merged[i] = 0;
-    s.fv[i] = (int32_t)N3;
+  // Stage 1: each write endpoint's sorted position names it; the runs'
+  // first valid slots cleared; the statuses.
+  g.each(M, [&](long long e) {
+    const long long p = sct(epos(e), P2);
+    if (p >= 0) s.inv[p] = (int32_t)e;
   });
+  g.each(L, [&](long long i) { s.fv[i] = (int32_t)N3; });
   g.each(T, [&](long long t) {
     a.st_aux[t] = (int8_t)(a.too_old[t] ? kStatusTooOld
                                         : (a.conflict[t] > 0 ? kStatusConflict
                                                              : 0));
   });
-  g.sync();
-  // Stage 2: mark the write endpoints' sorted positions.
-  g.each(M, [&](long long e) {
-    const long long p = sct(e < Wr ? a.s_begin[e] : a.s_end[e - Wr], P2);
-    if (p >= 0) s.is_w[p] = 1;
-  });
-  g.sync();
-  // Stages 3-5: their ranks among the write endpoints (in place).
-  auto isw = [&](long long i, int32_t* v) { v[0] = ld(s.is_w + i); };
-  rank.tiles_stage(s.t_rank, smem, isw);
-  g.sync();
-  rank.sums_stage(s.t_rank, smem);
-  g.sync();
-  rank.apply_stage(s.t_rank, smem, isw,
-                   [&](long long i, const int32_t*, const int32_t* ex) {
-                     s.is_w[i] = ex[0];
-                   });
-  g.sync();
-  // Stage 6: compact the write endpoints in sorted order, bit-packed:
-  // position << 2 | is_begin << 1 | committed.
-  g.each(M, [&](long long e) {
-    const bool beg = e < Wr;
-    const long long w = beg ? e : e - Wr;
-    const int32_t pos = beg ? a.s_begin[w] : a.s_end[w];
-    const long long c = sct(ld(s.is_w + gat(pos, P2)), M);
-    const bool cw = a.w_valid[w] && a.conflict[gat(a.wtxn[w], T)] == 0;
-    if (c >= 0)
-      s.packed[c] = add32((int32_t)((uint32_t)pos << 2),
-                          (beg ? 2 : 0) + (cw ? 1 : 0));
-  });
-  g.sync();
-  // Stage 7: per compacted endpoint its rank, merged position and merged
-  // bits: committed begin, committed end, same key as its merged
-  // predecessor, source column C + position.
-  g.each(M, [&](long long p) {
-    const int32_t pe = ld(s.packed + p);
-    const int32_t sidx = pe >> 2;
-    const long long q = gat(sidx, P2);
-    const int32_t ub_c = a.ub[q];
-    const bool eq_c = a.eq[q] != 0;
-    const int32_t committed = pe & 1, is_begin = (pe >> 1) & 1;
-    bool same_prev = eq_c && ub_c > 0;
-    if (p > 0) {
-      const int32_t pp = ld(s.packed + p - 1);
-      const long long qp = gat(pp >> 2, P2);
-      if (a.ub[qp] == ub_c)  // the previous endpoint is its predecessor
-        same_prev = key_eq(a.smat, P2, q, a.smat, P2, qp, W);
+  g.sync(st);
+  // Stages 2-3: the write endpoints compacted in sorted order by a scan
+  // over P2 (position p holds one where inv[p] names an endpoint at p: the
+  // scratch is never cleared, and a stale word names none or that one),
+  // bit-packed: position << 2 | is_begin << 1 | committed; their ranks.
+  const ChunkScan<1> rank{P2};
+  auto is_w = [&](long long p, bool in, int32_t* v) {
+    if (!in) return;
+    const int32_t e = ld(s.inv + p);
+    v[0] = e >= 0 && e < M && sct(epos(e), P2) == p;
+  };
+  rank.reduce_stage(s.tot, ws, is_w);
+  g.sync(st);
+  {
+    int32_t off, all;
+    rank.offsets(s.tot, ws, &off, &all);
+    rank.apply_stage(
+        &off, ws, is_w, [&](long long p, const int32_t* v, const int32_t* ex) {
+          const long long c = sct(ex[0], M);
+          if (!v[0] || c < 0) return;
+          const int32_t e = ld(s.inv + p);
+          const bool beg = e < Wr;
+          const long long w = beg ? e : e - Wr;
+          const int32_t pos = beg ? a.s_begin[w] : a.s_end[w];
+          const bool cw = a.w_valid[w] && a.conflict[gat(a.wtxn[w], T)] == 0;
+          s.packed[c] = add32((int32_t)((uint32_t)pos << 2),
+                              (beg ? 2 : 0) + (cw ? 1 : 0));
+          s.ubc[c] = a.ub[gat(pos, P2)];
+        });
+  }
+  g.sync(st);
+  // Stage 4: the merged space over the block's chunk of [0, L), history
+  // first among equal ranks: endpoint c at slot c + ubc[c], history in the
+  // slots between, in order; merged in shared memory a tile at a time
+  // from one search for the chunk's first endpoint. The five-way run
+  // scan's chunk sums in the same pass.
+  const ChunkScan<5> runs{L};
+  {
+    const long long lo = runs.lo(), hi = runs.hi();
+    long long q = block_count(  // the endpoints before the tile
+        M, [&](long long c) { return c + ld(s.ubc + c) < lo; });
+    int32_t acc[5] = {0, 0, 0, 0, 0};
+    for (long long t0 = lo; t0 < hi; t0 += kThreads) {
+      mark[threadIdx.x] = -1;
+      __syncthreads();
+      const long long c = q + threadIdx.x;
+      const int32_t ub_c = c < M ? ld(s.ubc + c) : 0;
+      const long long slot = c < M ? c + ub_c : t0 + kThreads;
+      const bool mine = slot < t0 + kThreads;
+      if (mine) {
+        mark[slot - t0] = threadIdx.x;
+        vbuf[slot - t0] = endpoint_bits(a, s, c, ub_c);
+      }
+      const int here = __syncthreads_count(mine);
+      const long long i = t0 + threadIdx.x;
+      const int k = mark[threadIdx.x];
+      int32_t sum;
+      const int32_t before = block_excl(k >= 0, ws, &sum);
+      if (i < hi) {
+        const long long j = i - q - before;  // history entry, if not k's
+        const int32_t x = k >= 0 ? vbuf[threadIdx.x]
+                                 : add32(j < n, (int32_t)((uint32_t)j << 4));
+        s.merged[i] = x;
+        int32_t v[5];
+        run_bits(x, v);
+        for (int b = 0; b < 5; ++b) acc[b] = add32(acc[b], v[b]);
+      }
+      q += here;
     }
-    s.ubc[p] = ub_c;
-    s.posb[p] = add32((int32_t)p, ub_c);
-    s.vb[p] = add32(add32((committed & is_begin) << 1,
-                          (committed & (1 - is_begin)) << 2),
-                    add32((int32_t)same_prev << 3,
-                          (int32_t)((uint32_t)add32((int32_t)C, sidx) << 4)));
-  });
-  g.sync();
-  // Stage 8: the merged space, history first among equal ranks: history
-  // entry j lands after the endpoints ranked at most j.
-  g.each(C, [&](long long j) {
-    long long lo = 0, hi = M;
-    while (lo < hi) {
-      const long long mid = (lo + hi) >> 1;
-      if (ld(s.ubc + mid) <= j) lo = mid + 1;
-      else hi = mid;
-    }
-    const long long d = sct(j + lo, N3);
-    if (d >= 0)
-      s.merged[d] = add32(j < n, (int32_t)((uint32_t)j << 4));
-  });
-  g.each(M, [&](long long p) {
-    const long long d = sct(ld(s.posb + p), N3);
-    if (d >= 0) s.merged[d] = ld(s.vb + p);
-  });
-  g.sync();
-  // Stages 9-11: per merged slot, its history, committed-begin,
-  // committed-end, valid and run-start counts. A run of equal keys gets
-  // its value at its last slot (covered by a committed write: the batch
+    runs.publish(acc, s.tot, ws);
+  }
+  g.sync(st);
+  // Stage 5: per merged slot its five counts. A run of equal keys gets its
+  // value at its last slot (covered by a committed write: the batch
   // version, else the history value there; stale clamp and rebase) and
   // its first valid slot by atomicMin.
-  auto bits = [&](long long i, int32_t* v) {
-    const int32_t x = ld(s.merged + i);
-    v[0] = x & 1;
-    v[1] = (x >> 1) & 1;
-    v[2] = (x >> 2) & 1;
-    v[3] = v[0] | v[1] | v[2];
-    v[4] = !((x >> 3) & 1);
+  int32_t n_runs;
+  {
+    int32_t off[5], all[5];
+    runs.offsets(s.tot, ws, off, all);
+    n_runs = all[4];
+    bool joined;  // the next slot continues this one's run
+    runs.apply_stage(
+        off, ws,
+        [&](long long i, bool in, int32_t* v) {
+          if (!in) return;
+          run_bits(ld(s.merged + i), v);
+          joined = i + 1 < L && ((ld(s.merged + i + 1) >> 3) & 1);
+        },
+        [&](long long i, const int32_t* v, const int32_t* ex) {
+          const int32_t rid = add32(ex[4], v[4]) - 1;
+          if (rid < 0) return;  // before the first run start: never kept
+          if (v[3]) atomicMin(s.fv + rid, (int32_t)i);
+          if (joined) return;
+          const int32_t h = add32(ex[0], v[0]), wb = add32(ex[1], v[1]),
+                        we = add32(ex[2], v[2]);
+          const long long k = (long long)h - 1;
+          const int32_t val =
+              wb > we ? version : hv[k < 0 ? 0 : (k > C - 1 ? C - 1 : k)];
+          s.valr[rid] = val <= oldest ? 0 : sub32(val, oldest);
+        });
+  }
+  g.sync(st);
+  // Stages 6-7: compaction 1, the runs with a valid slot to the front.
+  const ChunkScan<1> valid{n_runs};
+  auto has_valid = [&](long long r, bool in, int32_t* v) {
+    if (in) v[0] = ld(s.fv + r) < N3;
   };
-  runs.tiles_stage(s.t_runs, smem, bits);
-  g.sync();
-  runs.sums_stage(s.t_runs, smem);
-  g.sync();
-  runs.apply_stage(
-      s.t_runs, smem, bits,
-      [&](long long i, const int32_t* v, const int32_t* ex) {
-        const int32_t rid = add32(ex[4], v[4]) - 1;
-        if (rid < 0) return;  // before the first run start: never kept
-        if (v[3]) atomicMin(s.fv + rid, (int32_t)i);
-        if (i + 1 < N3 && ((ld(s.merged + i + 1) >> 3) & 1)) return;
-        const int32_t h = add32(ex[0], v[0]), wb = add32(ex[1], v[1]),
-                      we = add32(ex[2], v[2]);
-        const long long k = (long long)h - 1;
-        int32_t val = wb > we ? version : hv[k < 0 ? 0 : (k > C - 1 ? C - 1 : k)];
-        s.valr[rid] = val <= oldest ? 0 : sub32(val, oldest);
-      });
-  g.sync();
-  // Stages 12-14: compaction 1, the runs with a valid slot to the front.
-  auto has_valid = [&](long long r, int32_t* v) { v[0] = ld(s.fv + r) < N3; };
-  valid_runs.tiles_stage(s.t_valid, smem, has_valid);
-  g.sync();
-  valid_runs.sums_stage(s.t_valid, smem);
-  g.sync();
-  valid_runs.apply_stage(
-      s.t_valid, smem, has_valid,
-      [&](long long r, const int32_t* v, const int32_t* ex) {
-        if (!v[0]) return;
-        // tpu.py scatters with max into zeros: a negative value lands as 0
-        s.csrc[ex[0]] = max(ld(s.merged + ld(s.fv + r)) >> 4, 0);
-        s.cval[ex[0]] = max(ld(s.valr + r), 0);
-      });
-  g.sync();
-  // Stages 15-17: coalesce equal neighbouring values; compaction 2 into
-  // the C columns (past them the entries drop).
-  const int32_t m1 = valid_runs.total(s.t_valid, 0);
-  auto kept = [&](long long d, int32_t* v) {
-    v[0] = d < m1 && (d == 0 || ld(s.cval + d) != ld(s.cval + d - 1));
+  valid.reduce_stage(s.tot, ws, has_valid);
+  g.sync(st);
+  int32_t m1;
+  {
+    int32_t off;
+    valid.offsets(s.tot, ws, &off, &m1);
+    valid.apply_stage(
+        &off, ws, has_valid,
+        [&](long long r, const int32_t* v, const int32_t* ex) {
+          if (!v[0]) return;
+          // tpu.py scatters with max into zeros: a negative value lands as 0
+          s.csrc[ex[0]] = max(ld(s.merged + ld(s.fv + r)) >> 4, 0);
+          s.cval[ex[0]] = max(ld(s.valr + r), 0);
+        });
+  }
+  g.sync(st);
+  // Stages 8-9: coalesce equal neighbouring values; compaction 2 into the
+  // C columns (past them the entries drop).
+  const ChunkScan<1> keep2{m1};
+  auto kept = [&](long long d, bool in, int32_t* v) {
+    if (in) v[0] = d == 0 || ld(s.cval + d) != ld(s.cval + d - 1);
   };
-  keep2.tiles_stage(s.t_keep, smem, kept);
-  g.sync();
-  keep2.sums_stage(s.t_keep, smem);
-  g.sync();
-  keep2.apply_stage(s.t_keep, smem, kept,
-                    [&](long long d, const int32_t* v, const int32_t* ex) {
-                      if (!v[0] || ex[0] >= C) return;
-                      s.src2[ex[0]] = ld(s.csrc + d);
-                      s.hvn[ex[0]] = ld(s.cval + d);
-                    });
-  g.sync();
-  // Stage 18: the keys from [history | endpoints], pads past new_n, the
-  // verdict bytes' tail.
-  const int32_t nn = keep2.total(s.t_keep, 0);
-  g.each((W + 2) * C, [&](long long x) {
-    const int r = (int)(x / C);
-    const long long e = x - r * C;
-    int32_t v;
-    if (e >= nn) {
-      v = r <= W ? kInf : 0;
-    } else if (r > W) {
-      v = ld(s.hvn + e);
-    } else {
-      long long src = ld(s.src2 + e);
-      src = src < 0 ? 0 : (src > C + P2 - 1 ? C + P2 - 1 : src);
-      v = src < C ? a.hmat[r * C + src] : a.smat[r * P2 + src - C];
+  keep2.reduce_stage(s.tot, ws, kept);
+  g.sync(st);
+  int32_t nn;
+  {
+    int32_t off;
+    keep2.offsets(s.tot, ws, &off, &nn);
+    keep2.apply_stage(&off, ws, kept,
+                      [&](long long d, const int32_t* v, const int32_t* ex) {
+                        if (!v[0] || ex[0] >= C) return;
+                        s.src2[ex[0]] = ld(s.csrc + d);
+                        s.hvn[ex[0]] = ld(s.cval + d);
+                      });
+  }
+  g.sync(st);
+  // Stage 10: the live columns' keys from [history | endpoints], pads past
+  // new_n, the verdict bytes' tail.
+  const long long live = nn < 0 ? 0 : (nn < C ? nn : C);
+  g.each(live, [&](long long e) {
+    long long src = ld(s.src2 + e);
+    src = src < 0 ? 0 : (src > C + P2 - 1 ? C + P2 - 1 : src);
+    const int32_t* col = src < C ? a.hmat + src : a.smat + (src - C);
+    const long long ld_col = src < C ? C : P2;
+    const int32_t vn = ld(s.hvn + e);
+    for (int r0 = 0; r0 <= W; r0 += kRowGroup) {
+      int32_t v[kRowGroup];
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i)
+        v[i] = r0 + i <= W ? col[(r0 + i) * ld_col] : 0;
+#pragma unroll
+      for (int i = 0; i < kRowGroup; ++i)
+        if (r0 + i <= W) a.hmat_out[(r0 + i) * C + e] = v[i];
     }
-    a.hmat_out[x] = v;
+    a.hmat_out[(W + 1) * C + e] = vn;
   });
+  pad_cols(g, a.hmat_out, C, W, live, C);
   if (g.leader()) {
     *a.new_n = nn;
     for (int b = 0; b < 4; ++b)
@@ -486,6 +792,7 @@ __global__ void __launch_bounds__(kThreads) phase3_kernel(Phase3Args a) {
     a.st_aux[T + 4] = (int8_t)(nn > C);
     a.st_aux[T + 5] = (int8_t)min(*a.p2_iters, 127);
   }
+  g.finish(st);
 }
 
 // ------------------------------------------------------------ redistribute
@@ -574,8 +881,7 @@ __global__ void __launch_bounds__(kThreads) redist_kernel(RedistArgs a) {
 }  // namespace
 
 extern "C" long long fdb_compact_densify_scratch_ints(int NB, int B) {
-  const long long C = (long long)NB * B;
-  return NB + C + TupleScan<1>::words(NB) + TupleScan<1>::words(C);
+  return DensifyScratch::words(NB, B);
 }
 
 // Densify + dedup: the block state (hmat (W + 2, NB B), counts (NB,)) as
@@ -583,7 +889,8 @@ extern "C" long long fdb_compact_densify_scratch_ints(int NB, int B) {
 // run kept, pads past m2.
 extern "C" int fdb_compact_densify(const void* hmat, const void* counts,
                                    void* dense, void* m2, void* scratch,
-                                   int W, int NB, int B, void* stream) {
+                                   void* stamps, int W, int NB, int B,
+                                   void* stream) {
   if (W < 1 || NB < 1 || B < 1) return (int)cudaErrorInvalidValue;
   DensifyArgs a;
   a.hmat = (const int32_t*)hmat;
@@ -591,13 +898,12 @@ extern "C" int fdb_compact_densify(const void* hmat, const void* counts,
   a.dense = (int32_t*)dense;
   a.m2 = (int32_t*)m2;
   a.scratch = (int32_t*)scratch;
+  a.stamps = (int64_t*)stamps;
   a.W = W;
   a.NB = NB;
   a.B = B;
-  a.cnt.n = NB;
-  a.keep.n = (long long)NB * B;
-  return launch(densify_kernel, a.keep.n, kWarps * sizeof(int32_t), &a,
-                stream);
+  return launch(densify_kernel, (long long)NB * B,
+                (2 * kWarps + kThreads + 1) * sizeof(int32_t), &a, stream);
 }
 
 extern "C" long long fdb_compact_ranks_scratch_ints(long long C, int P2) {
@@ -668,13 +974,14 @@ extern "C" int fdb_compact_phase3(void* const* ptrs, int W, long long C,
   a.new_n = (int32_t*)ptrs[15];
   a.st_aux = (int8_t*)ptrs[16];
   a.scratch = (int32_t*)ptrs[17];
+  a.stamps = (int64_t*)ptrs[18];
   a.W = W;
   a.C = C;
   a.P2 = P2;
   a.Wr = Wr;
   a.T = T;
-  return launch(phase3_kernel, C + 2LL * Wr, 5 * kWarps * sizeof(int32_t),
-                &a, stream);
+  return launch(phase3_kernel, C + 2LL * Wr,
+                (10 * kWarps + 2 * kThreads) * sizeof(int32_t), &a, stream);
 }
 
 // Redistribute phase 3's dense state into NB_out blocks at fill B / 2 and

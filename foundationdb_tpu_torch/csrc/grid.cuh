@@ -1,9 +1,10 @@
 // Helpers that block.cu, compact.cu and rankfed.cu share: int32
 // arithmetic as XLA's, tpu.py's gather and scatter index rules, warp and
-// block prefix sums, a grid-stride loop over a cooperative grid, prefix
-// sums across the grid (TupleScan), the launch of one cooperative grid on
-// the caller's stream, and the range maxima that answer tpu.py's
-// sparse-table query without its table.
+// block prefix sums, a grid-stride loop over a cooperative grid and its
+// stage stamps, prefix sums across the grid (TupleScan: three stages over
+// tiles; ChunkScan: one barrier over per-block chunks), the launch of one
+// cooperative grid on the caller's stream, and the range maxima that
+// answer tpu.py's sparse-table query without its table.
 
 #pragma once
 
@@ -99,6 +100,31 @@ __device__ __forceinline__ int32_t block_excl(int32_t v, int32_t* ws,
   return ex;
 }
 
+// The device's nanosecond clock (%globaltimer).
+__device__ __forceinline__ int64_t globaltimer_ns() {
+#ifdef __CUDA_ARCH__
+  int64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+#else
+  return 0;
+#endif
+}
+
+// A kernel's stage stamps: where `at` is not null, block 0's thread 0
+// writes the clock to at[k] at the kernel's start and after each grid
+// barrier, and the kernel ends with one more barrier and stamp, so that
+// stage k took at[k + 1] - at[k] ns. A null `at` costs a branch a barrier.
+struct Stamps {
+  int64_t* at;
+  int k;
+  __device__ explicit Stamps(int64_t* p) : at(p), k(0) { mark(); }
+  __device__ void mark() {
+    if (at && blockIdx.x == 0 && threadIdx.x == 0) at[k] = globaltimer_ns();
+    ++k;
+  }
+};
+
 struct Grid {
   long long first, stride;
   __device__ Grid()
@@ -108,6 +134,15 @@ struct Grid {
     for (long long i = first; i < n; i += stride) f(i);
   }
   __device__ void sync() const { cg::this_grid().sync(); }
+  // A barrier, then the stamp after it.
+  __device__ void sync(Stamps& st) const {
+    sync();
+    st.mark();
+  }
+  // The last stamp of a stamping kernel: one barrier more, then the stamp.
+  __device__ void finish(Stamps& st) const {
+    if (st.at) sync(st);
+  }
   __device__ bool leader() const { return first == 0; }
 };
 
@@ -174,6 +209,97 @@ struct TupleScan {
           ex[c] = add32(ld(tsum + c * (nt + 1) + b), ex[c]);
         put(i, v, ex);
       }
+    }
+  }
+};
+
+// Exclusive prefix sums over n elements of K int32 values each, across
+// the grid, with one grid barrier and no serial stage. Block b takes the
+// contiguous chunk [lo, hi) of chunk() = ceil(n / gridDim.x) elements.
+// reduce_stage (or the caller's own loop and publish) leaves the chunk's
+// K sums in tot[b K + c]; after the barrier, offsets gives every thread
+// of block b the sums over the blocks before it and over all blocks (one
+// pass of the block over at most gridDim.x K words, from L2), and
+// apply_stage rescans the chunk kThreads elements a time from them,
+// putting each element's prefixes. val(i, in, v) is called by every
+// thread of the block once a tile, with `in` false past the chunk (where
+// v is ignored and val must read nothing out of bounds), so it may
+// synchronize the block; it must give the same values in both stages.
+// tot takes K gridDim.x words; ws 2 K kWarps words of shared memory.
+template <int K>
+struct ChunkScan {
+  long long n;
+  __device__ long long chunk() const {
+    return (n + gridDim.x - 1) / gridDim.x;
+  }
+  __device__ long long lo() const {
+    const long long x = (long long)blockIdx.x * chunk();
+    return x < n ? x : n;
+  }
+  __device__ long long hi() const {
+    const long long x = lo() + chunk();
+    return x < n ? x : n;
+  }
+  // The block's K sums of each thread's acc, to tot (every thread calls
+  // it).
+  __device__ void publish(const int32_t* acc, int32_t* tot,
+                          int32_t* ws) const {
+    int32_t ex[K], sum[K];
+    block_excl_k<K>(acc, ex, sum, ws);
+    if (threadIdx.x == 0)
+      for (int c = 0; c < K; ++c) tot[(long long)blockIdx.x * K + c] = sum[c];
+  }
+  template <class V>
+  __device__ void reduce_stage(int32_t* tot, int32_t* ws, V val) const {
+    const long long b = lo(), e = hi();
+    int32_t acc[K];
+    for (int c = 0; c < K; ++c) acc[c] = 0;
+    for (long long t = b; t < e; t += kThreads) {
+      const long long i = t + threadIdx.x;
+      int32_t v[K];
+      for (int c = 0; c < K; ++c) v[c] = 0;
+      val(i, i < e, v);
+      if (i < e)
+        for (int c = 0; c < K; ++c) acc[c] = add32(acc[c], v[c]);
+    }
+    publish(acc, tot, ws);
+  }
+  // off[c]: the sums of value c over the blocks before this one; all[c]:
+  // over every block.
+  __device__ void offsets(const int32_t* tot, int32_t* ws, int32_t* off,
+                          int32_t* all) const {
+    int32_t v[2 * K], ex[2 * K], sum[2 * K];
+    for (int c = 0; c < 2 * K; ++c) v[c] = 0;
+    for (long long b = threadIdx.x; b < gridDim.x; b += kThreads)
+      for (int c = 0; c < K; ++c) {
+        const int32_t x = ld(tot + b * K + c);
+        if (b < blockIdx.x) v[c] = add32(v[c], x);
+        v[K + c] = add32(v[K + c], x);
+      }
+    block_excl_k<2 * K>(v, ex, sum, ws);
+    for (int c = 0; c < K; ++c) {
+      off[c] = sum[c];
+      all[c] = sum[K + c];
+    }
+  }
+  // Rescans the chunk from off (the block's offsets; advanced past the
+  // chunk) and calls put(i, v, ex) for each element in it.
+  template <class V, class P>
+  __device__ void apply_stage(int32_t* off, int32_t* ws, V val, P put) const {
+    const long long b = lo(), e = hi();
+    for (long long t = b; t < e; t += kThreads) {
+      const long long i = t + threadIdx.x;
+      int32_t v[K], ex[K], sum[K];
+      for (int c = 0; c < K; ++c) v[c] = 0;
+      val(i, i < e, v);
+      if (i >= e)
+        for (int c = 0; c < K; ++c) v[c] = 0;
+      block_excl_k<K>(v, ex, sum, ws);
+      if (i < e) {
+        for (int c = 0; c < K; ++c) ex[c] = add32(off[c], ex[c]);
+        put(i, v, ex);
+      }
+      for (int c = 0; c < K; ++c) off[c] = add32(off[c], sum[c]);
     }
   }
 };

@@ -59,6 +59,25 @@ LAUNCHES = {"densify": 0, "ranks": 0, "dense_phase3": 0, "redistribute": 0}
 
 _c_ptr = ctypes.c_void_p
 
+# The stages that densify's and dense_phase3's kernels stamp where the
+# caller passes a stamp buffer (csrc/grid.cuh Stamps): stage k runs from
+# stamp k to stamp k + 1, so the buffer holds one int64 more than stages.
+DENSIFY_STAGES = ("counts_reduce", "counts_apply", "keep_reduce", "write")
+PHASE3_STAGES = ("mark", "rank_reduce", "rank_apply", "merge_runs_reduce",
+                 "runs_apply", "valid_reduce", "valid_apply", "keep_reduce",
+                 "keep_apply", "gather")
+
+
+def _stamp_ptr(stamps, n_stages: int, dev) -> int | None:
+    """The stamp buffer's pointer (None: no stamps): int64 (n_stages + 1,)
+    on dev."""
+    if stamps is None:
+        return None
+    if stamps.dtype != torch.int64 or tuple(stamps.shape) != (
+            n_stages + 1,) or stamps.device != dev:
+        raise ValueError(f"stamps must be int64 ({n_stages + 1},) on {dev}")
+    return stamps.data_ptr()
+
 
 # ------------------------------------------------------------- densify
 
@@ -109,8 +128,9 @@ def densify(hmat, counts, *, B: int):
     return densify_launch(hmat, counts, B=B)
 
 
-def densify_launch(hmat, counts, *, B: int):
-    """densify's kernel on CUDA tensors."""
+def densify_launch(hmat, counts, *, B: int, stamps=None):
+    """densify's kernel on CUDA tensors; stamps, if given, gets its stage
+    stamps (DENSIFY_STAGES)."""
     dev = cuda_device(hmat, "densify")
     W2, C = hmat.shape
     NB = counts.shape[0]
@@ -121,7 +141,8 @@ def densify_launch(hmat, counts, *, B: int):
                           dtype=I32, device=dev)
     _run(lib, "fdb_compact_densify", dev, "densify", hmat.data_ptr(),
          counts.data_ptr(), dense.data_ptr(), m2.data_ptr(),
-         scratch.data_ptr(), W2 - 2, NB, B,
+         scratch.data_ptr(), _stamp_ptr(stamps, len(DENSIFY_STAGES), dev),
+         W2 - 2, NB, B,
          shapes=f"W={W2 - 2} NB={NB} B={B}")
     return dense, m2
 
@@ -319,7 +340,8 @@ def dense_phase3_ref(hmat, n, *, smat, s_begin, s_end, wtxn, w_valid,
 
 
 # dense_phase3's tensor operands, in the C entry point's order (the outputs
-# hmat_out, new_n, st_aux and the scratch follow them there).
+# hmat_out, new_n, st_aux, the scratch and the stamp buffer follow them
+# there).
 DENSE_PHASE3_OPERANDS = ("hmat", "n", "smat", "s_begin", "s_end", "wtxn",
                    "w_valid", "conflict", "too_old", "ub", "eq", "version",
                    "oldest_eff", "p2_iters")
@@ -362,8 +384,9 @@ def dense_phase3(hmat, n, *, smat, s_begin, s_end, wtxn, w_valid,
     return dense_phase3_launch(ts)
 
 
-def dense_phase3_launch(ts: dict):
-    """dense_phase3's kernel on CUDA tensors (its operands by name)."""
+def dense_phase3_launch(ts: dict, stamps=None):
+    """dense_phase3's kernel on CUDA tensors (its operands by name); stamps,
+    if given, gets its stage stamps (PHASE3_STAGES)."""
     dev = cuda_device(ts["hmat"], "dense_phase3")
     W2, C = ts["hmat"].shape
     P2 = ts["smat"].shape[1]
@@ -374,9 +397,10 @@ def dense_phase3_launch(ts: dict):
     st_aux = torch.empty(T + 6, dtype=torch.int8, device=dev)
     scratch = torch.empty(lib.fdb_compact_phase3_scratch_ints(C, P2, Wr),
                           dtype=I32, device=dev)
-    ptrs = (_c_ptr * 18)(*(t.data_ptr() for t in ts.values()),
+    ptrs = (_c_ptr * 19)(*(t.data_ptr() for t in ts.values()),
                          hmat_out.data_ptr(), new_n.data_ptr(),
-                         st_aux.data_ptr(), scratch.data_ptr())
+                         st_aux.data_ptr(), scratch.data_ptr(),
+                         _stamp_ptr(stamps, len(PHASE3_STAGES), dev))
     _run(lib, "fdb_compact_phase3", dev, "dense_phase3", ptrs, W2 - 2, C, P2,
          Wr, T, shapes=f"W={W2 - 2} C={C} P2={P2} Wr={Wr} T={T}")
     return hmat_out, new_n, st_aux
@@ -470,7 +494,7 @@ def redistribute_launch(hmat_d, new_n, st_aux, *, NB_out: int, B: int):
 _PTRS = ctypes.POINTER(_c_ptr)
 _I, _LL = ctypes.c_int, ctypes.c_longlong
 ENTRY_POINTS = {
-    "fdb_compact_densify": (_I, [*([_c_ptr] * 5), _I, _I, _I, _c_ptr]),
+    "fdb_compact_densify": (_I, [*([_c_ptr] * 6), _I, _I, _I, _c_ptr]),
     "fdb_compact_densify_scratch_ints": (_LL, [_I, _I]),
     "fdb_compact_ranks": (_I, [_PTRS, _I, _LL, _I, _I, _I, _c_ptr]),
     "fdb_compact_ranks_scratch_ints": (_LL, [_LL, _I]),

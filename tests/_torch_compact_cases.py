@@ -47,7 +47,8 @@ def dense_matrix(keys, versions, n_words, C):
     return hm
 
 
-DENSE_CASES = ("empty", "full", "rank0", "pad_queries", "wide")
+DENSE_CASES = ("empty", "full", "rank0", "pad_queries", "wide",
+               "full_less_one", "no_writes", "chunk_edge")
 # Inputs outside the kernels' precondition (compact.dense_phase3): the CPU
 # tests hold the plain versions to tpu.py there, the card tests skip them.
 PLAIN_ONLY_DENSE_CASES = ("full_collide",)
@@ -69,7 +70,14 @@ def dense_case(name, seed=0):
     - full_collide: n = C with a committed write that begins at the last
       key and ends past it: its begin ranks C and its end, by the
       saturated walk, C - 1, so tpu.py's merge positions collide (outside
-      the kernel's precondition).
+      the kernel's precondition);
+    - full_less_one: n = C - 1 (one history pad), committed writes over
+      history ranges and one from the last key to just past it, so that
+      new_n reaches C;
+    - no_writes: reads only, every write endpoint a pad;
+    - chunk_edge: n + 2 Wr (the merged slots phase 3 scans) a multiple of
+      the blocks of its launched grid, ceil((C + 2 Wr) / 256) on a card
+      with at least that many SMs: the last chunk ends exactly there.
     """
     rng = np.random.default_rng(seed)
     C, W = 256, 3
@@ -106,6 +114,35 @@ def dense_case(name, seed=0):
         pb = pack(raw, 0, W, 500, 100)
         assert pb.n_reads < pb.layout.R and pb.n_writes < pb.layout.Wr
         return hm, 150, pb
+    if name == "full_less_one":
+        keys = sorted_keys(rng, C - 1)
+        hm = dense_matrix(keys, 1000 + np.arange(C - 1), W, C)
+        last = int(keys[-1])
+        raw = [(4000, [], [(k8(int(keys[10 * i])), k8(int(keys[10 * i + 4])))])
+               for i in range(8)]
+        raw += [(4000, [], [(k8(last), k8(last) + b"\x00")]),
+                (900, [(k8(int(keys[3])), k8(int(keys[9])))], [])]
+        return hm, C - 1, pack(raw, 0, W, 5000, 100)
+    if name == "no_writes":
+        keys = sorted_keys(rng, 150)
+        hm = dense_matrix(keys, rng.integers(1, 400, 150), W, C)
+        raw = [(int(rng.integers(100, 450)),
+                [(k8(int(keys[i])), k8(int(keys[i + 7])))], [])
+               for i in range(0, 140, 9)]
+        pb = pack(raw, 0, W, 500, 100)
+        assert pb.n_writes == 0 and pb.layout.Wr > 0
+        return hm, 150, pb
+    if name == "chunk_edge":
+        C = 1024
+        keys = sorted_keys(rng, C)
+        raw = raw_batch(rng, 20, 500, space=100_000, lag=300,
+                        hot=keys[:600])
+        pb = pack(raw, 0, W, 500, 100)
+        M = 2 * pb.layout.Wr
+        blocks = -(-(C + M) // 256)
+        n = C - 100 - (C - 100 + M) % blocks
+        hm = dense_matrix(keys[:n], rng.integers(1, 400, n), W, C)
+        return hm, n, pb
     if name == "wide":
         W = 10
         head = bytes(rng.integers(0, 256, 24, dtype=np.uint8))
@@ -129,7 +166,38 @@ def dense_case(name, seed=0):
 
 
 BLOCK_CASES = ("runs_across_blocks", "grow", "shrink", "overflow", "wide",
-               "b8", "b32", "b512")
+               "b8", "b32", "b512", "over_full", "empty_state", "long_run")
+
+# Made-up block states (B 8, 16 blocks): each block's contents as indexes
+# into 20 sorted keys (repeats are duplicates); blocks not listed are
+# empty.
+MADE_UP = {
+    "runs_across_blocks": [[0, 1, 2, 3], [3, 4, 4, 5], [], [5, 6, 7, 8, 9, 10,
+                                                           11],
+                           [11], [], [12, 13, 13, 13], [14, 15]],
+    "over_full": [[0, 1, 2], [3, 4], [], [5, 6, 7, 8],
+                  [9, 10, 11, 12, 13, 14, 15, 16], [], [17, 18]],
+    "empty_state": [],
+    "long_run": [[0, 1, 2], [2], [], [], [2], [], [2, 2, 3], [3], [], [],
+                 [3, 4, 5], [6]],
+}
+
+
+def made_up_state(rng, blocks, B=8, NB=16, W=3):
+    """(hmat, counts, keys) of a block state with the given contents."""
+    keys = sorted_keys(rng, 20)
+    hm = ppack.state_pad_block(W, NB * B)
+    counts = np.zeros(NB, np.int32)
+    for b, idx in enumerate(blocks):
+        counts[b] = len(idx)
+        if not idx:
+            continue
+        w, ln = ppack.pack_keys([k8(int(keys[i])) for i in idx], W)
+        cols = slice(b * B, b * B + len(idx))
+        hm[:W, cols] = w.T
+        hm[W, cols] = ln
+        hm[W + 1, cols] = 100 + np.arange(len(idx)) + 10 * b
+    return hm, counts, keys
 
 
 def block_case(name, seed=0, device="cpu"):
@@ -145,26 +213,20 @@ def block_case(name, seed=0, device="cpu"):
     - overflow: NB_out too small for the set (new_n > NB_out * B/2: the
       overflow byte);
     - wide: 40-byte keys;
-    - b8, b32, b512: grown states at those block sizes.
+    - b8, b32, b512: grown states at those block sizes;
+    - over_full: a block whose count (11) exceeds B (8): densify scatters
+      its first B entries, and the positions after them are pads inside
+      the live range that dedup to one;
+    - empty_state: no entry at all (densify's m and phase 3's n are 0);
+    - long_run: an equal-key run over four blocks with empty blocks
+      between them, and another over three.
     """
     rng = np.random.default_rng(seed)
-    if name == "runs_across_blocks":
+    if name in MADE_UP:
         B, NB, W = 8, 16, 3
-        keys = sorted_keys(rng, 20)
-        # block contents (as indexes into keys); repeats are duplicates
-        blocks = [[0, 1, 2, 3], [3, 4, 4, 5], [], [5, 6, 7, 8, 9, 10, 11],
-                  [11], [], [12, 13, 13, 13], [14, 15]] + [[]] * 8
-        hm = ppack.state_pad_block(W, NB * B)
-        counts = np.zeros(NB, np.int32)
-        for b, idx in enumerate(blocks):
-            counts[b] = len(idx)
-            if not idx:
-                continue
-            w, ln = ppack.pack_keys([k8(int(keys[i])) for i in idx], W)
-            cols = slice(b * B, b * B + len(idx))
-            hm[:W, cols] = w.T
-            hm[W, cols] = ln
-            hm[W + 1, cols] = 100 + np.arange(len(idx)) + 10 * b
+        hm, counts, keys = made_up_state(rng, MADE_UP[name], B, NB, W)
+        if name == "over_full":
+            counts[4] = 11
         raw = raw_batch(rng, 6, 600, space=100_000, lag=400)
         raw += [(550, [], [(k8(int(keys[3])), k8(int(keys[5])))])]
         return hm, counts, pack(raw, 0, W, 600, 50), NB, NB, B

@@ -7,9 +7,11 @@ csrc/compact.cu's kernels are held to on a card
 (tests/test_torch_compact_card.py). Here, on the cases of
 tests/_torch_compact_cases.py (an empty history, a full dense state whose
 rank walk saturates and whose phase 3 overflows, reads with rank_b = 0,
-pad queries, wide keys; equal-key runs across block boundaries, growing
-and shrinking compactions, a fill layout too small for the set, B of 8,
-32 and 512):
+pad queries, wide keys, n = C - 1, pad write endpoints only, n + 2 Wr at
+a chunk boundary of phase 3's grid; equal-key runs across block
+boundaries and over blocks with empty blocks between, a block past B
+entries, an empty state, growing and shrinking compactions, a fill
+layout too small for the set, B of 8, 32 and 512):
 
 - gpu._resolve_kernel_impl (decode, compact.ranks, phase 2,
   compact.dense_phase3) against tpu._resolve_kernel_impl;
@@ -21,7 +23,8 @@ and shrinking compactions, a fill layout too small for the set, B of 8,
 - a chain of fast steps and compactions through ConflictSetGPU
   (device="cpu") and ConflictSetTPU at B 8, 32 and 512: statuses, and
   after every compaction btree and fences, and entries() at the end;
-- csrc/compact.cu's C signatures against compact.py's ctypes types.
+- csrc/compact.cu's C signatures against compact.py's ctypes types, and
+  the stage-stamp argument against the stages compact.py names.
 """
 
 import functools
@@ -224,12 +227,27 @@ def test_kernel_entry_points_match_the_wrapper():
         compact.ENTRY_POINTS)
     for name, (restype, argtypes) in compact.ENTRY_POINTS.items():
         assert c_signature(src, name) == (restype, argtypes), name
+    n_ptrs_p3 = len(compact.DENSE_PHASE3_OPERANDS) + 5
     bodies = re.split(r'extern "C"', src)
     for fname, n_ptrs in (("fdb_compact_ranks", len(compact.RANKS_OPERANDS)
                            + 4),
                           ("fdb_compact_phase3",
-                           len(compact.DENSE_PHASE3_OPERANDS) + 4),
+                           len(compact.DENSE_PHASE3_OPERANDS) + 5),
                           ("fdb_compact_redistribute", 7)):
         (body,) = [b for b in bodies if f" {fname}(" in b]
         idx = sorted(int(i) for i in re.findall(r"\)ptrs\[(\d+)\]", body))
         assert idx == list(range(n_ptrs)), fname
+    # the stamp buffer: phase 3's last pointer, densify's sixth argument;
+    # each kernel stamps at its start, after each barrier and at its end,
+    # once for every stage the wrapper names
+    (body,) = [b for b in bodies if " fdb_compact_phase3(" in b]
+    assert f"a.stamps = (int64_t*)ptrs[{n_ptrs_p3 - 1}];" in body
+    (body,) = [b for b in bodies if " fdb_compact_densify(" in b]
+    assert re.search(r"void\* scratch,\s*void\* stamps,", body)
+    assert "a.stamps = (int64_t*)stamps;" in body
+    for kernel, stages in (("densify_kernel", compact.DENSIFY_STAGES),
+                           ("phase3_kernel", compact.PHASE3_STAGES)):
+        start = src.index(f"__launch_bounds__(kThreads) {kernel}(")
+        body = src[start:src.index("\n}\n", start)]
+        assert "Stamps st(a.stamps);" in body and "g.finish(st);" in body
+        assert body.count("sync(st)") == len(stages) - 1, kernel

@@ -12,8 +12,11 @@ tensors too. The cases are tests/_torch_compact_cases.py's: an empty
 history, a full dense state (the rank walk's saturation, phase 3's
 overflow), reads with rank_b = 0, pad queries, wide keys, equal-key runs
 across block boundaries, growing and shrinking compactions, a fill layout
-too small for the set, and B of 8, 32 and 512; and a chain through
-ConflictSetGPU against ConflictSetCPU. The kernels have no CPU mode:
+too small for the set, B of 8, 32 and 512, n = C - 1, a batch of pad
+write endpoints only, n + 2 Wr at a chunk boundary of phase 3's grid, a
+block past B entries, an empty state and an equal-key run over blocks
+with empty blocks between; a chain through ConflictSetGPU against
+ConflictSetCPU; and the two kernels' stage stamps. The kernels have no CPU mode:
 without a card every case skips. Run on a machine with a card:
 
     python -m pytest tests/test_torch_compact_card.py -m cuda -q
@@ -187,6 +190,53 @@ def test_chain_kernels_equal_plain(card, B, seed):
     assert cs.compactions >= 2 and cs.fast_resolves >= 1
     n = chk.launches()
     assert n == chk.calls == {k: cs.compactions for k in compact.LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b32", "over_full", "empty_state"])
+def test_stage_stamps(card, case):
+    """densify's and dense_phase3's kernels with a stamp buffer: one stamp
+    at the start and one after each stage (compact.DENSIFY_STAGES,
+    PHASE3_STAGES), never falling, and outputs equal to the plain
+    versions'; a buffer of the wrong length is refused."""
+    hm, counts, pb, NB, NB_out, B = block_case(case)
+    kept = {}
+    real = compact.dense_phase3
+
+    def p3(hmat, n, **kw):
+        kept.update(hmat=hmat, n=n, kw=kw)
+        return real(hmat, n, **kw)
+
+    compact.dense_phase3 = p3
+    try:
+        gpu._compact_resolve_impl(
+            *(torch.from_numpy(a).to(card) for a in (hm, counts, pb.buf)),
+            lay=pb.layout, NB=NB, NB_out=NB_out, B=B)
+    finally:
+        compact.dense_phase3 = real
+    h, c = torch.from_numpy(hm).to(card), torch.from_numpy(counts).to(card)
+    for stages, run, plain in (
+            (compact.DENSIFY_STAGES,
+             lambda st: compact.densify_launch(h, c, B=B, stamps=st),
+             lambda: compact.densify_ref(h, c, B=B)),
+            (compact.PHASE3_STAGES,
+             lambda st: compact.dense_phase3_launch(dict(zip(
+                 compact.DENSE_PHASE3_OPERANDS,
+                 (kept["hmat"], kept["n"], *(
+                     kept["kw"][k]
+                     for k in compact.DENSE_PHASE3_OPERANDS[2:])))),
+                 stamps=st),
+             lambda: compact.dense_phase3_ref(kept["hmat"], kept["n"],
+                                              **kept["kw"]))):
+        st = torch.full((len(stages) + 1,), -1, dtype=torch.int64,
+                        device=card)
+        got = run(st)
+        for i, (g, w) in enumerate(zip(got, plain())):
+            same(g, w, f"{stages[0]} output {i}")
+        t = st.cpu()
+        assert (t > 0).all() and (t[1:] >= t[:-1]).all(), t
+        with pytest.raises(ValueError, match="stamps"):
+            run(st[:-1])
 
 
 @pytest.mark.cuda

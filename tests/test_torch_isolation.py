@@ -1,6 +1,6 @@
 """The port stands alone: nothing under foundationdb_tpu_torch/ and nothing
-in its root files chip_smoke.py, probe_bench.py, multiprocess_load_bench.py
-and __graft_entry_torch__.py imports jax, jaxlib or the JAX package
+in its root files chip_smoke.py, probe_bench.py, compact_bench.py,
+multiprocess_load_bench.py and __graft_entry_torch__.py imports jax, jaxlib or the JAX package
 foundationdb_tpu (not even its pure-numpy modules), and importing every
 module of the port loads none of them."""
 
@@ -19,7 +19,7 @@ FORBIDDEN = {"jax", "jaxlib", "foundationdb_tpu"}
 def port_sources():
     return sorted((ROOT / "foundationdb_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "probe_bench.py",
-        ROOT / "multiprocess_load_bench.py",
+        ROOT / "compact_bench.py", ROOT / "multiprocess_load_bench.py",
         ROOT / "__graft_entry_torch__.py",
     ]
 
@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke, probe_bench, multiprocess_load_bench\n"
+        "import chip_smoke, probe_bench, compact_bench\n"
+        "import multiprocess_load_bench\n"
         "import __graft_entry_torch__\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
