@@ -1292,8 +1292,8 @@ class CompactTap:
 def compact_run(kernel: str, cap: dict, plain: bool = False, stamps=None):
     """One call of a compaction kernel (or its plain version) on the
     captured operands; redistribute on a copy of its st_aux, which it
-    returns after its outputs. stamps: densify's and dense_phase3's stage
-    stamp buffer, for their kernels."""
+    returns after its outputs. stamps: the kernel's stage stamp buffer
+    (compact.py's *_STAGES), for the kernels only."""
     from foundationdb_tpu_torch.resolver import compact
 
     if kernel == "densify":
@@ -1305,7 +1305,7 @@ def compact_run(kernel: str, cap: dict, plain: bool = False, stamps=None):
         if plain:
             return compact.ranks_ref(*cap["args"])
         return compact.ranks_launch(dict(zip(compact.RANKS_OPERANDS,
-                                             cap["args"])))
+                                             cap["args"])), stamps=stamps)
     if kernel == "dense_phase3":
         hmat, n = cap["args"]
         if plain:
@@ -1317,8 +1317,13 @@ def compact_run(kernel: str, cap: dict, plain: bool = False, stamps=None):
             stamps=stamps)
     hmat_d, new_n, st_aux = cap["args"]
     st = st_aux.clone()
-    fn = compact.redistribute_ref if plain else compact.redistribute_launch
-    return (*fn(hmat_d, new_n, st, NB_out=cap["NB_out"], B=cap["B"]), st)
+    if plain:
+        return (*compact.redistribute_ref(hmat_d, new_n, st,
+                                          NB_out=cap["NB_out"], B=cap["B"]),
+                st)
+    return (*compact.redistribute_launch(hmat_d, new_n, st,
+                                         NB_out=cap["NB_out"], B=cap["B"],
+                                         stamps=stamps), st)
 
 
 def compact_timer(kernel: str, cap: dict, plain: bool = False):
@@ -1364,7 +1369,7 @@ def compact_bound(kernel: str, cap: dict) -> tuple[float, str]:
         nbytes = 4 * W2 * m + 4 * counts.shape[0] + 4 * W2 * C + 4
         ops = (W2 - 1) * m
     elif kernel == "ranks":
-        hmat, smat, qb, qe, rsnap, rtxn, too_old = cap["args"]
+        hmat, _, smat, qb, qe, rsnap, rtxn, too_old = cap["args"]
         W1, P2 = smat.shape
         C = hmat.shape[1]
         R, T = qb.shape[0], too_old.shape[0]
@@ -1409,9 +1414,9 @@ def compact_shape(kernel: str, cap: dict) -> dict:
         return {"W2": hmat.shape[0], "C": hmat.shape[1],
                 "NB": counts.shape[0], "B": cap["B"]}
     if kernel == "ranks":
-        hmat, smat, qb, *_, too_old = cap["args"]
-        return {"W1": smat.shape[0], "C": hmat.shape[1], "P2": smat.shape[1],
-                "R": qb.shape[0], "T": too_old.shape[0]}
+        hmat, n, smat, qb, *_, too_old = cap["args"]
+        return {"W1": smat.shape[0], "C": hmat.shape[1], "n": int(n),
+                "P2": smat.shape[1], "R": qb.shape[0], "T": too_old.shape[0]}
     if kernel == "dense_phase3":
         hmat, n = cap["args"]
         kw = cap["kw"]
@@ -1422,12 +1427,36 @@ def compact_shape(kernel: str, cap: dict) -> dict:
             "NB_out": cap["NB_out"], "B": cap["B"]}
 
 
-# The previous design of densify and dense_phase3 (three-stage TupleScans
-# over the capacity C, 5 and 17 grid barriers) by stage on each path's
-# last compaction: median ns of 21 stamped launches on an H100 80GB HBM3
-# at 700.00 W (PERF.md), which [compact-stages-*] prints beside the
-# current kernels' stages.
+# The previous design of each compaction kernel by stage on each path's
+# last compaction, which [compact-stages-*] prints beside the current
+# kernels' stages: median ns of 21 stamped launches on an H100 80GB HBM3
+# at 700.00 W (PERF.md). densify and dense_phase3 before their redesign
+# (three-stage TupleScans over the capacity C, 5 and 17 grid barriers);
+# ranks and redistribute before theirs (a halving walk a thread over C
+# and a grid barrier a maximum level; a thread a word of the block state
+# and a grid barrier a tree pass), their stamps added for the reading.
 PREV_STAGES = {
+    ("ranks", "resolver"): {
+        "walk_level1": 30464, "level2": 5984, "level3": 4704,
+        "level4": 3904, "query": 4224,
+    },
+    ("ranks", "cluster-resolver"): {
+        "walk_level1": 20672, "level2": 5888, "level3": 4608,
+        "level4": 3520, "query": 1856,
+    },
+    ("ranks", "sharded"): {
+        "walk_level1": 52768, "level2": 5984, "level3": 4192,
+        "query": 86880,
+    },
+    ("redistribute", "resolver"): {
+        "copy_leaves": 54368, "tree1": 3808, "tree2": 2464, "end": 2048,
+    },
+    ("redistribute", "cluster-resolver"): {
+        "copy_leaves": 64384, "tree1": 3872, "tree2": 2464, "end": 2016,
+    },
+    ("redistribute", "sharded"): {
+        "copy_leaves": 15904, "tree1": 3616, "tree2": 2400, "end": 2016,
+    },
     ("densify", "resolver"): {
         "counts_tiles": 3648, "counts_sums": 2464, "counts_apply": 3136,
         "keep_tiles": 42080, "keep_sums": 17408, "keep_apply_pads": 39264,
@@ -1473,8 +1502,10 @@ def compact_stages(kernel: str, cap: dict, reps: int = 21) -> tuple:
     import torch
     from foundationdb_tpu_torch.resolver import compact
 
-    stages = (compact.DENSIFY_STAGES if kernel == "densify"
-              else compact.PHASE3_STAGES)
+    stages = {"densify": compact.DENSIFY_STAGES,
+              "ranks": compact.RANKS_STAGES,
+              "dense_phase3": compact.PHASE3_STAGES,
+              "redistribute": compact.REDIST_STAGES}[kernel]
     dev = cap["args"][0].device
     buf = torch.zeros(len(stages) + 1, dtype=torch.int64, device=dev)
     rows = []
@@ -1487,12 +1518,15 @@ def compact_stages(kernel: str, cap: dict, reps: int = 21) -> tuple:
 
 
 def log_compact_stages(path: str, cap: dict, smi: str) -> None:
-    """[compact-stages-<kernel>-<path>] for densify and dense_phase3: each
+    """[compact-stages-<kernel>-<path>] for each compaction kernel: each
     stage's median ns and share of the stamped kernel, the previous
-    design's (PREV_STAGES) beside
-    them; [compact-live-<path>]: every compaction's live shares, m / C
-    (densify's live entries) and n / C (dense_phase3's)."""
-    for kernel in ("densify", "dense_phase3"):
+    design's (PREV_STAGES) beside them; [compact-live-<path>]: every
+    compaction's live shares, m / C (densify's live entries) and n / C
+    (dense_phase3's); [compact-ranks-tiers-<path>]: the tiers of ranks'
+    runs on the last compaction (compact.RANKS_TIERS)."""
+    from foundationdb_tpu_torch.resolver import compact
+
+    for kernel in CompactTap.KERNELS:
         stages, ns = compact_stages(kernel, cap[kernel])
         total = sum(ns) or 1.0
         before = PREV_STAGES.get((kernel, path), {})
@@ -1513,6 +1547,15 @@ def log_compact_stages(path: str, cap: dict, smi: str) -> None:
     log(f"compact-live-{path}", compactions=len(n),
         m_share=json.dumps([round(x, 4) for x in m]),
         n_share=json.dumps([round(x, 4) for x in n]))
+    r = cap["ranks"]
+    C, P2 = r["args"][0].shape[1], r["args"][2].shape[1]
+    scratch = compact.ranks_scratch(C, P2, r["args"][0].device)
+    compact.ranks_launch(dict(zip(compact.RANKS_OPERANDS, r["args"])),
+                         scratch=scratch)
+    tiers = compact.ranks_tiers(
+        compact.ranks_tier_words(scratch, P2).tolist())
+    log(f"compact-ranks-tiers-{path}", runs=len(tiers),
+        tiers=json.dumps({t: tiers.count(t) for t in sorted(set(tiers))}))
 
 
 def compact_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
@@ -1549,9 +1592,13 @@ def compact_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
              "plain_ms": device_ms(pfn)}
         bound_ms, bound_by = compact_bound(kernel, c)
         shape = compact_shape(kernel, c)
+        extra = {}
+        if kernel == "ranks":   # its design's own floor: every live key row
+            extra["design_floor_ms"] = (
+                f"{4 * shape['W1'] * shape['n'] / HBM_BYTES_PER_S * 1e3:.7f}")
         log(f"compact-{kernel}-{path}", smi=json.dumps(smi), **shape,
             max_abs_err=err, **fmt_times(t), bound_ms=f"{bound_ms:.7f}",
-            bound_by=bound_by, launches=launches[kernel])
+            bound_by=bound_by, launches=launches[kernel], **extra)
         out.append({"name": kernel, "route": "cuda",
                     "source": "foundationdb_tpu_torch/csrc/compact.cu",
                     "replaces": COMPACT_REPLACES[kernel], "path": path,
@@ -2108,7 +2155,9 @@ def read_entry(path: str, cap: dict, launches: int, smi: str) -> dict:
     """The read gather's kernel held against its plain version on one
     path's last operands on the card, bit for bit (fails otherwise),
     timed warm (50 launches an event pair) and cold (after an L2 flush),
-    its plain version timed, bounded, logged: one kernel-table entry."""
+    its plain version timed, bounded, logged with its launch floor (the
+    kernel on one point read) and its launches' time over that floor:
+    one kernel-table entry."""
     import torch
     from foundationdb_tpu_torch.storage_engine import read
     from foundationdb_tpu_torch.timing import device_ms, l2_flusher
@@ -2134,13 +2183,21 @@ def read_entry(path: str, cap: dict, launches: int, smi: str) -> dict:
                               flush=flush),
          "plain_ms": device_ms(lambda: read.read_gather_ref(*ts.values(),
                                                             **meta))}
+    # A launch's floor: the same kernel on the same window for one point
+    # read (what its launches cost before any work; its byte bound is
+    # nanoseconds).
+    one = dict(ts, qall=ts["qall"][:, :1].contiguous(), rv=ts["rv"][:0],
+               bid=ts["bid"][:1], pos=ts["pos"][:1])
+    floor_ms = device_ms(lambda: read.read_gather_launch(
+        one, **dict(meta, P=1, R=0)), n=50)
     for k, v in n0.items():   # comparison launches do not count
         read.LAUNCHES[k] = v
     bound_ms, bound_by = read_kernel_bound(cap)
     shape = dict(W2=cap["qall"].shape[0], **meta, D=cap["dmat"].shape[1])
     log(f"read-{path}", smi=json.dumps(smi), **shape, max_abs_err=err,
         **fmt_times(t), bound_ms=f"{bound_ms:.7f}", bound_by=bound_by,
-        launches=launches)
+        launches=launches, launch_floor_ms=f"{floor_ms:.5f}",
+        over_floor_ms=f"{launches * (t['ms'] - floor_ms):.5f}")
     return {"name": "read_gather", "route": "cuda",
             "source": "foundationdb_tpu_torch/csrc/read.cu",
             "replaces": "foundationdb_tpu/storage_engine/tpu_engine.py:113",

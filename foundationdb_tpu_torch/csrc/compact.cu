@@ -41,28 +41,35 @@
 // Bound on the card: bytes. The state (W + 2 rows of C int32) in and out
 // of densify, phase3 and redistribute, the endpoints and the reads' ranks
 // for ranks: 0.0155, 0.0013, 0.0157 and 0.0151 ms at config 5's C = 2^21
-// (chip_smoke.py compact_bound); most of densify's and phase3's is their
-// output, whose columns past m2 and new_n are pads. Times on the card are
-// in PERF.md (an H100 80GB HBM3 at 700 W). The previous densify and
-// phase3 (0.107 and 0.305 ms there) worked over the capacity C, not the
-// live columns, ran each prefix sum in three stages with a serial middle
-// one (one block walking the N / 256 tile sums), searched the endpoints'
-// ranks once per history column and made 5 and 17 grid barriers; their
-// stage stamps put most of phase3 in that search and the scans, most of
-// densify in its keep stages. The design:
+// (chip_smoke.py compact_bound); most of densify's, phase3's and
+// redistribute's is their output, whose columns past m2, new_n and the
+// blocks' fill are pads. ranks' own design reads each live key row about
+// once, n (W + 1) 4 bytes (2.9 us at config 5). Times on the card are in
+// PERF.md (an H100 80GB HBM3 at 700 W). Before their redesigns, densify
+// and phase3 (0.107 and 0.305 ms there) worked over the capacity C and ran
+// each prefix sum in three stages with a serial middle one; ranks (0.050)
+// walked tpu.py's 21 dependent steps a thread over C and built its maxima
+// a grid barrier a level (4); redistribute (0.064) wrote a word a thread
+// with three 64-bit divisions each and folded the tree a barrier a pass
+// (3). Their stage stamps put the time in those walks, scans and copies.
+// The design:
 //
-// - Every kernel is one cooperative grid. densify's and phase3's prefix
-//   sums are grid.cuh's ChunkScan: each block reduces one contiguous
-//   chunk, and after one barrier every block sums the totals of the
-//   blocks before it and rescans its chunk (no serial stage; all blocks
-//   are resident, so none waits on one that has not started). ranks and
-//   redistribute need no prefix sum.
-// - Stage stamps: densify's and phase3's entry points take an int64
-//   buffer or null; where it is given, block 0's thread 0 writes
-//   %globaltimer at the start and after each grid barrier (grid.cuh
-//   Stamps), one more barrier ending the kernel, so that stage k took
-//   stamp k + 1 - stamp k ns. The main path passes null. compact.py names
-//   the stages (DENSIFY_STAGES, PHASE3_STAGES); chip_smoke.py's
+// - Every kernel is one cooperative grid and works over the live columns
+//   (n, m, new_n, read on the device), not C. densify's and phase3's
+//   prefix sums are grid.cuh's ChunkScan: each block reduces one
+//   contiguous chunk, and after one barrier every block sums the totals
+//   of the blocks before it and rescans its chunk (no serial stage; all
+//   blocks are resident, so none waits on one that has not started).
+//   ranks and redistribute need no prefix sum.
+// - The live extent: ranks and phase3 take the dense state's columns past
+//   n to be pads (kInf key rows, version 0), which densify and phase3
+//   write there. Under that precondition ranks' answers equal tpu.py's
+//   over all C columns, the walk's saturation at C - 1 included.
+// - Stage stamps: every entry point takes an int64 buffer or null; where
+//   it is given, block 0's thread 0 writes %globaltimer at the start and
+//   after each grid barrier (grid.cuh Stamps), one more barrier ending the
+//   kernel, so that stage k took stamp k + 1 - stamp k ns. The main path
+//   passes null. compact.py names the stages (*_STAGES); chip_smoke.py's
 //   [compact-stages-*] lines read them.
 // - densify, 3 grid barriers (previously 5): a chunk scan of the counts
 //   writes each source block's inclusive prefix; then the first min(m, C)
@@ -80,16 +87,32 @@
 //   entries sit in the first blocks after a redistribution (at config 5
 //   the first third hold them all): a warp a source block, or a thread a
 //   position over chunks of blocks, left most blocks idle (PERF.md).
-// - ranks: tpu.py's halving walk over the dense keys, one thread a query,
-//   which saturates at C - 1 exactly as tpu.py's does. Phase 1 needs range
-//   maxima of the version row without tpu.py's (log C + 1) x C sparse
-//   table: the kernel builds maxima of 32, 1,024, ... slots (C / 31 words)
-//   and answers each of tpu.py's two power-of-two windows from them,
-//   with the table's edges (a window past C takes the identity 0, an
-//   empty range gives 0, a negative lo clips to 0): grid.cuh's Levels,
-//   which rankfed.cu's phase 1 shares. Ranking against the
-//   block state before densify (the probe) would need the columns dedup
-//   drops subtracted again, so the walk runs on the dense state.
+// - ranks, 1 grid barrier (previously 4). A thread block takes a run of
+//   256 sorted endpoints. Its bracket: the live columns below the run's
+//   first and last key, each counted by a 128-way search of [0, n) (3
+//   rounds of loads at n = 2^21, where tpu.py's walk is 21 dependent
+//   steps). The walks that a sorted history gives those two counts agree
+//   up to some step d; two warps check those d probes against the two
+//   keys, a lane a step, in one round of loads (a history out of order
+//   fails the check, and then two threads walk the two keys). Every key
+//   between the two probes as both do on their common steps, so each
+//   thread runs tpu.py's walk exactly from step d on: its probes stay in
+//   the 2 (C >> (d + 1)) columns after the common position, which the
+//   block loads coalesced into a shared tile (by cp.async) where they
+//   fit, else its bracket; the rest of the probes read device memory
+//   (the wide tier: a run spread over more columns than the tile holds).
+//   An endpoint out of sorted order walks every step. Each run's tier is
+//   written to the scratch (compact.py ranks_tiers). The range maxima
+//   for phase 1 are grid.cuh's LiveLevels: maxima of 32 and 1,024 slots
+//   over the live extent only, a 1,024-slot group a block in the same
+//   stage (no barrier a level); after the one barrier, a read whose two
+//   windows span at most 8 slots is answered by its lane from the row,
+//   a wider one by the whole warp (each level's two edges one load a
+//   lane, the top level lane-strided), with tpu.py's table edges (a
+//   window past C takes the identity 0, an empty range gives 0, a
+//   negative lo clips to 0). Ranking against the block state before
+//   densify (the probe) would need the columns dedup drops subtracted
+//   again, so the walk runs on the dense state.
 // - phase3, 9 grid barriers (previously 17), every pass over the first L
 //   merged slots, n history columns or the runs and entries they hold:
 //   each write endpoint names itself at its sorted position (no clear: a
@@ -108,10 +131,20 @@
 //   the live columns' keys from [history | endpoints], a row group of
 //   loads before its stores, and writes the pads past new_n as 16-byte
 //   stores.
-// - redistribute: each output column finds its dense source arithmetically
-//   (block c / B, slot c % B, source block * F + slot); leaves are a warp's
-//   maximum over a block; the segment tree is folded 256 leaves a thread
-//   block in shared memory, one grid barrier per 8 levels.
+// - redistribute, 1 grid barrier (previously 3) while the subtree groups
+//   number at most 4,096 (NB_out up to 2^22). Output block k's slots j < F = B / 2 are dense
+//   columns [k F, k F + F), its slots from F on pads: a thread moves one
+//   4-slot group of a block across all W + 2 rows, 16-byte loads and
+//   stores (pads where j >= F or the source is at or past min(new_n, C);
+//   only the group across the live edge selects lane by lane), indices
+//   by shifts of log2 B (B a power of two, at least 8: 32-bit, no
+//   division). The group holding slot 0 writes the block's count and
+//   fences. Thread blocks own aligned groups of G output blocks (as many
+//   groups as the largest power of two of the grid's blocks): a leaf is
+//   a shuffle maximum over its block's threads (and 0, the pads'), the
+//   group's subtree folds in shared memory in the same stage, and after
+//   the one barrier one block folds the groups' roots (one barrier more
+//   per 4,096-way fold where there are more).
 //
 // Interface: plain C entry points (loaded with ctypes), each launching one
 // cooperative grid on the caller's stream, allocating nothing (each takes
@@ -441,6 +474,7 @@ __global__ void __launch_bounds__(kThreads) densify_kernel(DensifyArgs a) {
 
 struct RanksArgs {
   const int32_t* hmat;     // (W + 2, C) dense state
+  const int32_t* n;        // () its live columns
   const int32_t* smat;     // (W + 1, P2) sorted endpoints
   const int32_t* q_begin;  // (R,)
   const int32_t* q_end;
@@ -450,41 +484,459 @@ struct RanksArgs {
   int32_t* ub;             // (P2,) out: #history <= key (C for a pad)
   uint8_t* eq;             // (P2,) out: the history entry at lb equals it
   int32_t* base_conf;      // (T,) out
-  int32_t* scratch;        // lb P2, the levels
-  Levels lv;
+  int32_t* scratch;        // RanksScratch
+  int64_t* stamps;         // null, or the stage stamps (grid.cuh Stamps)
   int W, P2, R, T;
+  int tile_cols;           // history columns the shared tile holds
   long long C;
 };
 
-__global__ void __launch_bounds__(kThreads) ranks_kernel(RanksArgs a) {
+// A run: a thread block's share of the sorted endpoints, whole multiples
+// of kRun, a thread every kRun-th.
+constexpr int kRun = kThreads;
+// Shared memory of ranks' tile of history key rows, in words.
+constexpr int kTileWords = 10240;
+// Windows of at most this many slots are answered by their lane alone.
+constexpr int kShortWindow = 8;
+// Key rows of an endpoint held in registers (the rest read from smat).
+constexpr int kKeyRegs = 8;
+// A run's tier, in its scratch word (RanksScratch::tiers; compact.py
+// RANKS_TIERS): the rest of its walks in the shared tile, each thread
+// walking device memory, or some endpoint out of sorted order (which
+// walked every step); plus kRewalked where the bracket's predicted walks
+// failed their check (a history out of order).
+constexpr int32_t kTierTile = 1, kTierWide = 2, kTierOutOfOrder = 3,
+                  kRewalked = 4;
+
+// ranks' scratch: lb (P2), the live levels, a tier word a run.
+struct RanksScratch {
+  int32_t *lb, *lvls, *tiers;
+  __host__ __device__ static long long runs(long long P2) {
+    return (P2 + kRun - 1) / kRun;
+  }
+  __host__ __device__ static long long words(long long C, long long P2) {
+    return P2 + LiveLevels::words(C) + runs(P2);
+  }
+  __device__ RanksScratch(int32_t* s, long long C, long long P2) {
+    lb = s;
+    lvls = lb + P2;
+    tiers = lvls + LiveLevels::words(C);
+  }
+};
+
+// One endpoint's key, rows 0..W of a column of smat: the first kKeyRegs
+// rows in registers.
+struct Key {
+  int32_t w[kKeyRegs];
+  const int32_t* q;  // the column in smat
+  long long qld;
+  int W;
+  bool pad;          // a pad endpoint (its length row kInf)
+  __device__ __forceinline__ Key(const int32_t* smat, long long P2,
+                                 long long col, int W_)
+      : q(smat + col), qld(P2), W(W_) {
+#pragma unroll
+    for (int r = 0; r < kKeyRegs; ++r) {
+      w[r] = r <= W ? __ldg(q + r * qld) : 0;
+      if (r == W) pad = w[r] == kInf;
+    }
+    if (W >= kKeyRegs) pad = row(W) == kInf;
+  }
+  __device__ __forceinline__ int32_t row(int r) const {
+    return __ldg(q + r * qld);
+  }
+  // Column c of the (rows, ld) matrix h against the key: < 0 where it is
+  // lexicographically smaller (signed words, then the length row), 0
+  // where equal, > 0 where greater. A shared-memory column: a row at a
+  // time.
+  __device__ __forceinline__ int cmp_shared(const int32_t* h, long long ld_,
+                                            long long c) const {
+#pragma unroll
+    for (int r = 0; r < kKeyRegs; ++r) {
+      if (r > W) return 0;
+      const int32_t x = h[r * ld_ + c];
+      if (x != w[r]) return x < w[r] ? -1 : 1;
+    }
+    for (int r = kKeyRegs; r <= W; ++r) {
+      const int32_t x = h[r * ld_ + c], y = row(r);
+      if (x != y) return x < y ? -1 : 1;
+    }
+    return 0;
+  }
+  // The same for a read-only column in device memory: the first
+  // kKeyRegs rows' loads issue together.
+  __device__ __forceinline__ int cmp_dev(const int32_t* h, long long ld_,
+                                         long long c) const {
+    int32_t x[kKeyRegs];
+#pragma unroll
+    for (int r = 0; r < kKeyRegs; ++r)
+      x[r] = r <= W ? __ldg(h + r * ld_ + c) : 0;
+#pragma unroll
+    for (int r = 0; r < kKeyRegs; ++r)
+      if (r <= W && x[r] != w[r]) return x[r] < w[r] ? -1 : 1;
+    for (int r = kKeyRegs; r <= W; ++r) {
+      const int32_t a = __ldg(h + r * ld_ + c), y = row(r);
+      if (a != y) return a < y ? -1 : 1;
+    }
+    return 0;
+  }
+};
+
+// One word from device memory into shared memory by cp.async, no
+// register staged (tile_wait completes them; it measured 1.5% faster than
+// loads and stores for ranks at config 5, PERF.md). Off the card (a host
+// compile of this file) a plain copy.
+__device__ __forceinline__ void tile_copy(int32_t* dst, const int32_t* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void tile_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+#endif
+}
+
+// tpu.py's halving walk over C columns (`_lower_rank`): step j (j = 0,
+// 1, ...) is s = C >> (j + 1) and probes column pos + s - 1, adding s to
+// pos where that column's key is below the endpoint's. steps(C) of them;
+// the walk saturates at C - 1.
+__device__ __forceinline__ int walk_steps(long long C) {
+  return 63 - __clzll((unsigned long long)C);
+}
+
+// The state (pos, step index) where the walks predicted from two counts
+// k0 <= k1 of history columns below a key part: a step's outcome from a
+// count k is pos + s <= k (what a sorted history gives). Every thread of
+// the block gets the same.
+__device__ __forceinline__ void walk_split(long long k0, long long k1,
+                                           long long C, long long* pos,
+                                           int* d) {
+  long long p = 0;
+  int j = 0;
+  for (; j < walk_steps(C); ++j) {
+    const long long s = C >> (j + 1);
+    const bool o0 = p + s <= k0, o1 = p + s <= k1;
+    if (o0 != o1) break;
+    if (o0) p += s;
+  }
+  *pos = p;
+  *d = j;
+}
+
+// Whether step j of key's walk answers as the walk predicted from count
+// k does, for j < d (true from d on): the column the predicted walk
+// probes there against the key.
+__device__ __forceinline__ bool walk_step_holds(const Key& key,
+                                                const int32_t* hmat,
+                                                long long C, long long k,
+                                                int d, int j) {
+  if (j >= d) return true;
+  long long p = 0;
+  for (int i = 0; i < j; ++i)
+    if (p + (C >> (i + 1)) <= k) p += C >> (i + 1);
+  const long long s = C >> (j + 1);
+  return (key.cmp_dev(hmat, C, p + s - 1) < 0) == (p + s <= k);
+}
+
+// The most steps of a walk (C <= INT32_MAX): side columns a step.
+constexpr int kSteps = 32;
+
+// Where a run's walks read their probes (every thread of the block the
+// same): the tile of history columns [tlo, thi), W + 1 rows of tw words;
+// beside it the columns side_c[j] and side_c[kSteps + j] (-1: none) that
+// step j may probe outside the tile, a column of `sides` each.
+struct RunTile {
+  const int32_t* tile;
+  const int32_t* sides;
+  const int32_t* side_c;
+  long long tlo, thi;
+  // Column c, probed at step j, against the key: from the tile or a side
+  // column, else from device memory.
+  __device__ __forceinline__ int cmp(const Key& key, const int32_t* hmat,
+                                     long long C, long long c, int j) const {
+    if (thi > tlo) {  // (side_c is this run's only where there is a tile)
+      if (c >= tlo && c < thi)
+        return key.cmp_shared(tile, thi - tlo, c - tlo);
+      if (j < kSteps && c == side_c[j])
+        return key.cmp_shared(sides, 2 * kSteps, j);
+      if (j < kSteps && c == side_c[kSteps + j])
+        return key.cmp_shared(sides, 2 * kSteps, kSteps + j);
+    }
+    return key.cmp_dev(hmat, C, c);
+  }
+};
+
+// The walk of key from step j at pos on; returns the final pos.
+__device__ __forceinline__ long long walk_from(const Key& key,
+                                               const int32_t* hmat,
+                                               long long C, const RunTile& t,
+                                               long long pos, int j) {
+  for (long long s = C >> (j + 1); s >= 1; s >>= 1, ++j)
+    if (t.cmp(key, hmat, C, pos + s - 1, j) < 0) pos += s;
+  return pos;
+}
+
+__global__ void __launch_bounds__(kThreads, 4) ranks_kernel(RanksArgs a) {
+  extern __shared__ int32_t smem[];
   const Grid g;
+  Stamps st(a.stamps);
   const long long C = a.C, P2 = a.P2;
-  const int W = a.W;
+  const int W = a.W, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = threadIdx.x >= kThreads / 2;
   const int32_t* hv = a.hmat + (W + 1) * C;
-  int32_t* lb = a.scratch;
-  int32_t* lvls = lb + P2;
-  // Stage 1: the ranks (tpu.py's halving walk), base_conf = too_old,
-  // the first maximum level.
+  const RanksScratch s(a.scratch, C, P2);
+  const LiveLevels lv{C};
+  const int32_t n32 = *a.n;
+  const long long n = n32 < 0 ? 0 : (n32 > C ? C : n32);
+  // Shared memory: the tile; the run's first and last key (a column each
+  // of a (W + 1, 2) matrix), the side columns and their indexes (RunTile),
+  // at the end of the tile's words; a search round's counts, a group's
+  // level-1 maxima, the run's bracket and its walks' outcomes. Keys too
+  // wide for that: no tile, and the two keys read from smat.
+  const bool roomy = a.tile_cols > 0;
+  int32_t* tile = smem;
+  int32_t* ends = roomy ? smem + kTileWords - 2 * (W + 1) : smem;
+  int32_t* sides = roomy ? ends - 2 * kSteps * (W + 1) : smem;
+  int32_t* side_c = roomy ? sides - 2 * kSteps : smem;
+  int32_t* cnt = smem + kTileWords;
+  int32_t* l1s = cnt + kWarps;
+  long long* run_s = reinterpret_cast<long long*>(l1s + kFan);  // 4
+  // Stage 1: base_conf = too_old; each run's ranks; the live levels.
   g.each(a.T, [&](long long t) { a.base_conf[t] = a.too_old[t] ? 1 : 0; });
-  g.each(P2, [&](long long q) {
-    long long pos = 0;
-    for (long long s = C / 2; s >= 1; s /= 2)
-      if (key_lt(a.hmat, C, pos + s - 1, a.smat, P2, q, W)) pos += s;
-    const bool e =
-        key_eq(a.hmat, C, pos < C - 1 ? pos : C - 1, a.smat, P2, q, W);
-    lb[q] = (int32_t)pos;
-    a.eq[q] = e;
-    a.ub[q] = a.smat[W * P2 + q] == kInf ? (int32_t)C : (int32_t)pos + e;
+  const int per_thread =
+      (int)(((P2 + gridDim.x - 1) / gridDim.x + kRun - 1) / kRun);
+  const long long chunk = (long long)per_thread * kRun,
+                  runs = (P2 + chunk - 1) / chunk;
+  g.each(RanksScratch::runs(P2), [&](long long r) {
+    if (r >= runs) s.tiers[r] = 0;  // no run
   });
-  a.lv.build(g, hv, lvls);
-  // Last stage: each read's history maximum over [rank_b - 1, rank_e) by
-  // tpu.py's two overlapping power-of-two windows.
-  g.each(a.R, [&](long long i) {
-    const int32_t hi = ld(lb + gat(a.q_end[i], P2));
-    const int32_t lo = add32(ld(a.ub + gat(a.q_begin[i], P2)), -1);
-    if (a.lv.window_max(hv, lvls, lo, hi, 64) > a.rsnap[i])
-      a.base_conf[gat(a.rtxn[i], a.T)] = 1;
-  });
+  for (long long run = blockIdx.x; run < runs; run += gridDim.x) {
+    const long long q0 = run * chunk,
+                    q1 = (q0 + chunk < P2 ? q0 + chunk : P2) - 1;
+    // The run's first endpoint's key (threads 0..127) and its last one's
+    // (128..255); this thread's first endpoint's.
+    const Key kb(a.smat, P2, half ? q1 : q0, W);
+    const long long qt = q0 + threadIdx.x < q1 ? q0 + threadIdx.x : q1;
+    const Key kq(a.smat, P2, qt, W);
+    if (roomy && (threadIdx.x & (kThreads / 2 - 1)) == 0)
+      for (int r = 0; r <= W; ++r) ends[2 * r + half] = kb.row(r);
+    // The bracket [klo, khi]: the live history columns below the two
+    // keys, each counted by a 128-way search of [0, n) by half the block
+    // (exact for a sorted history; the walks below do not rely on it).
+    {
+      long long lo = 0, hi = n;  // the count lies in [lo, hi]
+      while (!__syncthreads_and(lo >= hi)) {
+        const long long step = (hi - lo + kThreads / 2 - 1) >> 7;
+        const long long c =
+            lo + ((threadIdx.x & (kThreads / 2 - 1)) + 1) * step - 1;
+        const bool below = lo < hi && c < hi && kb.cmp_dev(a.hmat, C, c) < 0;
+        const unsigned b = __ballot_sync(kFull, below);
+        if (lane == 0) cnt[warp] = __popc(b);
+        __syncthreads();
+        long long k = 0;
+        for (int w = 0; w < kWarps / 2; ++w) k += cnt[half * kWarps / 2 + w];
+        if (lo < hi) {
+          const long long b1 = lo + (k + 1) * step - 1;
+          lo += k * step;
+          hi = b1 < hi ? b1 : hi;
+        }
+      }
+      if ((threadIdx.x & (kThreads / 2 - 1)) == 0) run_s[half] = lo;
+      __syncthreads();
+    }
+    const long long klo = run_s[0], khi = run_s[1];
+    // The walks of the first and last endpoint agree up to step d (pos_d
+    // there) where the bracket's predicted walks do (walk_split). Every
+    // endpoint between them in sorted order probes as both do on their
+    // common steps (a column below the first key is below it, one not
+    // below the last is not below it), so its walk continues from (pos_d,
+    // d). Warps 0 and kWarps / 2 check those d probes against the two
+    // keys, a lane a step, while the tile loads. Where a probe disagrees
+    // (a history out of order), threads 0 and 128 walk the two keys and d
+    // is where their real walks part.
+    long long pos_d;
+    int d;
+    walk_split(klo, khi, C, &pos_d, &d);
+    // The tile: the bracket's columns [klo, min(khi + 1, C)) where they
+    // fit, with the columns outside it that the bracket's predicted walks
+    // probe from step d on. In a sorted history every walk of the run
+    // probes only these: a walk from a count k probes pos_j(k) + s_j - 1
+    // at step j, and where that falls below the bracket, pos_j(k) is
+    // pos_j(klo) (above it, pos_j(khi)).
+    RunTile t{tile, sides, side_c, 0, 0};
+    {
+      const long long b_end = khi + 1 < C ? khi + 1 : C;
+      if (klo <= khi && b_end - klo <= a.tile_cols) {
+        t.tlo = klo;
+        t.thi = b_end;
+      }
+    }
+    const long long tw = t.thi - t.tlo;
+    if (tw > 0 && (warp == 0 || warp == 1) && lane < kSteps) {
+      const long long k = warp ? khi : klo;
+      long long p = pos_d;
+      for (int j = d; j < lane; ++j)
+        if (p + (C >> (j + 1)) <= k) p += C >> (j + 1);
+      const long long sj = C >> (lane + 1);
+      const long long c = p + sj - 1;
+      side_c[warp * kSteps + lane] =
+          lane >= d && sj >= 1 && (c < t.tlo || c >= t.thi) ? (int32_t)c : -1;
+    }
+    __syncthreads();
+    for (int r = 0; r <= W; ++r)
+      for (long long c = threadIdx.x; c < tw; c += kThreads)
+        tile_copy(tile + r * tw + c, a.hmat + r * C + t.tlo + c);
+    if (tw > 0)
+      for (int x = threadIdx.x; x < 2 * kSteps * (W + 1); x += kThreads) {
+        const int slot = x % (2 * kSteps), r = x / (2 * kSteps);
+        if (side_c[slot] >= 0)
+          tile_copy(sides + r * 2 * kSteps + slot,
+                    a.hmat + r * C + side_c[slot]);
+      }
+    const bool ok = (warp != 0 && warp != kWarps / 2) ||
+                    walk_step_holds(kb, a.hmat, C, klo, d, lane);
+    tile_wait();
+    const bool rewalked = !__syncthreads_and(ok);
+    if (rewalked) {
+      if ((threadIdx.x & (kThreads / 2 - 1)) == 0) {
+        long long p = 0, bits = 0;
+        for (int j = 0; j < walk_steps(C); ++j) {
+          const long long sj = C >> (j + 1);
+          if (kb.cmp_dev(a.hmat, C, p + sj - 1) < 0) {
+            p += sj;
+            bits |= 1LL << j;
+          }
+        }
+        run_s[2 + half] = bits;
+      }
+      __syncthreads();
+      const long long differ = run_s[2] ^ run_s[3];
+      d = differ ? __ffsll(differ) - 1 : walk_steps(C);
+      pos_d = 0;
+      for (int j = 0; j < d; ++j)
+        if ((run_s[2] >> j) & 1) pos_d += C >> (j + 1);
+    }
+    bool out_of_order = false;
+    auto rank = [&](const Key& key, long long q) {
+      // An endpoint out of sorted order (before the first or after the
+      // last) walks every step.
+      const bool out =
+          roomy ? key.cmp_shared(ends, 2, 0) > 0 || key.cmp_shared(ends, 2, 1) < 0
+                : key.cmp_dev(a.smat, P2, q0) > 0 ||
+                      key.cmp_dev(a.smat, P2, q1) < 0;
+      out_of_order |= out;
+      const long long pos =
+          walk_from(key, a.hmat, C, t, out ? 0 : pos_d, out ? 0 : d);
+      const bool eq = t.cmp(key, a.hmat, C, pos, kSteps) == 0;
+      s.lb[q] = (int32_t)pos;
+      a.eq[q] = eq;
+      a.ub[q] = key.pad ? (int32_t)C : (int32_t)pos + eq;
+    };
+    if (q0 + threadIdx.x <= q1) rank(kq, q0 + threadIdx.x);
+    for (int e = 1; e < per_thread; ++e) {
+      const long long q = q0 + (long long)e * kRun + threadIdx.x;
+      if (q <= q1) rank(Key(a.smat, P2, q, W), q);
+    }
+    // (also the barrier before the next run's tile and keys)
+    const bool any_out = __syncthreads_or(out_of_order);
+    if (threadIdx.x == 0)
+      s.tiers[run] = (any_out ? kTierOutOfOrder
+                              : (tw > 0 ? kTierTile : kTierWide)) |
+                     (rewalked ? kRewalked : 0);
+  }
+  lv.build(hv, n, s.lvls, l1s, runs);  // blocks without a run first
+  // The reads of this block's first tile, loaded ahead of the barrier.
+  int32_t pre[4] = {0, 0, 0, 0};  // q_begin, q_end, rsnap, rtxn
+  {
+    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if (i < a.R) {
+      pre[0] = a.q_begin[i];
+      pre[1] = a.q_end[i];
+      pre[2] = a.rsnap[i];
+      pre[3] = a.rtxn[i];
+    }
+  }
+  g.sync(st);
+  // Stage 2: each read's history maximum over [rank_b - 1, rank_e) by
+  // tpu.py's two overlapping power-of-two windows: windows of at most
+  // kShortWindow slots by the read's thread from the row; wider ones
+  // queued in shared memory and answered a warp each from the live
+  // levels (LiveLevels), the block's warps sharing the queue.
+  const long long E = ((n + kFan * kFan - 1) / (kFan * kFan)) * kFan * kFan;
+  const long long built = E < C ? E : C;
+  int32_t* q_i1 = smem;  // the queue: a wide read's windows, its thread
+  int32_t* q_i2 = q_i1 + kThreads;
+  int32_t* q_m = q_i2 + kThreads;
+  int32_t* q_own = q_m + kThreads;
+  int32_t* q_hist = q_own + kThreads;
+  int32_t* q_n = q_hist + kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads; base < a.R;
+       base += (long long)gridDim.x * kThreads) {
+    const long long i = base + threadIdx.x;
+    const bool has = i < a.R;
+    if (base != (long long)blockIdx.x * kThreads && has) {
+      pre[0] = a.q_begin[i];
+      pre[1] = a.q_end[i];
+      pre[2] = a.rsnap[i];
+      pre[3] = a.rtxn[i];
+    }
+    if (threadIdx.x == 0) *q_n = 0;
+    int32_t lo = 0, hi = 0;
+    if (has) {
+      hi = ld(s.lb + gat(pre[1], P2));
+      lo = add32(ld(a.ub + gat(pre[0], P2)), -1);
+    }
+    const bool live = has && hi > lo;
+    int m = 0;
+    long long i1 = 0, i2 = 0;
+    if (live) {
+      const int32_t len = (int32_t)((uint32_t)hi - (uint32_t)lo);
+      m = 31 - __clz(len > 1 ? len : 1);
+      i1 = lo < 0 ? 0 : (lo > C - 1 ? C - 1 : lo);
+      i2 = (long long)hi - (1LL << m);
+      i2 = i2 < 0 ? 0 : (i2 > C - 1 ? C - 1 : i2);
+    }
+    const long long w = 1LL << m;
+    const bool wide = live && w > kShortWindow;
+    __syncthreads();  // q_n cleared
+    int32_t hist = 0;  // an empty range's identity
+    if (live && !wide) {
+      int32_t m1 = INT32_MIN, m2 = INT32_MIN;
+      for (long long k = 0; k < w; ++k) {
+        if (i1 + k < C) m1 = max(m1, __ldg(hv + i1 + k));
+        if (i2 + k < C) m2 = max(m2, __ldg(hv + i2 + k));
+      }
+      if (i1 + w > C) m1 = max(m1, 0);
+      if (i2 + w > C) m2 = max(m2, 0);
+      hist = max(m1, m2);
+    } else if (wide) {
+      const int slot = atomicAdd(q_n, 1);
+      q_i1[slot] = (int32_t)i1;
+      q_i2[slot] = (int32_t)i2;
+      q_m[slot] = m;
+      q_own[slot] = threadIdx.x;
+    }
+    __syncthreads();
+    for (int e = warp; e < *q_n; e += kWarps) {
+      const long long ww = 1LL << q_m[e];
+      const int32_t h =
+          warp_max(max(lv.lane_entry(hv, s.lvls, built, q_i1[e], ww),
+                       lv.lane_entry(hv, s.lvls, built, q_i2[e], ww)));
+      if (lane == 0) q_hist[q_own[e]] = h;
+    }
+    __syncthreads();
+    if (wide) hist = q_hist[threadIdx.x];
+    if (has && hist > pre[2]) a.base_conf[gat(pre[3], a.T)] = 1;
+    __syncthreads();  // the queue is free again
+  }
+  g.finish(st);
 }
 
 // ----------------------------------------------------------------- phase 3
@@ -805,77 +1257,168 @@ struct RedistArgs {
   int32_t* counts;        // (NB_out,) out
   int32_t* btree;         // (2 NB_out,) out
   int32_t* fences;        // (W + 1, NB_out) out
-  int W, NB_out, B, T;
+  int64_t* stamps;        // null, or the stage stamps (grid.cuh Stamps)
+  int W, NB_out, lgB, T;
+  int vec;                // hmat_d and out 16-byte aligned, C % 4 == 0
   long long C;
 };
 
-__global__ void __launch_bounds__(kThreads) redist_kernel(RedistArgs a) {
-  extern __shared__ int32_t smem[];
-  const Grid g;
-  const long long C = a.C, NB = a.NB_out, B = a.B, F = B / 2,
-                  C_out = NB * B;
-  const int W = a.W;
-  const int32_t nn = *a.new_n;
-  const long long live_end = nn < C ? nn : C;  // dense columns that move
-  // Stage 1: every output column from its dense source (block k = c / B,
-  // slot j = c % B < F: dense column k F + j), the counts, the fences,
-  // the leaves (a warp's maximum over a block), the overflow byte.
-  g.each((W + 2) * C_out, [&](long long x) {
-    const int r = (int)(x / C_out);
-    const long long c = x - r * C_out, j = c % B, src = c / B * F + j;
-    a.out[x] = j < F && src < live_end ? a.hmat_d[r * C + src]
-                                       : (r <= W ? kInf : 0);
-  });
-  g.each(NB, [&](long long k) {
-    const long long left = (long long)nn - k * F;
-    a.counts[k] = (int32_t)(left < 0 ? 0 : (left > F ? F : left));
-    const bool live = k * F < nn;
-    const long long src = k * F < C - 1 ? k * F : C - 1;
-    for (int r = 0; r <= W; ++r)
-      a.fences[r * NB + k] = live ? a.hmat_d[r * C + src] : kInf;
-  });
-  {
-    const int lane = threadIdx.x & 31;
-    const long long warps = (long long)gridDim.x * kWarps;
-    for (long long k = g.first >> 5; k < NB; k += warps) {
-      int32_t m = F < B ? 0 : INT32_MIN;  // a block's pad slots hold 0
-      for (long long j = lane; j < F; j += 32) {
-        const long long src = k * F + j;
-        if (src < live_end) m = max(m, a.hmat_d[(W + 1) * C + src]);
-      }
-      m = warp_max(m);
-      if (lane == 0) a.btree[NB + k] = m;
+// Tree nodes one thread block folds in shared memory at once.
+constexpr int kRootFold = 4096;
+// Output blocks whose subtree one thread block folds at most.
+constexpr int kMaxGroup = 1024;
+// Rows of 16 bytes a thread loads before it stores them.
+constexpr int kRowGroup4 = 6;
+
+// The s nodes btree[base + b s, base + (b + 1) s) of one level, held in
+// smem[0, s) (after a block barrier), folded up to one node, every level's
+// nodes written; smem is free again after it (every thread calls it).
+__device__ void fold_subtree(int32_t* smem, int32_t* btree, long long base,
+                             long long b, long long s) {
+  constexpr int kPer = (kRootFold / 2 + kThreads - 1) / kThreads;
+  while (s > 1) {
+    s >>= 1;
+    base >>= 1;
+    int32_t v[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const long long i = threadIdx.x + u * kThreads;
+      v[u] = i < s ? max(smem[2 * i], smem[2 * i + 1]) : 0;
     }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const long long i = threadIdx.x + u * kThreads;
+      if (i < s) {
+        smem[i] = v[u];
+        btree[base + b * s + i] = v[u];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Output slots 4 grp .. 4 grp + 3, one 4-slot group of output block k =
+// grp / (B / 4): each of the W + 2 rows from dense columns src0.. (slots
+// j < F) or pads, by 16-byte loads and stores; block k's count and fences
+// from its slot-0 group. Returns the group's version maximum, pads' 0
+// included.
+__device__ int32_t redist_group(const RedistArgs& a, int grp, int live_end,
+                                int32_t nn) {
+  const int W = a.W, lgF = a.lgB - 1, F = 1 << lgF, lgQ = a.lgB - 2;
+  const long long C = a.C, C_out = (long long)a.NB_out << a.lgB;
+  const int k = grp >> lgQ, j0 = (grp & ((1 << lgQ) - 1)) << 2;
+  const long long src0 = ((long long)k << lgF) + j0;
+  const bool any = j0 < F && src0 < live_end;     // some slot live
+  const bool all = j0 < F && src0 + 4 <= live_end;  // every slot live
+  const long long o = (long long)grp << 2;
+  int32_t vmax = 0;
+  for (int r0 = 0; r0 <= W + 1; r0 += kRowGroup4) {
+    int4 v[kRowGroup4];
+#pragma unroll
+    for (int i = 0; i < kRowGroup4; ++i) {
+      const int r = r0 + i;
+      const int32_t pad = r <= W ? kInf : 0;
+      int4 x = make_int4(pad, pad, pad, pad);
+      if (r <= W + 1 && any) {
+        const int32_t* p = a.hmat_d + r * C + src0;
+        if (a.vec && all) {
+          x = __ldg(reinterpret_cast<const int4*>(p));
+        } else {  // the group across the live edge, or an unaligned state
+          if (src0 < live_end) x.x = __ldg(p);
+          if (src0 + 1 < live_end) x.y = __ldg(p + 1);
+          if (src0 + 2 < live_end) x.z = __ldg(p + 2);
+          if (src0 + 3 < live_end) x.w = __ldg(p + 3);
+        }
+      }
+      v[i] = x;
+    }
+#pragma unroll
+    for (int i = 0; i < kRowGroup4; ++i) {
+      const int r = r0 + i;
+      if (r > W + 1) break;
+      int32_t* q = a.out + r * C_out + o;
+      if (a.vec) {
+        __stcs(reinterpret_cast<int4*>(q), v[i]);  // streamed: not read here
+      } else {
+        q[0] = v[i].x;
+        q[1] = v[i].y;
+        q[2] = v[i].z;
+        q[3] = v[i].w;
+      }
+      if (r == W + 1)
+        vmax = max(max(v[i].x, v[i].y), max(max(v[i].z, v[i].w), vmax));
+      if (j0 == 0 && r <= W)  // the block's first key, if it holds one
+        a.fences[(long long)r * a.NB_out + k] =
+            src0 < live_end ? v[i].x
+                            : (src0 < nn ? __ldg(a.hmat_d + r * C + (C - 1))
+                                         : kInf);
+    }
+  }
+  if (j0 == 0) {
+    const long long left = (long long)nn - src0;
+    a.counts[k] = (int32_t)(left < 0 ? 0 : (left > F ? F : left));
+  }
+  return vmax;
+}
+
+__global__ void __launch_bounds__(kThreads, 4) redist_kernel(RedistArgs a) {
+  extern __shared__ int32_t smem[];  // kRootFold words
+  const Grid g;
+  Stamps st(a.stamps);
+  const long long C = a.C;
+  const int NB = a.NB_out, lgQ = a.lgB - 2, lane = threadIdx.x & 31;
+  const int32_t nn = *a.new_n;
+  const int live_end = nn < 0 ? 0 : (nn < C ? nn : (int)C);
+  // Stage 1: subtree groups of G output blocks, as many groups as the
+  // largest power of two of the grid's blocks (G <= kMaxGroup): a block
+  // copies its group's 4-slot groups a tile of kThreads at a time, takes
+  // each output block's leaf as the maximum over its groups' threads (a
+  // shuffle, then a shared atomicMax where B / 4 > 32; pads hold 0, and
+  // every block has pad slots, so a leaf starts at 0), and folds the
+  // group's leaves in shared memory up to the group's root.
+  const int P = 1 << (31 - __clz((int)gridDim.x));
+  const int G = NB / P < 1 ? 1 : (NB / P > kMaxGroup ? kMaxGroup : NB / P);
+  const int groups = NB / G;
+  const int per = (1 << lgQ) < 32 ? (1 << lgQ) : 32;
+  for (int tg = blockIdx.x; tg < groups; tg += gridDim.x) {
+    for (int i = threadIdx.x; i < G; i += kThreads) smem[i] = 0;
+    __syncthreads();
+    const int g0 = (tg * G) << lgQ, g1 = ((tg + 1) * G) << lgQ;
+    for (int t0 = g0; t0 < g1; t0 += kThreads) {
+      const int grp = t0 + threadIdx.x;
+      int32_t vmax = grp < g1 ? redist_group(a, grp, live_end, nn) : 0;
+      for (int d = 1; d < per; d <<= 1)
+        vmax = max(vmax, __shfl_xor_sync(kFull, vmax, d));
+      if (grp < g1 && (lane & (per - 1)) == 0 && vmax > 0)
+        atomicMax(smem + ((grp >> lgQ) - tg * G), vmax);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < G; i += kThreads)
+      a.btree[(long long)NB + (long long)tg * G + i] = smem[i];
+    fold_subtree(smem, a.btree, NB, tg, G);
   }
   if (g.leader()) {
     a.btree[0] = 0;
-    const int8_t over = nn > (long long)NB * F;
+    const int8_t over = nn > ((long long)NB << (a.lgB - 1));
     if (over > a.st_aux[a.T + 4]) a.st_aux[a.T + 4] = over;
   }
-  g.sync();
-  // The tree bottom-up: each thread block folds up to 256 nodes of the
-  // current bottom level (bt[cur, 2 cur)) in shared memory, writing every
-  // level of its subtree; then the subtrees' roots are the next bottom.
-  for (long long cur = NB; cur > 1;) {
-    const long long gsz = cur < kThreads ? cur : kThreads;
+  g.sync(st);
+  // Stage 2: the groups' roots btree[groups, 2 groups) up to the root, by
+  // one block where they fit its shared memory, else kRootFold nodes a
+  // block and one grid barrier a pass.
+  for (long long cur = groups; cur > 1;) {
+    const long long gsz = cur < kRootFold ? cur : kRootFold;
     for (long long b = blockIdx.x; b < cur / gsz; b += gridDim.x) {
-      int32_t v = threadIdx.x < gsz ? ld(a.btree + cur + b * gsz + threadIdx.x)
-                                    : 0;
-      long long lvl = cur;
-      for (long long w = gsz / 2; w >= 1; w /= 2) {
-        smem[threadIdx.x] = v;
-        __syncthreads();
-        lvl /= 2;
-        if (threadIdx.x < w) {
-          v = max(smem[2 * threadIdx.x], smem[2 * threadIdx.x + 1]);
-          a.btree[lvl + b * w + threadIdx.x] = v;
-        }
-        __syncthreads();
-      }
+      for (long long i = threadIdx.x; i < gsz; i += kThreads)
+        smem[i] = ld(a.btree + cur + b * gsz + i);
+      __syncthreads();
+      fold_subtree(smem, a.btree, cur, b, gsz);
     }
     cur /= gsz;
-    g.sync();
+    if (cur > 1) g.sync();
   }
+  g.finish(st);
 }
 
 }  // namespace
@@ -907,38 +1450,47 @@ extern "C" int fdb_compact_densify(const void* hmat, const void* counts,
 }
 
 extern "C" long long fdb_compact_ranks_scratch_ints(long long C, int P2) {
-  Levels lv;
-  lv.init(C);
-  return P2 + lv.words();
+  return RanksScratch::words(C, P2);
 }
 
-// The dense resolve's ranks and phase 1. ptrs, in order: hmat, smat,
-// q_begin, q_end, rsnap, rtxn, too_old, ub, eq, base_conf, scratch.
+// The dense resolve's ranks and phase 1. ptrs, in order: hmat, n, smat,
+// q_begin, q_end, rsnap, rtxn, too_old, ub, eq, base_conf, scratch,
+// stamps.
 extern "C" int fdb_compact_ranks(void* const* ptrs, int W, long long C,
                                  int P2, int R, int T, void* stream) {
-  if (W < 1 || C < 2 || P2 < 1 || R < 0 || T < 1)
+  if (W < 1 || C < 2 || C > INT32_MAX || P2 < 1 || R < 0 || T < 1)
     return (int)cudaErrorInvalidValue;
   RanksArgs a;
   a.hmat = (const int32_t*)ptrs[0];
-  a.smat = (const int32_t*)ptrs[1];
-  a.q_begin = (const int32_t*)ptrs[2];
-  a.q_end = (const int32_t*)ptrs[3];
-  a.rsnap = (const int32_t*)ptrs[4];
-  a.rtxn = (const int32_t*)ptrs[5];
-  a.too_old = (const uint8_t*)ptrs[6];
-  a.ub = (int32_t*)ptrs[7];
-  a.eq = (uint8_t*)ptrs[8];
-  a.base_conf = (int32_t*)ptrs[9];
-  a.scratch = (int32_t*)ptrs[10];
-  a.lv.init(C);
+  a.n = (const int32_t*)ptrs[1];
+  a.smat = (const int32_t*)ptrs[2];
+  a.q_begin = (const int32_t*)ptrs[3];
+  a.q_end = (const int32_t*)ptrs[4];
+  a.rsnap = (const int32_t*)ptrs[5];
+  a.rtxn = (const int32_t*)ptrs[6];
+  a.too_old = (const uint8_t*)ptrs[7];
+  a.ub = (int32_t*)ptrs[8];
+  a.eq = (uint8_t*)ptrs[9];
+  a.base_conf = (int32_t*)ptrs[10];
+  a.scratch = (int32_t*)ptrs[11];
+  a.stamps = (int64_t*)ptrs[12];
   a.W = W;
   a.C = C;
   a.P2 = P2;
   a.R = R;
   a.T = T;
+  // less the run's two keys, its side columns and their indexes (none
+  // for keys too wide for them)
+  a.tile_cols = (kTileWords - 2 * kSteps) / (W + 1) - 2 - 2 * kSteps;
+  if (a.tile_cols < 0) a.tile_cols = 0;
+  // a thread an endpoint, a read, or (the levels) a 1,024-slot group a
+  // block
   long long work = P2 > R ? P2 : R;
-  if (a.lv.n && a.lv.size[1] > work) work = a.lv.size[1];
-  return launch(ranks_kernel, work, 0, &a, stream);
+  const long long groups = (C + kFan * kFan - 1) / (kFan * kFan) * kThreads;
+  if (groups > work) work = groups;
+  return launch(ranks_kernel, work,
+                (kTileWords + kWarps + kFan + 8) * sizeof(int32_t), &a,
+                stream);
 }
 
 extern "C" long long fdb_compact_phase3_scratch_ints(long long C, int P2,
@@ -986,12 +1538,14 @@ extern "C" int fdb_compact_phase3(void* const* ptrs, int W, long long C,
 
 // Redistribute phase 3's dense state into NB_out blocks at fill B / 2 and
 // rebuild the directory. ptrs, in order: hmat_d, new_n, st_aux, out,
-// counts, btree, fences.
+// counts, btree, fences, stamps. NB_out and B are powers of two, B at
+// least 8 (so that a block's B / 2 dense slots are whole 4-slot groups).
 extern "C" int fdb_compact_redistribute(void* const* ptrs, int W, long long C,
                                         int NB_out, int B, int T,
                                         void* stream) {
-  if (W < 1 || C < 1 || NB_out < 1 || (NB_out & (NB_out - 1)) || B < 2 ||
-      T < 1)
+  if (W < 1 || C < 1 || C > INT32_MAX || NB_out < 1 ||
+      (NB_out & (NB_out - 1)) || B < 8 || (B & (B - 1)) ||
+      (long long)NB_out * B > INT32_MAX || T < 1)
     return (int)cudaErrorInvalidValue;
   RedistArgs a;
   a.hmat_d = (const int32_t*)ptrs[0];
@@ -1001,13 +1555,16 @@ extern "C" int fdb_compact_redistribute(void* const* ptrs, int W, long long C,
   a.counts = (int32_t*)ptrs[4];
   a.btree = (int32_t*)ptrs[5];
   a.fences = (int32_t*)ptrs[6];
+  a.stamps = (int64_t*)ptrs[7];
   a.W = W;
   a.C = C;
   a.NB_out = NB_out;
-  a.B = B;
+  a.lgB = 31 - __builtin_clz((unsigned)B);
   a.T = T;
-  return launch(redist_kernel, (long long)NB_out * B, kThreads * sizeof(int32_t),
-                &a, stream);
+  a.vec = (uintptr_t)a.hmat_d % 16 == 0 && (uintptr_t)a.out % 16 == 0 &&
+          C % 4 == 0;
+  return launch(redist_kernel, (long long)NB_out * B / 4,
+                kRootFold * sizeof(int32_t), &a, stream);
 }
 
 extern "C" const char* fdb_cuda_error_string(int code) {

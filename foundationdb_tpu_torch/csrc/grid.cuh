@@ -4,7 +4,9 @@
 // stage stamps, prefix sums across the grid (TupleScan: three stages over
 // tiles; ChunkScan: one barrier over per-block chunks), the launch of one
 // cooperative grid on the caller's stream, and the range maxima that
-// answer tpu.py's sparse-table query without its table.
+// answer tpu.py's sparse-table query without its table (Levels: a thread
+// a query over every slot; LiveLevels: a warp a query over the live
+// slots).
 
 #pragma once
 
@@ -394,6 +396,120 @@ struct Levels {
     long long i2 = (long long)hi - w;
     i2 = i2 < 0 ? 0 : (i2 > C - 1 ? C - 1 : i2);
     return max(table_entry(hv, lvls, i1, w), table_entry(hv, lvls, i2, w));
+  }
+};
+
+// Range maxima of a version row of C slots whose slots past n hold 0 (a
+// dense state's pads), for compact.cu's ranks: two levels over the live
+// extent only, maxima of 32 slots (level 1) and of 1,024 (level 2), built
+// a 1,024-slot group a thread block (group j < ceil(n / 1,024): its 32
+// level-1 slots by a warp's maximum each, its level-2 slot from them, in
+// one pass and no grid barrier), and `window` answers tpu.py's
+// `_table_range_query` with the whole warp: at each level the two edges
+// of at most 31 slots are one load a lane, the top level a lane-strided
+// loop, one warp maximum at the end. The built extent E = min(1,024
+// ceil(n / 1,024), C) covers every live slot; the slots from E on are
+// 0 (pads) or past C (the table's identity 0), so a window [i, i + w)
+// takes the levels' maximum over [i, min(i + w, E)), and 0 where i + w >
+// E. Levels (above) keeps the serial per-thread form for rankfed.cu.
+struct LiveLevels {
+  long long C;
+  __host__ __device__ static long long groups(long long C) {
+    return (C + kFan * kFan - 1) / (kFan * kFan);
+  }
+  __host__ __device__ static long long words(long long C) {
+    return groups(C) * (kFan + 1);
+  }
+  // level 1 of the row at lvls (kFan slots a group), level 2 after it
+  template <class T> __device__ T* l1(T* lvls) const { return lvls; }
+  template <class T> __device__ T* l2(T* lvls) const {
+    return lvls + groups(C) * kFan;
+  }
+  // Groups [0, ceil(n / 1,024)) over the grid's blocks, from block
+  // `first` on (every thread of the block calls it); l1s: 32 words of
+  // shared memory.
+  __device__ void build(const int32_t* hv, long long n, int32_t* lvls,
+                        int32_t* l1s, long long first) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long groups = (n + kFan * kFan - 1) / (kFan * kFan);
+    int32_t* L1 = l1(lvls);
+    int32_t* L2 = l2(lvls);
+    for (long long j = (blockIdx.x + gridDim.x - first % gridDim.x) %
+                       gridDim.x;
+         j < groups; j += gridDim.x) {
+      const long long base = j * kFan * kFan;
+      int32_t v[kFan / kWarps];
+#pragma unroll
+      for (int s = 0; s < kFan / kWarps; ++s) {
+        const long long i = base + (warp * (kFan / kWarps) + s) * kFan + lane;
+        v[s] = i < C ? __ldg(hv + i) : INT32_MIN;
+      }
+#pragma unroll
+      for (int s = 0; s < kFan / kWarps; ++s) {
+        const int slot = warp * (kFan / kWarps) + s;
+        const int32_t m = warp_max(v[s]);
+        if (lane == 0) {
+          L1[j * kFan + slot] = m;
+          l1s[slot] = m;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const int32_t m = warp_max(l1s[lane]);
+        if (lane == 0) L2[j] = m;
+      }
+      __syncthreads();
+    }
+  }
+  // This lane's part of the maximum over [x, y) (0 <= x, y <= E), from
+  // the row and the levels (INT32_MIN where it holds no slot); every
+  // lane of the warp calls it with the same x and y. Every slot it reads
+  // is known before its first load: level 0's and level 1's two edges
+  // (one slot a lane each), then the range left at the last level
+  // reached, lane-strided.
+  __device__ __forceinline__ int32_t lane_range(const int32_t* hv,
+                                                const int32_t* lvls,
+                                                long long x,
+                                                long long y) const {
+    const int lane = threadIdx.x & 31;
+    constexpr long long kLow = kFan - 1;
+    if (x >= y) return INT32_MIN;
+    long long e0 = -1, f0 = -1, e1 = -1, f1 = -1;  // single slots
+    const int32_t* top = hv;  // the last level reached, over [x, y)
+    long long xa = (x + kLow) & ~kLow, yb = y & ~kLow;
+    if (xa < yb) {
+      if (x + lane < xa) e0 = x + lane;
+      if (yb + lane < y) f0 = yb + lane;
+      x = xa / kFan;
+      y = yb / kFan;
+      top = l1(lvls);
+      xa = (x + kLow) & ~kLow;
+      yb = y & ~kLow;
+      if (xa < yb) {
+        if (x + lane < xa) e1 = x + lane;
+        if (yb + lane < y) f1 = yb + lane;
+        x = xa / kFan;
+        y = yb / kFan;
+        top = l2(lvls);
+      }
+    }
+    const int32_t* L1 = l1(lvls);
+    int32_t m = max(max(e0 >= 0 ? ld(hv + e0) : INT32_MIN,
+                        f0 >= 0 ? ld(hv + f0) : INT32_MIN),
+                    max(e1 >= 0 ? ld(L1 + e1) : INT32_MIN,
+                        f1 >= 0 ? ld(L1 + f1) : INT32_MIN));
+    for (long long i = x + lane; i < y; i += 32) m = max(m, ld(top + i));
+    return m;
+  }
+  // tpu.py's window entry over [i, i + w) with its identity 0 past C, for
+  // this lane (E the built extent).
+  __device__ __forceinline__ int32_t lane_entry(const int32_t* hv,
+                                                const int32_t* lvls,
+                                                long long E, long long i,
+                                                long long w) const {
+    const long long end = i + w;
+    const int32_t m = lane_range(hv, lvls, i < E ? i : E, end < E ? end : E);
+    return end > E ? max(m, 0) : m;
   }
 };
 

@@ -32,7 +32,8 @@
 // - Neither builds tpu.py's (log C + 1) x C table (24 rows of 32 MB at C
 //   = 2^23): phase 1 builds maxima of 32, 1,024, ... slots (C / 31 words)
 //   and answers each of the query's two power-of-two windows from them
-//   (grid.cuh Levels, which compact.cu's ranks share).
+//   (grid.cuh Levels; compact.cu's ranks answers by warp from
+//   LiveLevels).
 // - Phase 3 never materializes the C + M merged vector: the scatter-count
 //   and the depth's +1 / -1 go into two C-long words, one two-way grid
 //   scan (grid.cuh TupleScan) turns them into lbB and the depth in place,

@@ -59,13 +59,46 @@ LAUNCHES = {"densify": 0, "ranks": 0, "dense_phase3": 0, "redistribute": 0}
 
 _c_ptr = ctypes.c_void_p
 
-# The stages that densify's and dense_phase3's kernels stamp where the
-# caller passes a stamp buffer (csrc/grid.cuh Stamps): stage k runs from
-# stamp k to stamp k + 1, so the buffer holds one int64 more than stages.
+# The stages that each kernel stamps where the caller passes a stamp
+# buffer (csrc/grid.cuh Stamps): stage k runs from stamp k to stamp k + 1,
+# so the buffer holds one int64 more than stages.
 DENSIFY_STAGES = ("counts_reduce", "counts_apply", "keep_reduce", "write")
 PHASE3_STAGES = ("mark", "rank_reduce", "rank_apply", "merge_runs_reduce",
                  "runs_apply", "valid_reduce", "valid_apply", "keep_reduce",
                  "keep_apply", "gather")
+RANKS_STAGES = ("ranks_levels", "query")
+REDIST_STAGES = ("copy_subtrees", "roots")
+
+# ranks' tier of each run (a thread block's chunk of the sorted endpoints,
+# whole multiples of 256; a word for each 256 at the end of its scratch,
+# 0 past the runs, csrc/compact.cu RanksScratch): the rest of the run's
+# walks in the shared tile of history columns, or in device memory, or an
+# endpoint out of sorted order (which walked every step); "+rewalked"
+# where the bracket's predicted walks failed their check (a history out
+# of sorted order).
+RANKS_TIERS = {1: "tile", 2: "wide", 3: "out_of_order"}
+RANKS_REWALKED = 4
+RANKS_RUN = 256
+
+
+def ranks_scratch(C: int, P2: int, dev):
+    """A scratch for ranks_launch(..., scratch=) on dev."""
+    return torch.empty(_lib().fdb_compact_ranks_scratch_ints(C, P2),
+                       dtype=I32, device=dev)
+
+
+def ranks_tier_words(scratch, P2: int):
+    """The tier words (on the scratch's device) of a ranks launch's
+    scratch."""
+    runs = -(-P2 // RANKS_RUN)
+    return scratch[-runs:]
+
+
+def ranks_tiers(words) -> list[str]:
+    """Each run's tier (RANKS_TIERS) from its tier words, as host ints."""
+    return [RANKS_TIERS.get(x & 3, str(x))
+            + ("+rewalked" if x & RANKS_REWALKED else "")
+            for x in words if x]
 
 
 def _stamp_ptr(stamps, n_stages: int, dev) -> int | None:
@@ -150,8 +183,10 @@ def densify_launch(hmat, counts, *, B: int, stamps=None):
 # ------------------------------------------------------- ranks + phase 1
 
 
-def ranks_ref(hmat, smat, q_begin, q_end, rsnap, rtxn, too_old):
-    """Plain torch version of ranks."""
+def ranks_ref(hmat, n, smat, q_begin, q_end, rsnap, rtxn, too_old):
+    """Plain torch version of ranks: tpu.py's walk over all C columns,
+    which n does not enter (under ranks' precondition the columns past n
+    are pads, and the answer is the same)."""
     W = smat.shape[0] - 1
     C = hmat.shape[1]
     T = too_old.shape[0]
@@ -174,29 +209,40 @@ def ranks_ref(hmat, smat, q_begin, q_end, rsnap, rtxn, too_old):
     return ub, eq, torch.maximum(hist_conf, too_old.to(I32))
 
 
-RANKS_OPERANDS = ("hmat", "smat", "q_begin", "q_end", "rsnap", "rtxn",
+RANKS_OPERANDS = ("hmat", "n", "smat", "q_begin", "q_end", "rsnap", "rtxn",
                   "too_old")
 
 
-def ranks(hmat, smat, q_begin, q_end, rsnap, rtxn, too_old):
+def ranks(hmat, n, smat, q_begin, q_end, rsnap, rtxn, too_old):
     """(ub (P2,) int32, eq (P2,) bool, base_conf (T,) int32) of the dense
-    state hmat (W+2, C) for the decoded endpoints smat (W+1, P2) and reads
-    q_begin/q_end/rsnap/rtxn (R,), too_old (T,) bool. On a CUDA tensor
-    one kernel launch, else ranks_ref."""
-    ts = dict(zip(RANKS_OPERANDS, (hmat, smat, q_begin, q_end, rsnap, rtxn,
-                                   too_old)))
+    state hmat (W+2, C) of n live columns (0-d int32 on the device) for
+    the decoded endpoints smat (W+1, P2) and reads q_begin/q_end/rsnap/
+    rtxn (R,), too_old (T,) bool. On a CUDA tensor one kernel launch,
+    else ranks_ref.
+
+    The kernel reads n on the device and works over the live columns
+    only: it takes the columns past n to be pads (kInf key rows, version
+    0), as dense_phase3 does, and under that precondition every answer
+    equals tpu.py's walk over all C columns (its saturation at C - 1
+    included)."""
+    ts = dict(zip(RANKS_OPERANDS, (hmat, n, smat, q_begin, q_end, rsnap,
+                                   rtxn, too_old)))
     check_operands(ts, hmat.device, flags=("too_old",))
     W1, P2 = smat.shape
     R = q_begin.shape[0]
-    check_shapes(ts, {"hmat": (W1 + 1, hmat.shape[1]), "q_end": R, "rsnap": R,
-                 "rtxn": R})
+    check_shapes(ts, {"hmat": (W1 + 1, hmat.shape[1]), "n": (), "q_end": R,
+                 "rsnap": R, "rtxn": R})
     if hmat.device.type == "cpu":
-        return ranks_ref(hmat, smat, q_begin, q_end, rsnap, rtxn, too_old)
+        return ranks_ref(hmat, n, smat, q_begin, q_end, rsnap, rtxn, too_old)
     return ranks_launch(ts)
 
 
-def ranks_launch(ts: dict):
-    """ranks' kernel on CUDA tensors (ranks' operands by name)."""
+def ranks_launch(ts: dict, stamps=None, scratch=None):
+    """ranks' kernel on CUDA tensors (ranks' operands by name); stamps, if
+    given, gets its stage stamps (RANKS_STAGES); scratch, if given (int32
+    of ranks_scratch_ints(C, P2)), is used in place of a fresh one, so
+    that the caller can read its tiers (ranks_tier_words) after the
+    launch."""
     dev = cuda_device(ts["hmat"], "ranks")
     C = ts["hmat"].shape[1]
     W1, P2 = ts["smat"].shape
@@ -205,11 +251,12 @@ def ranks_launch(ts: dict):
     ub = torch.empty(P2, dtype=I32, device=dev)
     eq = torch.empty(P2, dtype=torch.bool, device=dev)
     base_conf = torch.empty(T, dtype=I32, device=dev)
-    scratch = torch.empty(lib.fdb_compact_ranks_scratch_ints(C, P2),
-                          dtype=I32, device=dev)
-    ptrs = (_c_ptr * 11)(*(t.data_ptr() for t in ts.values()), ub.data_ptr(),
+    if scratch is None:
+        scratch = ranks_scratch(C, P2, dev)
+    ptrs = (_c_ptr * 13)(*(t.data_ptr() for t in ts.values()), ub.data_ptr(),
                          eq.data_ptr(), base_conf.data_ptr(),
-                         scratch.data_ptr())
+                         scratch.data_ptr(),
+                         _stamp_ptr(stamps, len(RANKS_STAGES), dev))
     _run(lib, "fdb_compact_ranks", dev, "ranks", ptrs, W1 - 1, C, P2, R, T,
          shapes=f"W={W1 - 1} C={C} P2={P2} R={R} T={T}")
     return ub, eq, base_conf
@@ -451,13 +498,13 @@ def redistribute_ref(hmat_d, new_n, st_aux, *, NB_out: int, B: int):
 
 def redistribute(hmat_d, new_n, st_aux, *, NB_out: int, B: int):
     """phase3's dense state hmat_d (W+2, C) of new_n (0-d) entries into
-    NB_out blocks (a power of two) of B slots at fill B/2: (hmat (W+2,
-    NB_out*B), counts (NB_out,), btree (2 NB_out,), fences (W+1,
-    NB_out)), st_aux (T + 6,) int8's overflow byte raised in place where
-    new_n passes NB_out * B/2. On a CUDA tensor one kernel launch, else
-    redistribute_ref."""
-    if NB_out < 1 or NB_out & (NB_out - 1) or B < 2:
-        raise ValueError(f"NB_out must be a power of two and B at least 2, "
+    NB_out blocks of B slots at fill B/2 (both powers of two, B at least
+    8, as gpu.py's blocks are): (hmat (W+2, NB_out*B), counts (NB_out,),
+    btree (2 NB_out,), fences (W+1, NB_out)), st_aux (T + 6,) int8's
+    overflow byte raised in place where new_n passes NB_out * B/2. On a
+    CUDA tensor one kernel launch, else redistribute_ref."""
+    if NB_out < 1 or NB_out & (NB_out - 1) or B < 8 or B & (B - 1):
+        raise ValueError(f"NB_out and B must be powers of two, B at least 8, "
                          f"got NB_out={NB_out} B={B}")
     check_operands({"hmat_d": hmat_d, "new_n": new_n}, hmat_d.device)
     check_shapes({"new_n": new_n}, {"new_n": ()})
@@ -469,8 +516,10 @@ def redistribute(hmat_d, new_n, st_aux, *, NB_out: int, B: int):
     return redistribute_launch(hmat_d, new_n, st_aux, NB_out=NB_out, B=B)
 
 
-def redistribute_launch(hmat_d, new_n, st_aux, *, NB_out: int, B: int):
-    """redistribute's kernel on CUDA tensors."""
+def redistribute_launch(hmat_d, new_n, st_aux, *, NB_out: int, B: int,
+                        stamps=None):
+    """redistribute's kernel on CUDA tensors; stamps, if given, gets its
+    stage stamps (REDIST_STAGES)."""
     dev = cuda_device(hmat_d, "redistribute")
     W2, C = hmat_d.shape
     T = st_aux.shape[0] - 6
@@ -478,9 +527,10 @@ def redistribute_launch(hmat_d, new_n, st_aux, *, NB_out: int, B: int):
     counts = torch.empty(NB_out, dtype=I32, device=dev)
     btree = torch.empty(2 * NB_out, dtype=I32, device=dev)
     fences = torch.empty((W2 - 1, NB_out), dtype=I32, device=dev)
-    ptrs = (_c_ptr * 7)(hmat_d.data_ptr(), new_n.data_ptr(),
+    ptrs = (_c_ptr * 8)(hmat_d.data_ptr(), new_n.data_ptr(),
                         st_aux.data_ptr(), out.data_ptr(), counts.data_ptr(),
-                        btree.data_ptr(), fences.data_ptr())
+                        btree.data_ptr(), fences.data_ptr(),
+                        _stamp_ptr(stamps, len(REDIST_STAGES), dev))
     _run(_lib(), "fdb_compact_redistribute", dev, "redistribute", ptrs,
          W2 - 2, C, NB_out, B, T,
          shapes=f"W={W2 - 2} C={C} NB_out={NB_out} B={B} T={T}")

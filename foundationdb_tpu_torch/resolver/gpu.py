@@ -127,7 +127,7 @@ def _resolve_kernel_impl(hmat, n, fused, *, lay: FusedLayout):
          fused, lay=lay)
 
     # ============ Ranks + phase 1: read-vs-history ============
-    ub, eq, base_conf = compact.ranks(hmat, smat, q_begin, q_end, rsnap,
+    ub, eq, base_conf = compact.ranks(hmat, n, smat, q_begin, q_end, rsnap,
                                       rtxn, too_old)
 
     # ============ Phase 2: intra-batch fixed point ============

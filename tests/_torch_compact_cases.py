@@ -255,3 +255,117 @@ def block_case(name, seed=0, device="cpu"):
     pb = pack(raw, cs.oldest_version, cs.n_words, v + 50 - cs._base,
               v - 300 - cs._base, caps=caps)
     return hm, counts, pb, NB, NB_out, B
+
+
+# ---------------------------------------------------------------- ranks
+
+RANKS_CASES = ("clustered", "wide_bracket", "one_gap", "above_last", "n0",
+               "n_c_less_one", "n_c", "long_reads")
+# A tier (compact.RANKS_TIERS) some run of the kernel takes on the case:
+# the tile where a run's walks stay within a few thousand columns, each
+# thread in device memory where a run's 256 endpoints spread over the
+# history.
+RANKS_CASE_TIER = {"wide_bracket": "wide", "clustered": "tile",
+                   "one_gap": "tile", "above_last": "tile", "n0": "tile",
+                   "long_reads": "wide"}
+PAD = 2**31 - 1
+
+
+def word_keys(rng, n, W, lo, hi):
+    """n distinct sorted keys of W signed words and a length row,
+    (n, W + 1) int64, word 0 drawn from [lo, hi)."""
+    k = np.zeros((3 * n + 8, W + 1), np.int64)
+    k[:, 0] = rng.integers(lo, hi, len(k))
+    k[:, 1:W] = rng.integers(-3, 3, (len(k), W - 1))
+    k[:, W] = rng.integers(0, 4 * W, len(k))
+    k = np.unique(k, axis=0)
+    return k[np.sort(rng.choice(len(k), min(n, len(k)), replace=False))]
+
+
+def ranks_case(name, seed=0):
+    """ranks' operands (hmat, n, smat, q_begin, q_end, rsnap, rtxn,
+    too_old, all numpy) on a dense state of C = 2^16 columns, W = 3, whose
+    columns past n are pads:
+
+    - clustered: endpoints among a few hundred history keys (every run's
+      walks in the tile);
+    - wide_bracket: 512 endpoints spread over a history of C - 64 keys (a
+      run spans some 32,000 columns: each thread walks device memory);
+    - one_gap: every endpoint between the same two history keys;
+    - above_last: every endpoint above the last history key;
+    - n0, n_c_less_one, n_c: n = 0, C - 1 and C (the walk's saturation at
+      C - 1, endpoints above the last key among them);
+    - long_reads: reads whose ranges span most of n, which reach the
+      maxima's every level.
+    """
+    rng = np.random.default_rng(seed)
+    C, W, P2, R, T = 1 << 16, 3, 2048, 512, 64
+    n = {"n0": 0, "n_c_less_one": C - 1, "n_c": C,
+         "wide_bracket": C - 64}.get(name, 60_000)
+    if name == "one_gap":
+        hist = np.zeros((n, W + 1), np.int64)
+        hist[:, 0] = 2 * np.arange(n) - n
+        hist[:, W] = 1
+    else:
+        hist = word_keys(rng, n, W, -(1 << 30), 1 << 30)
+        n = len(hist)
+    hm = np.zeros((W + 2, C), np.int32)
+    hm[: W + 1] = PAD
+    hm[: W + 1, :n] = hist.T
+    hm[W + 1, :n] = rng.integers(0, 1 << 20, n)
+    n_real = {"wide_bracket": 512}.get(name, P2 - 40)
+    if name == "clustered":
+        at = int(hist[n // 2, 0])
+        ends = word_keys(rng, n_real, W, at, at + (1 << 30) // 40)
+    elif name == "one_gap":
+        g = int(hist[n // 3, 0])
+        ends = np.zeros((n_real, W + 1), np.int64)
+        ends[:, 0] = g + 1
+        ends[:, 1] = np.arange(n_real) - n_real // 2
+    elif name == "above_last":
+        ends = word_keys(rng, n_real, W, 1 << 30, (1 << 31) - 1)
+    else:
+        ends = word_keys(rng, n_real, W, -(1 << 30) - 5, (1 << 30) + 5)
+        if n:   # some endpoints equal history keys
+            same = rng.choice(n, min(n, 64), replace=False)
+            ends = np.unique(np.concatenate([ends[: n_real - 64],
+                                             hist[same]]), axis=0)
+    smat = np.full((W + 1, P2), PAD, np.int32)
+    smat[:, : len(ends)] = ends.T
+    if name == "long_reads":
+        q_begin = rng.integers(0, P2 // 16, R)
+        q_end = rng.integers(P2 - P2 // 8, P2, R)
+    else:
+        q_begin = rng.integers(0, P2 - 8, R)
+        q_end = q_begin + rng.integers(0, 8, R)
+    return (hm, np.int32(n), smat, q_begin.astype(np.int32),
+            q_end.astype(np.int32),
+            rng.integers(0, 1 << 20, R).astype(np.int32),
+            rng.integers(0, T, R).astype(np.int32), rng.random(T) < 0.1)
+
+
+# --------------------------------------------------------- redistribute
+
+REDIST_NEW_N = ("zero", "one", "F_less_one", "F", "fill_less_one", "fill",
+                "fill_plus_three")
+
+
+def redist_case(new_n, B, NB_out, seed=0):
+    """redistribute's operands (hmat_d, new_n, st_aux, all numpy) for
+    NB_out blocks of B slots: a dense state of NB_out B / 2 + 8 columns
+    (W = 3) holding new_n live entries, new_n named by REDIST_NEW_N (the
+    fill NB_out B / 2 and past it: the overflow byte)."""
+    rng = np.random.default_rng(seed)
+    W, F = 3, B // 2
+    C = NB_out * F + 8
+    nn = {"zero": 0, "one": 1, "F_less_one": F - 1, "F": F,
+          "fill_less_one": NB_out * F - 1, "fill": NB_out * F,
+          "fill_plus_three": NB_out * F + 3}[new_n]
+    hm = np.zeros((W + 2, C), np.int32)
+    hm[: W + 1] = PAD
+    hm[:W, :nn] = rng.integers(-(1 << 30), 1 << 30, (W, nn))
+    hm[W, :nn] = rng.integers(0, 12, nn)
+    hm[W + 1, :nn] = rng.integers(-5, 1 << 20, nn)
+    st_aux = rng.integers(0, 3, 16 + 6).astype(np.int8)
+    st_aux[16 + 4] = 0
+    return hm, np.int32(nn), st_aux

@@ -16,7 +16,9 @@ layout too small for the set, B of 8, 32 and 512):
 - gpu._resolve_kernel_impl (decode, compact.ranks, phase 2,
   compact.dense_phase3) against tpu._resolve_kernel_impl;
 - compact.ranks against tpu.py's own rank and table functions composed as
-  tpu.py:457-472 composes them;
+  tpu.py:457-472 composes them, and, on states whose columns past n are
+  pads, against the same ranks computed from the live columns alone (what
+  the kernel reads);
 - gpu._compact_resolve_impl against tpu._compact_resolve_impl, and
   compact.densify and compact.redistribute around tpu.py's dense kernel
   against the same;
@@ -42,8 +44,10 @@ from _torch_compact_cases import (
     BLOCK_CASES,
     DENSE_CASES,
     PLAIN_ONLY_DENSE_CASES,
+    RANKS_CASES,
     block_case,
     dense_case,
+    ranks_case,
 )
 from foundationdb_tpu.core.knobs import SERVER_KNOBS as JKNOBS
 from foundationdb_tpu.kv.keys import KeyRange as JKeyRange
@@ -124,7 +128,8 @@ def test_ranks_match_jax(case):
     smat, q_begin, q_end, rtxn, rsnap, too_old = (dec[i] for i in
                                                   (0, 1, 2, 5, 6, 9))
     h = torch.from_numpy(hm)
-    got = compact.ranks(h, smat, q_begin, q_end, rsnap, rtxn, too_old)
+    got = compact.ranks(h, torch.tensor(n, dtype=torch.int32), smat, q_begin,
+                        q_end, rsnap, rtxn, too_old)
     want = jax_ranks(*(jnp.asarray(t.numpy()) for t in (
         h, smat, q_begin, q_end, rsnap, rtxn, too_old)))
     for g, w, what in zip(got, want, ("ub", "eq", "base_conf")):
@@ -143,6 +148,71 @@ def test_ranks_match_jax(case):
         pos = torch.cat([dec[3][:nw], dec[4][:nw]]).sort().values
         w_ub = ub[pos.long()]
         assert (w_ub[1:] < w_ub[:-1]).any()
+
+
+def key_bytes(rows: np.ndarray) -> np.ndarray:
+    """Columns of (W + 1) signed int32 rows as byte strings that sort as
+    the kernels compare keys (signed words, then the length row)."""
+    u = (rows.astype(np.int64).T + (1 << 31)).astype(">u4")
+    return np.ascontiguousarray(u).view(f"V{4 * rows.shape[0]}").ravel()
+
+
+def ranks_live(hmat, n, smat, q_begin, q_end, rsnap, rtxn, too_old):
+    """ranks from the live columns alone, as csrc/compact.cu's kernel
+    reads them: each endpoint's count of live history keys below it, from
+    which tpu.py's halving walk over C follows (it adds a step while pos +
+    step <= count); each read's maximum over the live versions, from the
+    slots past the kernel's built extent E = min(1,024 ceil(n / 1,024),
+    C) only the identity 0 (they are pads or past C)."""
+    hmat, smat = hmat.numpy(), smat.numpy()
+    n, C, W = int(n), hmat.shape[1], smat.shape[0] - 1
+    k = np.searchsorted(key_bytes(hmat[: W + 1, :n]), key_bytes(smat),
+                        side="left")
+    lb = np.zeros_like(k)
+    step = C >> 1
+    while step >= 1:
+        lb += np.where(lb + step <= k, step, 0)
+        step >>= 1
+    eq = (hmat[: W + 1, lb] == smat).all(axis=0)
+    ub = np.where(smat[W] == 2**31 - 1, C, lb + eq).astype(np.int32)
+    hv = hmat[W + 1]
+    E = min(-(-n // 1024) * 1024, C)
+    conf = too_old.numpy().astype(np.int32)
+    for qb, qe, snap, t in zip(q_begin.numpy(), q_end.numpy(),
+                               rsnap.numpy(), rtxn.numpy()):
+        lo, hi = int(ub[qb]) - 1, int(lb[qe])
+        hist = 0
+        if hi > lo:
+            w = 1 << (hi - lo).bit_length() - 1
+            hist = max(max([*hv[i: min(i + w, E)], *([0] * (i + w > E))])
+                       for i in (min(max(lo, 0), C - 1),
+                                 min(max(hi - w, 0), C - 1)))
+        if hist > snap:
+            conf[t] = 1
+    return ub, eq, conf
+
+
+def dense_or_ranks_case(case):
+    if case in RANKS_CASES:
+        return [torch.from_numpy(np.asarray(a)) for a in ranks_case(case)]
+    hm, n, pb = dense_case(case)
+    dec = block.decode_fused(torch.from_numpy(pb.buf), lay=pb.layout)
+    return [torch.from_numpy(hm), torch.tensor(n, dtype=torch.int32),
+            *(dec[i] for i in (0, 1, 2, 6, 5, 9))]
+
+
+@pytest.mark.parametrize("case", RANKS_CASES + DENSE_CASES)
+def test_ranks_from_the_live_columns(case):
+    """On states whose columns past n are pads (ranks' precondition),
+    compact.ranks' plain version, tpu.py's walk and table over all C
+    columns, gives what the live columns alone give: the kernel's counts
+    and walks over [0, n) and its maxima over the live extent."""
+    ops = dense_or_ranks_case(case)
+    hm, n, W = ops[0], int(ops[1]), ops[2].shape[0] - 1
+    assert (hm[: W + 1, n:] == 2**31 - 1).all() and (hm[W + 1, n:] == 0).all()
+    got = compact.ranks(*ops)
+    for g, w, what in zip(got, ranks_live(*ops), ("ub", "eq", "base_conf")):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=what)
 
 
 @pytest.mark.parametrize("case", BLOCK_CASES)
@@ -230,24 +300,31 @@ def test_kernel_entry_points_match_the_wrapper():
     n_ptrs_p3 = len(compact.DENSE_PHASE3_OPERANDS) + 5
     bodies = re.split(r'extern "C"', src)
     for fname, n_ptrs in (("fdb_compact_ranks", len(compact.RANKS_OPERANDS)
-                           + 4),
+                           + 5),
                           ("fdb_compact_phase3",
                            len(compact.DENSE_PHASE3_OPERANDS) + 5),
-                          ("fdb_compact_redistribute", 7)):
+                          ("fdb_compact_redistribute", 8)):
         (body,) = [b for b in bodies if f" {fname}(" in b]
         idx = sorted(int(i) for i in re.findall(r"\)ptrs\[(\d+)\]", body))
         assert idx == list(range(n_ptrs)), fname
-    # the stamp buffer: phase 3's last pointer, densify's sixth argument;
-    # each kernel stamps at its start, after each barrier and at its end,
-    # once for every stage the wrapper names
-    (body,) = [b for b in bodies if " fdb_compact_phase3(" in b]
-    assert f"a.stamps = (int64_t*)ptrs[{n_ptrs_p3 - 1}];" in body
+    # the stamp buffer: the last pointer of ranks, phase 3 and
+    # redistribute, densify's sixth argument; each kernel stamps at its
+    # start, after each barrier and at its end, once for every stage the
+    # wrapper names
+    for fname, n_ptrs in (("fdb_compact_ranks",
+                           len(compact.RANKS_OPERANDS) + 5),
+                          ("fdb_compact_phase3", n_ptrs_p3),
+                          ("fdb_compact_redistribute", 8)):
+        (body,) = [b for b in bodies if f" {fname}(" in b]
+        assert f"a.stamps = (int64_t*)ptrs[{n_ptrs - 1}];" in body, fname
     (body,) = [b for b in bodies if " fdb_compact_densify(" in b]
     assert re.search(r"void\* scratch,\s*void\* stamps,", body)
     assert "a.stamps = (int64_t*)stamps;" in body
     for kernel, stages in (("densify_kernel", compact.DENSIFY_STAGES),
-                           ("phase3_kernel", compact.PHASE3_STAGES)):
-        start = src.index(f"__launch_bounds__(kThreads) {kernel}(")
+                           ("ranks_kernel", compact.RANKS_STAGES),
+                           ("phase3_kernel", compact.PHASE3_STAGES),
+                           ("redist_kernel", compact.REDIST_STAGES)):
+        start = src.index(f" {kernel}(")
         body = src[start:src.index("\n}\n", start)]
         assert "Stamps st(a.stamps);" in body and "g.finish(st);" in body
         assert body.count("sync(st)") == len(stages) - 1, kernel

@@ -16,7 +16,11 @@ too small for the set, B of 8, 32 and 512, n = C - 1, a batch of pad
 write endpoints only, n + 2 Wr at a chunk boundary of phase 3's grid, a
 block past B entries, an empty state and an equal-key run over blocks
 with empty blocks between; a chain through ConflictSetGPU against
-ConflictSetCPU; and the two kernels' stage stamps. The kernels have no CPU mode:
+ConflictSetCPU; ranks on states of 2^16 columns (wide brackets, one
+history gap, endpoints above the last key, n = 0, C - 1 and C, reads over
+most of n) with the tier each run took, both tiers seen; redistribute at
+the edges of new_n for B 8, 32, 512 and NB_out 8, 2^16; and every
+kernel's stage stamps. The kernels have no CPU mode:
 without a card every case skips. Run on a machine with a card:
 
     python -m pytest tests/test_torch_compact_card.py -m cuda -q
@@ -33,9 +37,14 @@ from _torch_block_cases import history_keys, raw_batch
 from _torch_compact_cases import (
     BLOCK_CASES,
     DENSE_CASES,
+    RANKS_CASE_TIER,
+    RANKS_CASES,
+    REDIST_NEW_N,
     block_case,
     dense_case,
     port_txns,
+    ranks_case,
+    redist_case,
 )
 from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
 from foundationdb_tpu_torch.resolver import compact, gpu
@@ -193,29 +202,117 @@ def test_chain_kernels_equal_plain(card, B, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", RANKS_CASES)
+def test_ranks_cases_equal_plain(card, case):
+    """ranks' kernel on a state of 2^16 columns against its plain version
+    on the card: wide brackets, endpoints in one history gap or above the
+    last key, n = 0, C - 1 and C, reads over most of n; the tier each run
+    took, from the kernel's scratch, includes the one the case is built
+    for, and no endpoint is out of sorted order."""
+    ops = [torch.from_numpy(np.asarray(a)).to(card)
+           for a in ranks_case(case)]
+    want = compact.ranks_ref(*ops)
+    ts = dict(zip(compact.RANKS_OPERANDS, ops))
+    C, P2 = ops[0].shape[1], ops[2].shape[1]
+    scratch = compact.ranks_scratch(C, P2, card)
+    n0 = compact.LAUNCHES["ranks"]
+    got = compact.ranks_launch(ts, scratch=scratch)
+    for g, w, what in zip(got, want, ("ub", "eq", "base_conf")):
+        same(g, w, what)
+    assert compact.LAUNCHES["ranks"] == n0 + 1
+    tiers = {t.split("+")[0] for t in compact.ranks_tiers(
+        compact.ranks_tier_words(scratch, P2).tolist())}
+    assert tiers <= {"tile", "wide"}, tiers
+    if case in RANKS_CASE_TIER:
+        assert RANKS_CASE_TIER[case] in tiers, tiers
+
+
+@pytest.mark.cuda
+def test_ranks_takes_both_tiers(card):
+    """Over the ranks cases, runs take the shared tile and device memory
+    both."""
+    seen = set()
+    for case in RANKS_CASES:
+        ops = [torch.from_numpy(np.asarray(a)).to(card)
+               for a in ranks_case(case)]
+        C, P2 = ops[0].shape[1], ops[2].shape[1]
+        scratch = compact.ranks_scratch(C, P2, card)
+        compact.ranks_launch(dict(zip(compact.RANKS_OPERANDS, ops)),
+                             scratch=scratch)
+        seen |= {t.split("+")[0] for t in compact.ranks_tiers(
+            compact.ranks_tier_words(scratch, P2).tolist())}
+    assert {"tile", "wide"} <= seen, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new_n", REDIST_NEW_N)
+@pytest.mark.parametrize("NB_out", [8, 1 << 16])
+@pytest.mark.parametrize("B", [8, 32, 512])
+def test_redistribute_cases_equal_plain(card, B, NB_out, new_n):
+    """redistribute's kernel against its plain version on the card at
+    new_n 0, 1, F - 1, F, the fill NB_out F less one, the fill and past
+    it (the overflow byte), for B 8, 32, 512 and NB_out 8, 2^16."""
+    hm, nn, st = (torch.from_numpy(np.asarray(a)).to(card)
+                  for a in redist_case(new_n, B, NB_out))
+    st2 = st.clone()
+    want = compact.redistribute_ref(hm, nn, st2, NB_out=NB_out, B=B)
+    got = compact.redistribute(hm, nn, st, NB_out=NB_out, B=B)
+    for g, w, what in zip((*got, st), (*want, st2),
+                          ("hmat", "counts", "btree", "fences", "st_aux")):
+        same(g, w, what)
+    assert int(st[-2]) == (new_n == "fill_plus_three")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["b32", "over_full", "empty_state"])
 def test_stage_stamps(card, case):
-    """densify's and dense_phase3's kernels with a stamp buffer: one stamp
-    at the start and one after each stage (compact.DENSIFY_STAGES,
-    PHASE3_STAGES), never falling, and outputs equal to the plain
-    versions'; a buffer of the wrong length is refused."""
+    """Each compaction kernel with a stamp buffer: one stamp at the start
+    and one after each stage (compact.DENSIFY_STAGES, RANKS_STAGES,
+    PHASE3_STAGES, REDIST_STAGES), never falling, and outputs equal to the
+    plain versions'; a buffer of the wrong length is refused."""
     hm, counts, pb, NB, NB_out, B = block_case(case)
     kept = {}
-    real = compact.dense_phase3
+    real = (compact.ranks, compact.dense_phase3, compact.redistribute)
+
+    def rk(*args):
+        kept["ranks"] = args
+        return real[0](*args)
 
     def p3(hmat, n, **kw):
         kept.update(hmat=hmat, n=n, kw=kw)
-        return real(hmat, n, **kw)
+        return real[1](hmat, n, **kw)
 
-    compact.dense_phase3 = p3
+    def rd(hmat_d, new_n, st_aux, **kw):
+        kept["redistribute"] = (hmat_d, new_n, st_aux.clone())
+        return real[2](hmat_d, new_n, st_aux, **kw)
+
+    compact.ranks, compact.dense_phase3, compact.redistribute = rk, p3, rd
     try:
         gpu._compact_resolve_impl(
             *(torch.from_numpy(a).to(card) for a in (hm, counts, pb.buf)),
             lay=pb.layout, NB=NB, NB_out=NB_out, B=B)
     finally:
-        compact.dense_phase3 = real
+        compact.ranks, compact.dense_phase3, compact.redistribute = real
     h, c = torch.from_numpy(hm).to(card), torch.from_numpy(counts).to(card)
+    hd, nn, st_aux = kept["redistribute"]
+
+    def redist(st):
+        s2 = st_aux.clone()
+        return (*compact.redistribute_launch(hd, nn, s2, NB_out=NB_out, B=B,
+                                             stamps=st), s2)
+
+    def redist_plain():
+        s2 = st_aux.clone()
+        return (*compact.redistribute_ref(hd, nn, s2, NB_out=NB_out, B=B),
+                s2)
+
     for stages, run, plain in (
+            (compact.RANKS_STAGES,
+             lambda st: compact.ranks_launch(
+                 dict(zip(compact.RANKS_OPERANDS, kept["ranks"])),
+                 stamps=st),
+             lambda: compact.ranks_ref(*kept["ranks"])),
+            (compact.REDIST_STAGES, redist, redist_plain),
             (compact.DENSIFY_STAGES,
              lambda st: compact.densify_launch(h, c, B=B, stamps=st),
              lambda: compact.densify_ref(h, c, B=B)),
@@ -253,5 +350,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                         B=2 * B)
     z = torch.zeros((), dtype=torch.int32, device=card)
     st = torch.zeros(pb.layout.T + 6, dtype=torch.int8, device=card)
-    with pytest.raises(ValueError, match="power of two"):
+    with pytest.raises(ValueError, match="powers of two"):
         compact.redistribute(h.to(card), z, st, NB_out=3, B=B)
+    with pytest.raises(ValueError, match="powers of two"):
+        compact.redistribute(h.to(card), z, st, NB_out=8, B=4)
