@@ -985,15 +985,23 @@ class BlockTap:
                  f"({fast} fast steps in {dispatches} dispatches)")
 
 
-def block_run(kernel: str, cap: dict, plain: bool = False):
+def block_run(kernel: str, cap: dict, plain: bool = False, stamps=None,
+              launch=None):
     """One call of a block kernel (or its plain version) on the captured
     operands, the in-place state of phase 3 on copies. Returns its
-    outputs, phase 3's state after it included."""
+    outputs, phase 3's state after it included. stamps: the kernel's
+    stage stamp buffer (block.py's *_STAGES), for decode and phase 3 only;
+    launch: another build's launch of decode or phase 3, called as
+    block.decode_fused_launch(fused, lay=) or block.phase3_launch(ts, K=,
+    NB=, B=) are (without stamps)."""
     from foundationdb_tpu_torch.resolver import block
 
+    st = {} if stamps is None else {"stamps": stamps}
     if kernel == "decode":
-        fn = block.decode_fused_ref if plain else block.decode_fused_launch
-        return fn(cap["fused"], lay=cap["lay"])
+        if plain:
+            return block.decode_fused_ref(cap["fused"], lay=cap["lay"])
+        fn = launch or block.decode_fused_launch
+        return fn(cap["fused"], lay=cap["lay"], **st)
     if kernel == "phase1":
         if plain:
             return (block.phase1_ref(*cap["args"], NB=cap["NB"],
@@ -1010,21 +1018,23 @@ def block_run(kernel: str, cap: dict, plain: bool = False):
     else:
         ts = dict(zip(block.PHASE3_OPERANDS, (*state, n, *(
             kw[k] for k in block.PHASE3_OPERANDS[4:]))))
-        out = block.phase3_launch(ts, K=kw["K"], NB=kw["NB"], B=kw["B"])
+        out = (launch or block.phase3_launch)(ts, K=kw["K"], NB=kw["NB"],
+                                              B=kw["B"], **st)
     return (*out, *state)
 
 
-def block_timer(kernel: str, cap: dict, plain: bool = False):
-    """(fn, restore): one call of the kernel (or its plain version) on the
-    captured operands for device_ms, and for phase 3 the restore of the
-    state it rewrites (the touched blocks' columns, counts and the tree),
-    which fn runs first; its own time is taken apart and subtracted."""
+def block_timer(kernel: str, cap: dict, plain: bool = False, launch=None):
+    """(fn, restore): one call of the kernel (or its plain version, or
+    `launch` as block_run takes it) on the captured operands for
+    device_ms, and for phase 3 the restore of the state it rewrites (the
+    touched blocks' columns, counts and the tree), which fn runs first;
+    its own time is taken apart and subtracted."""
     import torch
     from foundationdb_tpu_torch.resolver import block
 
     if kernel != "phase3":
         def fn():
-            block_run(kernel, cap, plain)
+            block_run(kernel, cap, plain, launch=launch)
         return fn, None
     hmat0, counts0, btree0, n = cap["state"]
     kw = cap["kw"]
@@ -1041,13 +1051,14 @@ def block_timer(kernel: str, cap: dict, plain: bool = False):
 
     ts = dict(zip(block.PHASE3_OPERANDS, (hmat, counts, btree, n, *(
         kw[k] for k in block.PHASE3_OPERANDS[4:]))))
+    run = launch or block.phase3_launch
 
     def fn():
         restore()
         if plain:
             block.phase3_ref(hmat, counts, btree, n, **kw)
         else:
-            block.phase3_launch(ts, K=kw["K"], NB=NB, B=B)
+            run(ts, K=kw["K"], NB=NB, B=B)
     return fn, restore
 
 
@@ -1155,9 +1166,26 @@ def block_entries(path: str, cap: dict, launches: dict, smi: str) -> list:
                     "bound_by": bound_by, "library_ms": None, **shape,
                     **{k: t[k] for k in ("levels_ms", "levels_ms_cold")
                        if k in t}})
+    log_block_stages(path, cap, smi)
     for k, v in n0.items():   # comparison launches do not count
         block.LAUNCHES[k] = v
     return out
+
+
+def log_block_stages(path: str, cap: dict, smi: str) -> None:
+    """[block-stages-<kernel>-<path>] for decode and phase 3: each stage's
+    median ns and share of 21 stamped launches on the path's last
+    operands, the previous design's (PREV_STAGES) beside them."""
+    from foundationdb_tpu_torch.resolver import block
+
+    for kernel, stages in (("decode", block.DECODE_STAGES),
+                           ("phase3", block.PHASE3_STAGES)):
+        c = cap[kernel]
+        dev = (c["fused"] if kernel == "decode" else c["state"][0]).device
+        ns = stamped_ns(lambda buf: block_run(kernel, c, stamps=buf),
+                        len(stages), dev)
+        log_stages(f"block-stages-{kernel}-{path}", stages, ns,
+                   PREV_STAGES.get((kernel, path), {}), smi)
 
 
 def phase3_levels(path: str, cap: dict, flush) -> dict:
@@ -1427,15 +1455,50 @@ def compact_shape(kernel: str, cap: dict) -> dict:
             "NB_out": cap["NB_out"], "B": cap["B"]}
 
 
-# The previous design of each compaction kernel by stage on each path's
-# last compaction, which [compact-stages-*] prints beside the current
-# kernels' stages: median ns of 21 stamped launches on an H100 80GB HBM3
-# at 700.00 W (PERF.md). densify and dense_phase3 before their redesign
-# (three-stage TupleScans over the capacity C, 5 and 17 grid barriers);
-# ranks and redistribute before theirs (a halving walk a thread over C
-# and a grid barrier a maximum level; a thread a word of the block state
-# and a grid barrier a tree pass), their stamps added for the reading.
+# The previous design of each compaction and block kernel by stage on
+# each path's last operands, which [compact-stages-*] and
+# [block-stages-*] print beside the current kernels' stages: median ns
+# of stamped launches on an H100 80GB HBM3 at 700.00 W (PERF.md; 21
+# launches, the block kernels 11). densify and dense_phase3 before their
+# redesign (three-stage TupleScans over the capacity C, 5 and 17 grid
+# barriers); ranks and redistribute before theirs (a halving walk a
+# thread over C and a grid barrier a maximum level; a thread a word of
+# the block state and a grid barrier a tree pass); the block kernel's
+# decode and phase 3 before theirs (three-stage scans, 3 and 10 grid
+# barriers, a binary search a row over the txn starts, a merge of one
+# row a round trip, a chain of atomics a leaf); the stamps added for
+# the reading.
 PREV_STAGES = {
+    ("decode", "resolver"): {
+        "fill_tiles": 3744, "tile_sums": 2208, "scan_apply": 3264,
+        "rows": 18528,
+    },
+    ("decode", "cluster-resolver"): {
+        "fill_tiles": 2368, "tile_sums": 1792, "scan_apply": 2080,
+        "rows": 3520,
+    },
+    ("decode", "sharded"): {
+        "fill_tiles": 3264, "tile_sums": 2016, "scan_apply": 3040,
+        "rows": 13504,
+    },
+    ("phase3", "resolver"): {
+        "clear": 5120, "mark": 3008, "rank_tiles": 2496, "rank_sums": 2496,
+        "rank_apply": 2720, "compact": 3744, "info_depth_tiles": 8512,
+        "depth_sums": 2112, "depth_apply": 2400, "merge": 42016,
+        "tree": 3808,
+    },
+    ("phase3", "cluster-resolver"): {
+        "clear": 3392, "mark": 1664, "rank_tiles": 1760, "rank_sums": 1856,
+        "rank_apply": 1760, "compact": 2240, "info_depth_tiles": 5568,
+        "depth_sums": 1888, "depth_apply": 1792, "merge": 12288,
+        "tree": 7520,
+    },
+    ("phase3", "sharded"): {
+        "clear": 3648, "mark": 2560, "rank_tiles": 2208, "rank_sums": 1888,
+        "rank_apply": 2144, "compact": 3328, "info_depth_tiles": 5856,
+        "depth_sums": 1888, "depth_apply": 2176, "merge": 13344,
+        "tree": 6112,
+    },
     ("ranks", "resolver"): {
         "walk_level1": 30464, "level2": 5984, "level3": 4704,
         "level4": 3904, "query": 4224,
@@ -1496,25 +1559,51 @@ PREV_STAGES = {
 }
 
 
+def stamped_ns(run, n_stages: int, dev, reps: int = 21) -> list:
+    """Median ns of each of a kernel's n_stages stages over reps stamped
+    launches (csrc/grid.cuh Stamps); run(buf) launches it with the stamp
+    buffer buf."""
+    import torch
+
+    buf = torch.zeros(n_stages + 1, dtype=torch.int64, device=dev)
+    rows = []
+    for _ in range(reps):
+        run(buf)
+        torch.cuda.synchronize(dev)
+        rows.append(buf.cpu().numpy().copy())
+    ns = np.median(np.diff(np.array(rows), axis=1), axis=0)
+    return [float(x) for x in ns]
+
+
 def compact_stages(kernel: str, cap: dict, reps: int = 21) -> tuple:
     """(stage names, median ns of each stage) of the kernel over reps
     stamped launches on the captured operands (csrc/grid.cuh Stamps)."""
-    import torch
     from foundationdb_tpu_torch.resolver import compact
 
     stages = {"densify": compact.DENSIFY_STAGES,
               "ranks": compact.RANKS_STAGES,
               "dense_phase3": compact.PHASE3_STAGES,
               "redistribute": compact.REDIST_STAGES}[kernel]
-    dev = cap["args"][0].device
-    buf = torch.zeros(len(stages) + 1, dtype=torch.int64, device=dev)
-    rows = []
-    for _ in range(reps):
-        compact_run(kernel, cap, stamps=buf)
-        torch.cuda.synchronize(dev)
-        rows.append(buf.cpu().numpy().copy())
-    ns = np.median(np.diff(np.array(rows), axis=1), axis=0)
-    return stages, [float(x) for x in ns]
+    return stages, stamped_ns(
+        lambda buf: compact_run(kernel, cap, stamps=buf), len(stages),
+        cap["args"][0].device, reps)
+
+
+def log_stages(tag: str, stages, ns, before: dict, smi: str) -> None:
+    """[<tag>]: each stage's median ns and share of the stamped kernel,
+    the previous design's (before: stage -> ns) beside them."""
+    total = sum(ns) or 1.0
+    b_total = sum(before.values()) or 1.0
+    log(tag, smi=json.dumps(smi), stages=json.dumps(list(stages)),
+        ns=json.dumps([round(x, 1) for x in ns]),
+        share=json.dumps([round(x / total, 4) for x in ns]),
+        total_ns=f"{total:.1f}", barriers=len(stages) - 1,
+        prev_stages=json.dumps(list(before)),
+        prev_ns=json.dumps(list(before.values())),
+        prev_share=json.dumps([round(x / b_total, 4)
+                               for x in before.values()]),
+        prev_total_ns=f"{sum(before.values()):.1f}",
+        prev_barriers=max(len(before) - 1, 0))
 
 
 def log_compact_stages(path: str, cap: dict, smi: str) -> None:
@@ -1528,19 +1617,8 @@ def log_compact_stages(path: str, cap: dict, smi: str) -> None:
 
     for kernel in CompactTap.KERNELS:
         stages, ns = compact_stages(kernel, cap[kernel])
-        total = sum(ns) or 1.0
-        before = PREV_STAGES.get((kernel, path), {})
-        b_total = sum(before.values()) or 1.0
-        log(f"compact-stages-{kernel}-{path}", smi=json.dumps(smi),
-            stages=json.dumps(list(stages)),
-            ns=json.dumps([round(x, 1) for x in ns]),
-            share=json.dumps([round(x / total, 4) for x in ns]),
-            total_ns=f"{total:.1f}", barriers=len(stages) - 1,
-            prev_stages=json.dumps(list(before)),
-            prev_share=json.dumps([round(x / b_total, 4)
-                                   for x in before.values()]),
-            prev_total_ns=f"{sum(before.values()):.1f}",
-            prev_barriers=max(len(before) - 1, 0))
+        log_stages(f"compact-stages-{kernel}-{path}", stages, ns,
+                   PREV_STAGES.get((kernel, path), {}), smi)
     m = [int(c.sum()) / c.numel() / cap["densify"]["B"]
          for c in cap.get("live_m", [])]
     n = [int(x) / C for x, C in cap.get("live_n", [])]

@@ -1,12 +1,13 @@
 // Helpers that block.cu, compact.cu and rankfed.cu share: int32
 // arithmetic as XLA's, tpu.py's gather and scatter index rules, warp and
-// block prefix sums, a grid-stride loop over a cooperative grid and its
-// stage stamps, prefix sums across the grid (TupleScan: three stages over
-// tiles; ChunkScan: one barrier over per-block chunks), the launch of one
-// cooperative grid on the caller's stream, and the range maxima that
-// answer tpu.py's sparse-table query without its table (Levels: a thread
-// a query over every slot; LiveLevels: a warp a query over the live
-// slots).
+// block prefix sums and a block maximum, a grid-stride loop over a
+// cooperative grid and its stage stamps, prefix sums across the grid
+// (TupleScan: three stages over tiles; ChunkScan: one barrier over
+// per-block chunks, of the whole grid or of a range of its blocks), the
+// launch of one cooperative grid on the caller's stream, and the range
+// maxima that answer tpu.py's sparse-table query without its table
+// (Levels: a thread a query over every slot; LiveLevels: a warp a query
+// over the live slots).
 
 #pragma once
 
@@ -100,6 +101,19 @@ __device__ __forceinline__ int32_t block_excl(int32_t v, int32_t* ws,
   int32_t ex;
   block_excl_k<1>(&v, &ex, total, ws);
   return ex;
+}
+
+// The maximum of one value a thread over the block (every thread calls
+// it and gets it); ws holds kWarps words of shared memory.
+__device__ __forceinline__ int32_t block_max(int32_t v, int32_t* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) ws[warp] = v;
+  __syncthreads();
+  int32_t m = ws[0];
+  for (int w = 1; w < kWarps; ++w) m = max(m, ws[w]);
+  __syncthreads();  // ws is free for the next call
+  return m;
 }
 
 // The device's nanosecond clock (%globaltimer).
@@ -217,25 +231,36 @@ struct TupleScan {
 
 // Exclusive prefix sums over n elements of K int32 values each, across
 // the grid, with one grid barrier and no serial stage. Block b takes the
-// contiguous chunk [lo, hi) of chunk() = ceil(n / gridDim.x) elements.
+// contiguous chunk [lo, hi) of chunk() = ceil(n / blocks()) elements.
 // reduce_stage (or the caller's own loop and publish) leaves the chunk's
 // K sums in tot[b K + c]; after the barrier, offsets gives every thread
 // of block b the sums over the blocks before it and over all blocks (one
-// pass of the block over at most gridDim.x K words, from L2), and
+// pass of the block over at most blocks() K words, from L2), and
 // apply_stage rescans the chunk kThreads elements a time from them,
 // putting each element's prefixes. val(i, in, v) is called by every
 // thread of the block once a tile, with `in` false past the chunk (where
 // v is ignored and val must read nothing out of bounds), so it may
 // synchronize the block; it must give the same values in both stages.
-// tot takes K gridDim.x words; ws 2 K kWarps words of shared memory.
+// tot takes K blocks() words; ws 2 K kWarps words of shared memory. The
+// scan may take a range of the grid's blocks, [first, first + count)
+// (count 0: every block); block b of the grid is then block b - first of
+// the scan, and a block outside the range has an empty chunk (offsets
+// still gives it the sums over all blocks).
 template <int K>
 struct ChunkScan {
   long long n;
+  long long first = 0, count = 0;
+  __device__ long long blocks() const { return count ? count : gridDim.x; }
+  __device__ long long rank() const {
+    return (long long)blockIdx.x - first;
+  }
+  __device__ bool mine() const { return rank() >= 0 && rank() < blocks(); }
   __device__ long long chunk() const {
-    return (n + gridDim.x - 1) / gridDim.x;
+    return (n + blocks() - 1) / blocks();
   }
   __device__ long long lo() const {
-    const long long x = (long long)blockIdx.x * chunk();
+    if (!mine()) return n;
+    const long long x = rank() * chunk();
     return x < n ? x : n;
   }
   __device__ long long hi() const {
@@ -248,8 +273,8 @@ struct ChunkScan {
                           int32_t* ws) const {
     int32_t ex[K], sum[K];
     block_excl_k<K>(acc, ex, sum, ws);
-    if (threadIdx.x == 0)
-      for (int c = 0; c < K; ++c) tot[(long long)blockIdx.x * K + c] = sum[c];
+    if (threadIdx.x == 0 && mine())
+      for (int c = 0; c < K; ++c) tot[rank() * K + c] = sum[c];
   }
   template <class V>
   __device__ void reduce_stage(int32_t* tot, int32_t* ws, V val) const {
@@ -272,10 +297,10 @@ struct ChunkScan {
                           int32_t* all) const {
     int32_t v[2 * K], ex[2 * K], sum[2 * K];
     for (int c = 0; c < 2 * K; ++c) v[c] = 0;
-    for (long long b = threadIdx.x; b < gridDim.x; b += kThreads)
+    for (long long b = threadIdx.x; b < blocks(); b += kThreads)
       for (int c = 0; c < K; ++c) {
         const int32_t x = ld(tot + b * K + c);
-        if (b < blockIdx.x) v[c] = add32(v[c], x);
+        if (b < rank()) v[c] = add32(v[c], x);
         v[K + c] = add32(v[K + c], x);
       }
     block_excl_k<2 * K>(v, ex, sum, ws);

@@ -1,7 +1,7 @@
 """What the wrappers of the hand-written kernels in csrc/block.cu and
 csrc/compact.cu share (the Python side of csrc/grid.cuh): the operand
-checks, the ctypes typing of a kernel library's C entry points, and one
-launching entry point's call on the caller's stream with its error raised
+checks, a stage stamp buffer's pointer, the ctypes typing of a kernel
+library's C entry points, and one launching entry point's call on the caller's stream with its error raised
 and its launch counted.
 """
 
@@ -38,6 +38,18 @@ def cuda_device(t: torch.Tensor, kernel: str) -> torch.device:
         raise ValueError(f"the {kernel} kernel needs CUDA tensors, got "
                          f"{t.device}")
     return t.device
+
+
+def stamp_ptr(stamps, n_stages: int, dev) -> int | None:
+    """A stage stamp buffer's pointer (None: no stamps): int64
+    (n_stages + 1,) on dev (csrc/grid.cuh Stamps: stage k runs from stamp
+    k to stamp k + 1)."""
+    if stamps is None:
+        return None
+    if stamps.dtype != torch.int64 or tuple(stamps.shape) != (
+            n_stages + 1,) or stamps.device != dev:
+        raise ValueError(f"stamps must be int64 ({n_stages + 1},) on {dev}")
+    return stamps.data_ptr()
 
 
 def typed_lib(name: str, entry_points: dict):

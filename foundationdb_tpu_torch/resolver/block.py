@@ -34,6 +34,7 @@ from ._launch import (
     run_entry,
     typed_lib,
 )
+from ._launch import stamp_ptr as _stamp_ptr
 from ._ops import (
     I32,
     I32_INF,
@@ -52,6 +53,12 @@ from .packing import MODE_EXPLICIT, MODE_INCREMENT, PAD_WORD, FusedLayout
 LAUNCHES = {"decode": 0, "phase1": 0, "phase3": 0}
 
 _c_ptr = ctypes.c_void_p
+
+# The stages that each kernel stamps where the caller passes a stamp
+# buffer (csrc/grid.cuh Stamps): stage k runs from stamp k to stamp k + 1,
+# so the buffer holds one int64 more than stages.
+DECODE_STAGES = ("reduce", "rows")
+PHASE3_STAGES = ("name", "reduce", "compact", "merge", "tree")
 
 
 # ------------------------------------------------------------- decode
@@ -177,8 +184,9 @@ def decode_fused(fused, *, lay: FusedLayout):
     return decode_fused_launch(fused, lay=lay)
 
 
-def decode_fused_launch(fused, *, lay: FusedLayout):
-    """decode_fused's kernel on a CUDA tensor."""
+def decode_fused_launch(fused, *, lay: FusedLayout, stamps=None):
+    """decode_fused's kernel on a CUDA tensor; stamps, if given, gets its
+    stage stamps (DECODE_STAGES)."""
     dev = cuda_device(fused, "decode")
     W1, P2, R, Wr, T = lay.n_words + 1, lay.P2, lay.R, lay.Wr, lay.T
     lib = _lib()
@@ -192,7 +200,8 @@ def decode_fused_launch(fused, *, lay: FusedLayout):
     w_valid, too_old = bools[:Wr], bools[Wr:]
     _run(lib, "fdb_block_decode", dev, "decode", fused.data_ptr(),
          smat.data_ptr(), rtxn.data_ptr(), rsnap.data_ptr(), wtxn.data_ptr(),
-         w_valid.data_ptr(), too_old.data_ptr(), scratch.data_ptr(), lw,
+         w_valid.data_ptr(), too_old.data_ptr(), scratch.data_ptr(),
+         _stamp_ptr(stamps, len(DECODE_STAGES), dev), lw,
          shapes=f"n_words={lay.n_words} P2={P2} R={R} Wr={Wr} T={T}")
     return (smat, *_views(fused, lay)[:4], rtxn, rsnap, wtxn, w_valid,
             too_old, *_scalars(fused, lay))
@@ -438,19 +447,21 @@ def phase3(hmat, counts, btree, n, *, smat, s_begin, s_end, wtxn, w_valid,
     return phase3_launch(ts, K=K, NB=NB, B=B)
 
 
-def phase3_launch(ts: dict, *, K: int, NB: int, B: int):
-    """phase3's kernel on CUDA tensors (phase3's operands by name)."""
+def phase3_launch(ts: dict, *, K: int, NB: int, B: int, stamps=None):
+    """phase3's kernel on CUDA tensors (phase3's operands by name); stamps,
+    if given, gets its stage stamps (PHASE3_STAGES)."""
     dev = cuda_device(ts["hmat"], "phase3")
     lib = _lib()
     W1, P2 = ts["smat"].shape
     Wr, T = ts["s_begin"].shape[0], ts["conflict"].shape[0]
     n_out = torch.empty((), dtype=I32, device=dev)
     st_aux = torch.empty(T + 6, dtype=torch.int8, device=dev)
-    scratch = torch.empty(lib.fdb_block_phase3_scratch_ints(P2, Wr, K, B),
-                          dtype=I32, device=dev)
-    ptrs = (_c_ptr * 22)(*(t.data_ptr() for t in ts.values()),
+    scratch = torch.empty(lib.fdb_block_phase3_scratch_ints(
+        W1 - 1, P2, Wr, T, K, NB, B), dtype=I32, device=dev)
+    ptrs = (_c_ptr * 23)(*(t.data_ptr() for t in ts.values()),
                          n_out.data_ptr(), st_aux.data_ptr(),
-                         scratch.data_ptr())
+                         scratch.data_ptr(),
+                         _stamp_ptr(stamps, len(PHASE3_STAGES), dev))
     _run(lib, "fdb_block_phase3", dev, "phase3", ptrs, W1 - 1, P2, Wr, T, K,
          NB, B, shapes=f"W={W1 - 1} P2={P2} Wr={Wr} T={T} K={K} NB={NB} "
          f"B={B}")
@@ -464,13 +475,13 @@ def phase3_launch(ts: dict, *, K: int, NB: int, B: int):
 # and the stream are c_void_p; as a c_int ctypes would cut them to 32 bits.
 _LAYOUT = ctypes.POINTER(ctypes.c_longlong)
 ENTRY_POINTS = {
-    "fdb_block_decode": (ctypes.c_int, [*([_c_ptr] * 8), _LAYOUT, _c_ptr]),
+    "fdb_block_decode": (ctypes.c_int, [*([_c_ptr] * 9), _LAYOUT, _c_ptr]),
     "fdb_block_decode_scratch_ints": (ctypes.c_longlong, [_LAYOUT]),
     "fdb_block_phase1": (ctypes.c_int, [*([_c_ptr] * 11),
                                         *([ctypes.c_int] * 5), _c_ptr]),
     "fdb_block_phase3": (ctypes.c_int, [ctypes.POINTER(_c_ptr),
                                         *([ctypes.c_int] * 7), _c_ptr]),
-    "fdb_block_phase3_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "fdb_block_phase3_scratch_ints": (ctypes.c_longlong, [ctypes.c_int] * 7),
     "fdb_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

@@ -39,6 +39,7 @@ from ._launch import (
     run_entry,
     typed_lib,
 )
+from ._launch import stamp_ptr as _stamp_ptr
 from ._ops import (
     I32,
     _arange,
@@ -99,17 +100,6 @@ def ranks_tiers(words) -> list[str]:
     return [RANKS_TIERS.get(x & 3, str(x))
             + ("+rewalked" if x & RANKS_REWALKED else "")
             for x in words if x]
-
-
-def _stamp_ptr(stamps, n_stages: int, dev) -> int | None:
-    """The stamp buffer's pointer (None: no stamps): int64 (n_stages + 1,)
-    on dev."""
-    if stamps is None:
-        return None
-    if stamps.dtype != torch.int64 or tuple(stamps.shape) != (
-            n_stages + 1,) or stamps.device != dev:
-        raise ValueError(f"stamps must be int64 ({n_stages + 1},) on {dev}")
-    return stamps.data_ptr()
 
 
 # ------------------------------------------------------------- densify

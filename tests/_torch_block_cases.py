@@ -117,3 +117,155 @@ def fill_raw(cs, blk, version):
     n_new = cs.B - 1 - int(cs._fills[blk])
     us = [key + bytes([1, i + 1]) for i in range(n_new)]
     return [(version - 1, [], list(zip(us[:-1], us[1:])))]
+
+
+# ------------------------------------------------- the kernels' edges
+
+# The layout of the edge cases' larger batches (minimum R, Wr, T, Er, Ew):
+# room for 300 txns of 3 reads and 2 writes, every end explicit, and one
+# txn of 600 reads; the decode's and phase 3's grids then span several
+# blocks and chunks on a card.
+EDGE_CAPS = (1280, 640, 320, 1280, 640)
+SMALL_CAPS = (100, 64, 64, 32, 32)   # P2 352 past the rows' 336 slots
+
+# One fast step from a grown state for each edge of the block kernels
+# (csrc/block.cu's decode and phase 3): name -> B.
+EDGE_CASES = {
+    # write endpoints many enough that their compacted runs cross the
+    # chunk edges of phase 3's scan (and the decode's rows, its txns)
+    "many_writes": 32,
+    # a txn of 600 reads and 2 writes between txns owning no rows
+    "big_txn_among_empty": 32,
+    # every read and write end explicit, in runs across the row chunks
+    "explicit_runs": 32,
+    # a write range covering whole blocks: touched blocks with no
+    # endpoint of their own, their entries all covered
+    "covering_write": 32,
+    # one write whose end is the first endpoint of its touched block and
+    # the last compacted slot (its begin the first at c = 0)
+    "spanning_write": 32,
+    # no writes (nw = 0: every write row a pad, no touched block)
+    "no_writes": 32,
+    # every write in one block, K = 1
+    "one_block": 32,
+    # the touched list without its last block (K = n_g, no pad rows): that
+    # block's endpoints lie past the last touched id and clip into it
+    "clip_past_last": 32,
+    # two touched leaves that are siblings: every ancestor shared
+    "siblings": 32,
+    # a write in every live block: more touched leaves than a warp holds,
+    # in runs that merge into one a few levels up the tree
+    "many_leaves": 8,
+    # block sizes: the merge areas in shared memory (8) and in the
+    # scratch (512, 1,024)
+    "b8": 8,
+    "b512": 512,
+    "b1024": 1024,
+}
+
+
+def edge_state(name, seed, device="cpu"):
+    """The grown state of an edge case: (cs, rng, version)."""
+    B = EDGE_CASES[name]
+    return grown(seed, B=B, capacity=max(4096, 8 * B), space=2000,
+                 device=device)
+
+
+def block_key(cs, blk, i):
+    """A novel key inside live block blk: its fence key extended."""
+    fw = cs.fences.cpu().numpy()
+    key = ppack.unpack_key(fw[: cs.n_words, blk], int(fw[cs.n_words, blk]))
+    return key + bytes([1, i + 1])
+
+
+def edge_batch(name, cs, rng, v):
+    """The edge case's batch at version v: (raw, caps, K or None for the
+    fast path's own, drop_last: the touched list without its last
+    block)."""
+    hot = history_keys(cs)
+    if name == "many_writes":   # writes in one txn of 8: no block fills
+        raw = raw_batch(rng, 300, v, space=2000, lag=150, hot=hot)
+        return [(s, rr, wr if i % 8 == 0 else [])
+                for i, (s, rr, wr) in enumerate(raw)], EDGE_CAPS, 64, False
+    if name == "big_txn_among_empty":
+        big = [(k8(a), k8(a) + b"\x00")
+               for a in rng.integers(0, 2000, 600)]
+        w = [(k8(int(hot[1])), k8(int(hot[1]) + 1))]
+        raw = ([(v - 5, [], [])] * 40 + [(v - 3, big, w)]
+               + [(v - 5, [], [])] * 40
+               + raw_batch(rng, 30, v, space=2000, lag=150))
+        return raw, EDGE_CAPS, 64, False
+    if name == "explicit_runs":
+        raw = []
+        for i in range(300):
+            a = [int(x) for x in rng.integers(0, 2000, 4)]
+            raw.append((v - int(rng.integers(0, 150)),
+                        [(k8(x), k8(x + 3)) for x in a[:3]],
+                        [(k8(a[3]), k8(a[3] + 2))] if i % 12 == 0 else []))
+        return raw, EDGE_CAPS, 64, False
+    if name == "covering_write":
+        a = int(hot[2])
+        return (raw_batch(rng, 20, v, space=2000, lag=150)
+                + [(v - 1, [], [(k8(a), k8(a + 700))])]), SMALL_CAPS, 64, \
+            False
+    if name == "spanning_write":
+        return [(v - 1, [], [(block_key(cs, 3, 0), block_key(cs, 5, 0))])], \
+            SMALL_CAPS, 8, False
+    if name == "no_writes":
+        raw = raw_batch(rng, 20, v, space=2000, lag=150, span=300)
+        return [(s, rr, []) for s, rr, _ in raw], SMALL_CAPS, 8, False
+    if name == "one_block":
+        ws = [(block_key(cs, 4, i), block_key(cs, 4, i + 1))
+              for i in range(0, 6, 2)]
+        return [(v - 1, [], ws[:2]), (v - 2, ws[2:], ws[2:])], SMALL_CAPS, \
+            1, False
+    if name == "clip_past_last":
+        ws = [(block_key(cs, b, 0), block_key(cs, b, 1)) for b in (2, 6, 9)]
+        return [(v - 1, [], ws)], SMALL_CAPS, 2, True
+    if name == "siblings":
+        ws = [(block_key(cs, b, i), block_key(cs, b, i + 1))
+              for b in (6, 7) for i in (0, 2)]
+        return [(v - 1, [], ws[:2]), (v - 1, ws[:1], ws[2:])], SMALL_CAPS, \
+            8, False
+    if name == "many_leaves":   # two novel keys a block: no block fills
+        fw = cs.fences.cpu().numpy()
+        live = int((fw[cs.n_words] != ppack.PAD_WORD).sum())
+        ws = [(block_key(cs, b, 0), block_key(cs, b, 1))
+              for b in range(1, live)]   # block 0's fence is the empty key
+        return [(v - 1 - i, [], ws[i::4]) for i in range(4)], SMALL_CAPS, \
+            None, False
+    # the block sizes: a few txns, few enough that no block overflows
+    return raw_batch(rng, 6, v, space=2000, lag=150, hot=hot), SMALL_CAPS, \
+        None, False
+
+
+def edge_step_buf(cs, pb, version, oldest, K, drop_last):
+    """The fast step's fused buffer of an edge case (fast_buf's, with the
+    case's K and touched list). Returns (buf, K, n_touched)."""
+    touched, _ = gpu._touched_blocks(cs._fences_enc, pb.wb_enc, pb.we_enc,
+                                     pb.n_writes)
+    if drop_last:
+        touched = touched[:-1]
+    if K is None:
+        K = min(ppack.next_bucket(max(len(touched), 1)), cs.NB)
+    assert len(touched) <= K
+    buf = gpu.block_step_buf(pb.buf, pb.layout, touched, K, cs.NB,
+                             version - cs._base, oldest - cs._base,
+                             pb.base - cs._base)
+    return buf, K, len(touched)
+
+
+def positions_out_of_range(buf, lay):
+    """Move some rows' sorted positions where packing.py never puts them
+    (the decode's exactness there): past P2 and below -P2 (dropped), and
+    into the slots [2 (R + Wr), P2) that no row owns (wrapped from a
+    negative one too), which leaves the rows' own slots empty. Needs
+    P2 >= 2 (R + Wr) + 5 and 4 reads and a write."""
+    assert lay.P2 >= 2 * (lay.R + lay.Wr) + 5
+    buf = buf.copy()
+    buf[lay.off_q_begin + 0] = lay.P2 + 3
+    buf[lay.off_q_end + 1] = -(lay.P2 + 2)
+    buf[lay.off_q_end + 2] = lay.P2 - 1
+    buf[lay.off_q_begin + 3] = -5
+    buf[lay.off_s_begin + 0] = lay.P2
+    return buf

@@ -6,7 +6,8 @@ kernels are held to on a card (tests/test_torch_block_card.py). Here:
 
 - block.decode_fused against tpu._decode_fused on buffers from both
   packers (asserted equal): keyAfter, increment and explicit end modes,
-  pad rows, narrow and wide keys;
+  pad rows, narrow and wide keys, sorted slots past the rows' and rows'
+  positions out of range;
 - gpu._resolve_block_kernel_impl, which runs block.phase1 and
   block.phase3 around the probe and phase 2, against
   tpu._resolve_block_kernel_impl on one fast step: every output (hmat,
@@ -35,10 +36,15 @@ import pytest
 import torch
 
 from _torch_block_cases import (
+    EDGE_CASES,
+    edge_batch,
+    edge_state,
+    edge_step_buf,
     fill_raw,
     grown,
     history_keys,
     k8,
+    positions_out_of_range,
     raw_batch,
     txns,
 )
@@ -90,6 +96,9 @@ DECODE_CASES = {
     "narrow": (3, 0, (96, 64, 64, 32, 32)),
     "narrow_no_explicit_slots": (3, 0, (96, 64, 64)),
     "wide": (10, 28, (80, 48, 48, 24, 24)),
+    # P2 352 past the rows' 336 slots, and rows' positions out of range
+    # (positions_out_of_range)
+    "pad_slots_positions_out": (3, 0, (100, 64, 64, 32, 32)),
 }
 
 
@@ -108,8 +117,11 @@ def test_decode_fused_matches_jax(case, seed):
                 [w for w in wr if derivable(w)]) for s, rr, wr in raw]
     pb = packed(raw, 4000, n_words, caps)
     pb.set_scalars(1234, 45)
-    want = jax_decode(pb.layout.key())(jnp.asarray(pb.buf))
-    got = block.decode_fused(torch.from_numpy(pb.buf), lay=pb.layout)
+    buf = pb.buf
+    if case == "pad_slots_positions_out":
+        buf = positions_out_of_range(buf, pb.layout)
+    want = jax_decode(pb.layout.key())(jnp.asarray(buf))
+    got = block.decode_fused(torch.from_numpy(buf), lay=pb.layout)
     assert len(got) == len(want) == 14
     for i, (g, w) in enumerate(zip(got, want)):
         eq(g, w, f"output {i}")
@@ -145,18 +157,16 @@ def state_arrays(cs):
             cs.btree.numpy().copy(), cs.fences.numpy().copy(), int(cs.n))
 
 
-def step_both(cs, raw, version, oldest, caps, K, jstate=None):
+def step_both(cs, raw, version, oldest, caps, K, jstate=None,
+              drop_last=False):
     """One fast step on the port's state (in place) and on a JAX copy
     (`jstate`, carried by the caller; fresh from the port's state
-    otherwise). Returns (port outputs, JAX outputs, n_touched)."""
+    otherwise), K touched rows (None: the fast path's own), the touched
+    list without its last block where drop_last. Returns (port outputs,
+    JAX outputs, n_touched, the fused buffer, its layout)."""
     pb = ppack.pack_batch(txns(raw, PTxn, PKeyRange), cs.oldest_version,
                           cs.n_words, caps=caps)
-    touched, _ = gpu._touched_blocks(cs._fences_enc, pb.wb_enc, pb.we_enc,
-                                     pb.n_writes)
-    assert len(touched) <= K
-    buf = gpu.block_step_buf(pb.buf, pb.layout, touched, K, cs.NB,
-                             version - cs._base, oldest - cs._base,
-                             pb.base - cs._base)
+    buf, K, n_t = edge_step_buf(cs, pb, version, oldest, K, drop_last)
     hmat, counts, btree, fences, n = state_arrays(cs)
     if jstate is None:
         jstate = (jnp.asarray(hmat), jnp.asarray(counts),
@@ -168,7 +178,7 @@ def step_both(cs, raw, version, oldest, caps, K, jstate=None):
         cs.hmat, cs.counts, cs.btree, cs.fences, cs.n, torch.from_numpy(buf),
         lay=pb.layout, K=K, NB=cs.NB, B=cs.B)
     cs.n = got[3]
-    return got, want, len(touched), buf, pb.layout
+    return got, want, n_t, buf, pb.layout
 
 
 def check(got, want):
@@ -202,8 +212,17 @@ def case_raw(case, cs, rng, v):
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("case", ["one_block_reads", "spanning_reads",
                                   "history_and_sibling_writes",
-                                  "uncommitted_writes"])
+                                  "uncommitted_writes", *EDGE_CASES])
 def test_block_kernel_matches_jax(case, seed):
+    if case in EDGE_CASES:   # _torch_block_cases.EDGE_CASES
+        cs, rng, v = edge_state(case, seed)
+        v += 50
+        raw, caps, K, drop_last = edge_batch(case, cs, rng, v)
+        got, want, _, _, _ = step_both(cs, raw, v, v - 300, caps, K,
+                                       drop_last=drop_last)
+        check(got, want)
+        assert int(got[4][-2]) == 0   # no block overflowed
+        return
     cs, rng, v = grown(seed, capacity=4096, space=2000)
     v += 50
     raw = case_raw(case, cs, rng, v)
@@ -301,9 +320,24 @@ def test_kernel_entry_points_match_the_wrapper():
         block.ENTRY_POINTS)
     for name, (restype, argtypes) in block.ENTRY_POINTS.items():
         assert c_signature(src, name) == (restype, argtypes), name
-    # phase 3's pointer array: the operands, then n_out, st_aux, scratch
+    # phase 3's pointer array: the operands, then n_out, st_aux, scratch,
+    # stamps
+    n_ptrs = len(block.PHASE3_OPERANDS) + 4
     idx = sorted(int(i) for i in re.findall(r"\)ptrs\[(\d+)\]", src))
-    assert idx == list(range(len(block.PHASE3_OPERANDS) + 3))
+    assert idx == list(range(n_ptrs))
+    # the stamp buffer: phase 3's last pointer, decode's ninth argument;
+    # each kernel stamps at its start, after each barrier and at its end,
+    # once for every stage the wrapper names
+    assert f"a.stamps = (int64_t*)ptrs[{n_ptrs - 1}];" in src
+    body = src[src.index(" fdb_block_decode("):]
+    assert re.search(r"void\* scratch,\s*void\* stamps,", body)
+    assert "a.stamps = (int64_t*)stamps;" in body
+    for kernel, stages in (("decode_kernel", block.DECODE_STAGES),
+                           ("phase3_kernel", block.PHASE3_STAGES)):
+        start = src.index(f" {kernel}(")
+        body = src[start:src.index("\n}\n", start)]
+        assert "Stamps st(a.stamps);" in body and "g.finish(st);" in body
+        assert body.count("sync(st)") == len(stages) - 1, kernel
     # decode's layout words
     assert len(block.layout_words(
         ppack.FusedLayout(3, 64, 16, 8, 8, 2, 2))) == 18

@@ -12,7 +12,11 @@ to history keys and to each other, B of 8 to 64, wide keys, fast steps
 with pad rows in the touched list and one at a lower version (a falling
 leaf, which takes the level-by-level tree update), a block filled to B -
 1, chains at B 512 and 1,024 (the compaction kernels held to their plain
-versions too), and the wrappers' refusals. The kernels have no CPU mode: without a
+versions too), each of _torch_block_cases.EDGE_CASES (the kernels'
+edges: chunk edges, a txn owning many rows, explicit-end runs, covering
+and spanning writes, no writes, K = 1, endpoints past the last touched
+id, sibling leaves, B 8 to 1,024), the stage stamps, and the wrappers'
+refusals. The kernels have no CPU mode: without a
 card every case skips. Run on a machine with a card:
 
     python -m pytest tests/test_torch_block_card.py -m cuda -q
@@ -26,6 +30,10 @@ import pytest
 import torch
 
 from _torch_block_cases import (
+    EDGE_CASES,
+    edge_batch,
+    edge_state,
+    edge_step_buf,
     fast_buf,
     fill_raw,
     grown,
@@ -36,6 +44,7 @@ from _torch_block_cases import (
 from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
 from foundationdb_tpu_torch.kv.keys import KeyRange
 from foundationdb_tpu_torch.resolver import block, gpu
+from foundationdb_tpu_torch.resolver import packing as ppack
 from foundationdb_tpu_torch.resolver.cpu import ConflictSetCPU
 from foundationdb_tpu_torch.resolver.types import TxnConflictInfo
 from test_torch_compact_card import CheckedCompact
@@ -246,3 +255,81 @@ def test_large_blocks_chain_kernels_equal_plain(card, B, seed):
     assert chk.calls["phase3"] == cs.fast_resolves
     assert cchk.launches() == cchk.calls == {
         k: cs.compactions for k in cchk.calls}
+
+
+def edge_step(card, case, seed=0):
+    """One fast step of an edge case on the card (its state grown there),
+    every kernel call held to its plain version; returns the Checked
+    block and the step's operands by kernel (decode's fused buffer and
+    layout, phase 3's state before the call and keywords)."""
+    cs, rng, v = edge_state(case, seed, device=card)
+    v += 50
+    raw, caps, K, drop_last = edge_batch(case, cs, rng, v)
+    pb = ppack.pack_batch(port_txns(raw), cs.oldest_version, cs.n_words,
+                          caps=caps)
+    buf, K, _ = edge_step_buf(cs, pb, v, v - 300, K, drop_last)
+    kept = {}
+    with Checked() as chk:
+        real_p3 = block.phase3
+
+        def p3(hmat, counts, btree, n, **kw):
+            kept["phase3"] = (hmat.clone(), counts.clone(), btree.clone(), n,
+                              kw)
+            return real_p3(hmat, counts, btree, n, **kw)
+
+        block.phase3 = p3
+        fused = torch.from_numpy(buf).to(card)
+        out = gpu._resolve_block_kernel_impl(
+            cs.hmat, cs.counts, cs.btree, cs.fences, cs.n, fused,
+            lay=pb.layout, K=K, NB=cs.NB, B=cs.B)
+    kept["decode"] = (fused, pb.layout)
+    assert int(out[4][-2]) == 0   # no block overflowed
+    return chk, kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_cases_equal_plain(card, case):
+    """Each edge case's fast step on the card (both seeds): decode, phase
+    1 and phase 3 equal to their plain versions, one launch each."""
+    for seed in (0, 1):
+        chk, _ = edge_step(card, case, seed)
+        assert chk.calls == {"decode": 1, "phase1": 1, "phase3": 1}
+        assert chk.launches() == chk.calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["many_writes", "spanning_write", "b512"])
+def test_stage_stamps(card, case):
+    """decode and phase 3 with a stamp buffer: one stamp at the start and
+    one after each stage (block.DECODE_STAGES, PHASE3_STAGES), never
+    falling, outputs equal to the plain versions'; a buffer of the wrong
+    length is refused."""
+    _, kept = edge_step(card, case)
+    fused, lay = kept["decode"]
+    hmat, counts, btree, n, kw = kept["phase3"]
+
+    def p3(st):
+        state = (hmat.clone(), counts.clone(), btree.clone())
+        ts = dict(zip(block.PHASE3_OPERANDS, (*state, n, *(
+            kw[k] for k in block.PHASE3_OPERANDS[4:]))))
+        return (*block.phase3_launch(ts, K=kw["K"], NB=kw["NB"], B=kw["B"],
+                                     stamps=st), *state)
+
+    def p3_plain():
+        state = (hmat.clone(), counts.clone(), btree.clone())
+        return (*block.phase3_ref(*state, n, **kw), *state)
+
+    for stages, run, plain in (
+            (block.DECODE_STAGES,
+             lambda st: block.decode_fused_launch(fused, lay=lay, stamps=st),
+             lambda: block.decode_fused_ref(fused, lay=lay)),
+            (block.PHASE3_STAGES, p3, p3_plain)):
+        st = torch.full((len(stages) + 1,), -1, dtype=torch.int64,
+                        device=card)
+        for i, (g, w) in enumerate(zip(run(st), plain())):
+            same(g, w, f"{stages[0]} output {i}")
+        t = st.cpu()
+        assert (t > 0).all() and (t[1:] >= t[:-1]).all(), t
+        with pytest.raises(ValueError, match="stamps"):
+            run(st[:-1])
